@@ -1,0 +1,525 @@
+"""IVF + RaBitQ index on the card (port of ``rabitq_tpu/index/ivf.py``).
+
+Build: k-means on the device (``ops/kmeans.py``), FhtKac rotation (the FHT
+kernel), residual quantization in row chunks (``index/build.py``) and the
+cluster-sorted fused layout (``index/layout.py``). Search: the fused EXACT
+scan (``index/scan.py``) around the bin kernel.
+
+This slice serves ``scan_dtype`` "fused"/"fused8" with ``total_bits`` 2..7
+(``ex_bits`` 1..6, the TOTAL int8 plane) and planes up to 2048 columns.
+Where the JAX package would quietly switch to a path the port does not have
+yet, the port raises ``NotImplementedError`` naming the ``ROADMAP.md`` item.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from ..errors import DimensionMismatch, EmptyIndex, InvalidConfig
+from ..ops import kmeans as kmeans_ops
+from ..ops.fused_scan import (
+    EXACT_MAX_WIDTH,
+    TB,
+    TN,
+    expected_tile_cost,
+    fused_geometry_ok,
+    probed_tile_bound,
+    tile_cluster_blocks,
+)
+from ..ops.quantize import compute_const_scaling_factor
+from ..ops.rotation import Rotator, deserialize_rotator, make_rotator
+from ..types import Metric, RotatorType, SearchParams, SearchResult
+from ..utils.device import resolve_device, synchronize
+from ..utils.logging import get_logger, timed
+from .build import build_codes_device, exact_t_rows
+from .layout import DeviceLayout, assemble_device_layout, cluster_of_rows, pad_rows
+from .scan import (
+    decode_queries,
+    ex_plane_is_total,
+    fused_exact_scan,
+    is_fused,
+    pack_int4_queries,
+    probe_k_bucket,
+)
+
+_log = get_logger("ivf")
+
+
+def _pad_pow2(b: int) -> int:
+    p = 1
+    while p < b:
+        p *= 2
+    return p
+
+
+def allowed_id_table(filter_ids: np.ndarray, max_id: int) -> np.ndarray:
+    """Allowed-id set (id array or bool mask over the id domain) -> bool
+    lookup over [0, max_id] (``ivf.rs:1723-1730``)."""
+    filter_ids = np.asarray(filter_ids)
+    if filter_ids.dtype == bool:
+        return filter_ids
+    table = np.zeros(max_id + 1, bool)
+    in_range = filter_ids[(filter_ids >= 0) & (filter_ids <= max_id)]
+    table[in_range.astype(np.int64)] = True
+    return table
+
+
+class IvfRabitqIndex:
+    def __init__(
+        self,
+        dim: int,
+        padded_dim: int,
+        metric: Metric,
+        rotator: Rotator,
+        ex_bits: int,
+        device: "str | torch.device | None" = None,
+        scan_dtype: str = "fused8",
+    ):
+        _check_scan_config(scan_dtype, ex_bits, padded_dim)
+        self.dim = dim
+        self.padded_dim = padded_dim
+        self.metric = metric
+        self.rotator = rotator
+        self.ex_bits = ex_bits
+        self.device = resolve_device(device)
+        self.scan_dtype = scan_dtype
+        # query upload encoding: "f32", "bf16", "int8" (per-query scale,
+        # a quarter of the bytes) or "int4" (nibble pairs, an eighth)
+        self.upload_dtype: str = "f32"
+        self.build_report: dict | None = None
+        self._ids: np.ndarray | None = None  # [N] original ids, cluster-sorted
+        self._offsets: np.ndarray | None = None  # [C+1] cluster row ranges
+        self._layout: DeviceLayout | None = None
+        self._c_blk: torch.Tensor | None = None
+        self._max_tiles_cache: dict = {}
+
+    # ------------------------------------------------------------------
+    # construction
+    # ------------------------------------------------------------------
+
+    @classmethod
+    def train(
+        cls,
+        data: "np.ndarray | torch.Tensor",
+        nlist: int,
+        total_bits: int,
+        metric: Metric = Metric.L2,
+        rotator_type: RotatorType = RotatorType.FhtKacRotator,
+        seed: int = 42,
+        use_faster_config: bool = False,
+        kmeans_iters: int = 30,
+        scan_dtype: str = "fused8",
+        kmeans_dtype: str = "auto",
+        kmeans_tol: float = 1e-3,
+        device: "str | torch.device | None" = None,
+    ) -> "IvfRabitqIndex":
+        """Train from scratch (``ivf.rs:950-1021``): k-means on the raw
+        rows, rotate, quantize residuals per cluster. ``data`` is a host
+        array or a tensor (already on ``device`` saves the upload).
+        ``device=None`` means the card."""
+        dev = resolve_device(device)
+        n, dim = data.shape
+        if n == 0:
+            raise InvalidConfig("training data must be non-empty")
+        if nlist <= 0:
+            raise InvalidConfig("nlist must be positive")
+        if not (1 <= total_bits <= 16):
+            raise InvalidConfig("total_bits must be between 1 and 16")
+        if nlist > n:
+            raise InvalidConfig("nlist cannot exceed number of vectors")
+        _check_scan_config(scan_dtype, total_bits - 1, None)
+        t0 = time.perf_counter()
+        data_dev = torch.as_tensor(data, dtype=torch.float32).to(dev)
+        synchronize(dev)
+        t_upload = time.perf_counter()
+        if kmeans_dtype == "auto":
+            kmeans_dtype = kmeans_ops.auto_assign_dtype(n, dim)
+        with timed(f"kmeans n={n} k={nlist}", _log):
+            km = kmeans_ops.run_kmeans(
+                data_dev, nlist, niter=kmeans_iters, seed=seed,
+                assign_dtype=kmeans_dtype, tol=kmeans_tol, with_report=True,
+            )
+        t_kmeans = time.perf_counter()
+        index = cls._build(
+            data, data_dev, km.centroids, km.assignments, total_bits, metric,
+            rotator_type, seed, use_faster_config, scan_dtype, dev,
+        )
+        synchronize(dev)
+        t_end = time.perf_counter()
+        index.build_report = {
+            "upload_s": round(t_upload - t0, 2),
+            "kmeans_s": round(t_kmeans - t_upload, 2),
+            "kmeans": {**(km.report or {}), "iters": km.iters},
+            "quantize_s": round(t_end - t_kmeans, 2),
+            "total_s": round(t_end - t0, 2),
+        }
+        return index
+
+    @classmethod
+    def train_with_clusters(
+        cls,
+        data: np.ndarray,
+        centroids: np.ndarray,
+        assignments: np.ndarray,
+        total_bits: int,
+        metric: Metric = Metric.L2,
+        rotator_type: RotatorType = RotatorType.FhtKacRotator,
+        seed: int = 42,
+        use_faster_config: bool = False,
+        scan_dtype: str = "fused8",
+        device: "str | torch.device | None" = None,
+    ) -> "IvfRabitqIndex":
+        """Build with an external clustering (``ivf.rs:1025-1103``)."""
+        dev = resolve_device(device)
+        data = np.ascontiguousarray(data, np.float32)
+        centroids = np.ascontiguousarray(centroids, np.float32)
+        assignments = np.asarray(assignments, np.int64)
+        if data.size == 0:
+            raise InvalidConfig("training data must be non-empty")
+        if centroids.size == 0:
+            raise InvalidConfig("centroids must be non-empty")
+        if assignments.shape[0] != data.shape[0]:
+            raise InvalidConfig("assignments length must match data length")
+        if not (1 <= total_bits <= 16):
+            raise InvalidConfig("total_bits must be between 1 and 16")
+        if centroids.shape[1] != data.shape[1]:
+            raise InvalidConfig("centroids must match the data dimensionality")
+        if centroids.shape[0] > data.shape[0]:
+            raise InvalidConfig("nlist cannot exceed number of vectors")
+        if assignments.min(initial=0) < 0 or assignments.max(initial=0) >= centroids.shape[0]:
+            raise InvalidConfig("assignments reference invalid cluster ids")
+        _check_scan_config(scan_dtype, total_bits - 1, None)
+        return cls._build(
+            data, torch.from_numpy(data).to(dev), torch.from_numpy(centroids).to(dev),
+            assignments, total_bits, metric, rotator_type, seed, use_faster_config,
+            scan_dtype, dev,
+        )
+
+    @classmethod
+    def _build(
+        cls, data, data_dev, centroids, assignments, total_bits, metric,
+        rotator_type, seed, use_faster_config, scan_dtype, dev,
+    ) -> "IvfRabitqIndex":
+        n, dim = data_dev.shape
+        nlist = centroids.shape[0]
+        ex_bits = total_bits - 1
+        rotator = make_rotator(dim, rotator_type, seed)
+        padded_dim = rotator.padded_dim
+        _check_scan_config(scan_dtype, ex_bits, padded_dim)
+        with timed("rotate centroids", _log):
+            rotated_centroids = rotator.rotate(centroids)
+
+        # cluster-sorted row order, ascending original id within a cluster
+        assignments = np.asarray(assignments, np.int64)
+        order = np.argsort(assignments, kind="stable")
+        sizes = np.bincount(assignments, minlength=nlist)
+        offsets = np.zeros(nlist + 1, np.int64)
+        np.cumsum(sizes, out=offsets[1:])
+        _check_geometry(sizes)
+
+        t_const = 0.0
+        t_rows = None
+        if ex_bits > 0:
+            if use_faster_config:
+                t_const = compute_const_scaling_factor(padded_dim, ex_bits, seed, device=dev)
+            else:
+                # reference default: exact per-vector t sweep on the host
+                host = data if isinstance(data, np.ndarray) else data_dev.cpu().numpy()
+                with timed("exact t sweep", _log):
+                    t_rows = exact_t_rows(
+                        host, centroids.cpu().numpy(), assignments[order], order,
+                        rotator, ex_bits,
+                    )
+        with timed("quantize+rotate codes", _log):
+            codes = build_codes_device(
+                data_dev, rotated_centroids, assignments[order],
+                rotator=rotator, ex_bits=ex_bits, metric=metric,
+                use_t_const=use_faster_config, t_const=t_const, t_rows=t_rows,
+                order=order,
+            )
+        index = cls(dim, padded_dim, metric, rotator, ex_bits, device=dev, scan_dtype=scan_dtype)
+        index._set_layout(
+            ids=order.astype(np.int64), offsets=offsets, centroids=rotated_centroids,
+            binary=codes["binary"], ex=codes["ex"], f_add=codes["f_add"],
+            f_rescale=codes["f_rescale"], f_error=codes["f_error"],
+            f_add_ex=codes["f_add_ex"], f_rescale_ex=codes["f_rescale_ex"],
+            delta=codes["delta"], vl=codes["vl"],
+        )
+        return index
+
+    @classmethod
+    def from_host_arrays(
+        cls,
+        *,
+        dim: int,
+        padded_dim: int,
+        metric: Metric,
+        ex_bits: int,
+        rotator_type: RotatorType,
+        rotator_bytes: bytes,
+        binary_bits: np.ndarray,  # [N, Dpad] uint8 {0,1}, cluster-sorted
+        ex_codes: np.ndarray,  # [N, Dpad] raw ex codes
+        f_add: np.ndarray,
+        f_rescale: np.ndarray,
+        f_error: np.ndarray,
+        f_add_ex: np.ndarray,
+        f_rescale_ex: np.ndarray,
+        delta: np.ndarray,
+        vl: np.ndarray,
+        ids: np.ndarray,  # [N] original ids
+        cluster_offsets: np.ndarray,  # [C+1] row ranges per cluster
+        centroids: np.ndarray,  # [C, Dpad] rotated centroids
+        scan_dtype: str = "fused8",
+        device: "str | torch.device | None" = None,
+    ) -> "IvfRabitqIndex":
+        """An index over existing codes: the JAX package's index state
+        (``HostCodes`` plus the rotator's serialized bytes) as host arrays,
+        carried across so both packages search the same codes."""
+        rotator = deserialize_rotator(dim, padded_dim, rotator_type, rotator_bytes)
+        index = cls(dim, padded_dim, metric, rotator, ex_bits, device=device, scan_dtype=scan_dtype)
+        offsets = np.asarray(cluster_offsets, np.int64)
+        _check_geometry(np.diff(offsets))
+        index._set_layout(
+            ids=np.asarray(ids, np.int64), offsets=offsets,
+            centroids=np.asarray(centroids, np.float32), binary=binary_bits,
+            ex=ex_codes, f_add=f_add, f_rescale=f_rescale, f_error=f_error,
+            f_add_ex=f_add_ex, f_rescale_ex=f_rescale_ex, delta=delta, vl=vl,
+        )
+        return index
+
+    def _set_layout(self, *, ids, offsets, centroids, **planes) -> None:
+        n = int(ids.shape[0])
+        self._ids = ids
+        self._offsets = offsets
+        sizes = np.diff(offsets)
+        self._layout = assemble_device_layout(
+            n=n, ex_bits=self.ex_bits, cluster_sizes=sizes, ids=ids,
+            centroids=centroids, row_pad=TN, permute=False, device=self.device,
+            **planes,
+        )
+        n_pad = pad_rows(n, TN)
+        c_blk = tile_cluster_blocks(cluster_of_rows(sizes, n_pad), np.arange(n_pad) < n)
+        self._c_blk = torch.from_numpy(c_blk).to(self.device)
+        self._max_tiles_cache = {}
+
+    # ------------------------------------------------------------------
+    # accessors
+    # ------------------------------------------------------------------
+
+    @property
+    def layout(self) -> DeviceLayout:
+        if self._layout is None:
+            raise EmptyIndex()
+        return self._layout
+
+    def __len__(self) -> int:
+        return 0 if self._ids is None else int(self._ids.shape[0])
+
+    @property
+    def is_empty(self) -> bool:
+        return len(self) == 0
+
+    def cluster_count(self) -> int:
+        return int(self._offsets.shape[0] - 1)
+
+    # ------------------------------------------------------------------
+    # search
+    # ------------------------------------------------------------------
+
+    def search(self, query: np.ndarray, params: SearchParams) -> list[SearchResult]:
+        """Single-query search (``ivf.rs:1705-1711``)."""
+        return self.batch_search(np.asarray(query, np.float32)[None, :], params)[0]
+
+    def search_filtered(
+        self, query: np.ndarray, params: SearchParams, filter_ids: np.ndarray
+    ) -> list[SearchResult]:
+        """Filtered search (``ivf.rs:1723-1730``): only ids in ``filter_ids``
+        (an id array or a bool mask over the id domain) may be returned."""
+        return self.batch_search(
+            np.asarray(query, np.float32)[None, :], params, filter_ids=filter_ids
+        )[0]
+
+    def batch_search(
+        self,
+        queries: np.ndarray,
+        params: SearchParams,
+        filter_ids: np.ndarray | None = None,
+    ) -> list[list[SearchResult]]:
+        ids, dists = self.batch_search_arrays(queries, params, filter_ids)
+        out: list[list[SearchResult]] = []
+        for row_ids, row_d in zip(ids, dists):
+            hits = []
+            for i, dd in zip(row_ids, row_d):
+                if i < 0 or not np.isfinite(dd):
+                    continue
+                score = float(dd) if self.metric is Metric.L2 else float(-dd)
+                hits.append(SearchResult(id=int(i), score=score))
+            out.append(hits)
+        return out
+
+    def _check_queries(self, queries) -> np.ndarray:
+        if self.is_empty:
+            raise EmptyIndex()
+        queries = np.atleast_2d(np.asarray(queries, np.float32))
+        if queries.shape[1] != self.dim:
+            raise DimensionMismatch(self.dim, queries.shape[1])
+        return queries
+
+    def batch_search_arrays(
+        self,
+        queries: np.ndarray,
+        params: SearchParams,
+        filter_ids: np.ndarray | None = None,
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Array in, arrays out: (ids [B, k] int32 with -1 padding,
+        dist [B, k] f32 internal distances)."""
+        queries = self._check_queries(queries)
+        b = queries.shape[0]
+        if params.top_k <= 0:
+            return np.full((b, 0), -1, np.int32), np.full((b, 0), np.inf, np.float32)
+        row_allowed = self._scan_inputs(filter_ids)
+        q, qscale = self._pad_queries(queries, _pad_pow2(b))
+        ids, dists = self._dispatch_scan(
+            q.to(self.device), None if qscale is None else qscale.to(self.device),
+            params, row_allowed,
+        )
+        return ids.cpu().numpy()[:b], dists.cpu().numpy()[:b]
+
+    def batch_search_arrays_pipelined(
+        self,
+        queries: np.ndarray,
+        params: SearchParams,
+        batch_size: int = 1024,
+        filter_ids: np.ndarray | None = None,
+        upload_block: int | None = None,
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Search over many fixed-size blocks: each upload block is copied
+        from pinned host memory without blocking and its scans are queued
+        behind it; the results are fetched once at the end. ``upload_block``
+        (>= batch_size) sets the copy granularity, ``batch_size`` the scan
+        granularity. Results equal ``batch_search_arrays``."""
+        queries = self._check_queries(queries)
+        b_total = queries.shape[0]
+        if params.top_k <= 0:
+            return (
+                np.full((b_total, 0), -1, np.int32),
+                np.full((b_total, 0), np.inf, np.float32),
+            )
+        row_allowed = self._scan_inputs(filter_ids)
+        bs = _pad_pow2(min(batch_size, _pad_pow2(b_total)))
+        ub = bs if upload_block is None else _pad_pow2(min(max(upload_block, bs), _pad_pow2(b_total)))
+        pending = []
+        staged = []  # pinned host blocks stay alive until the final fetch
+        for s in range(0, b_total, ub):
+            host = self._pad_queries(queries[s : s + ub], ub)
+            if self.device.type == "cuda":
+                host = tuple(None if h is None else h.pin_memory() for h in host)
+                staged.append(host)
+            q, qscale = (None if h is None else h.to(self.device, non_blocking=True) for h in host)
+            for off in range(0, min(ub, b_total - s), bs):
+                pending.append(self._dispatch_scan(
+                    q[off : off + bs], None if qscale is None else qscale[off : off + bs],
+                    params, row_allowed,
+                ))
+        ids = torch.cat([p[0] for p in pending]).cpu().numpy()[:b_total]
+        dists = torch.cat([p[1] for p in pending]).cpu().numpy()[:b_total]
+        return ids, dists
+
+    def _scan_inputs(self, filter_ids: np.ndarray | None) -> torch.Tensor:
+        """Row mask of the scan: valid rows, narrowed by the user filter."""
+        row_allowed = self.layout.valid
+        if filter_ids is not None:
+            mask = torch.from_numpy(self._row_filter(filter_ids)).to(self.device)
+            row_allowed = row_allowed & mask
+        return row_allowed
+
+    def _row_filter(self, filter_ids: np.ndarray) -> np.ndarray:
+        """Allowed-id set -> per-row bool mask in the device row layout."""
+        ids = self._ids
+        n = ids.shape[0]
+        allowed_of_id = allowed_id_table(filter_ids, int(ids.max(initial=0)))
+        mask = np.zeros(self.layout.ids.shape[0], bool)
+        idx = ids.astype(np.int64)
+        safe = idx < allowed_of_id.shape[0]
+        mask[:n][safe] = allowed_of_id[idx[safe]]
+        return mask[self.layout.perm]
+
+    def _fused_max_tiles(self, nprobe, batch: int | None = None) -> int | None:
+        """Probed-tile budget of the kernel's compacted walk, or None for
+        the dense walk: compaction is on when the EXPECTED per-block tile
+        count is under 0.6 of all tiles, sized by the SAFE bound (so no
+        probed tile is dropped), bucketed to a power of two."""
+        bt = TB if batch is None else min(TB, ((int(batch) + 31) // 32) * 32)
+        key = (int(nprobe), bt)
+        if key not in self._max_tiles_cache:
+            n_tiles = pad_rows(len(self), TN) // TN
+            sizes = np.diff(self._offsets)
+            if expected_tile_cost(sizes, int(nprobe), batch_tile=bt) >= 0.6 * n_tiles:
+                self._max_tiles_cache[key] = None
+            else:
+                bound = probed_tile_bound(sizes, int(nprobe), batch_tile=bt)
+                self._max_tiles_cache[key] = min(1 << (bound - 1).bit_length(), n_tiles)
+        return self._max_tiles_cache[key]
+
+    def _pad_queries(self, queries: np.ndarray, b_pad: int):
+        """Host (q, qscale | None) tensors in the upload encoding."""
+        q = np.zeros((b_pad, self.dim), np.float32)
+        q[: queries.shape[0]] = queries
+        if self.upload_dtype == "bf16":
+            return torch.from_numpy(q).to(torch.bfloat16), None
+        if self.upload_dtype == "int8":
+            # symmetric per-query quantization: a quarter of the bytes
+            scale = np.maximum(np.abs(q).max(axis=1), 1e-30) / 127.0
+            q_i8 = np.clip(np.rint(q / scale[:, None]), -127, 127).astype(np.int8)
+            return torch.from_numpy(q_i8), torch.from_numpy(scale.astype(np.float32))
+        if self.upload_dtype == "int4":
+            packed, scale = pack_int4_queries(q)
+            return torch.from_numpy(packed), torch.from_numpy(scale)
+        if self.upload_dtype != "f32":
+            raise InvalidConfig(f"unknown upload_dtype {self.upload_dtype!r}")
+        return torch.from_numpy(q), None
+
+    def _dispatch_scan(self, q, qscale, params: SearchParams, row_allowed):
+        """Queue decode + rotation + scan of one padded query block on the
+        device; returns device tensors (callers fetch)."""
+        lay = self.layout
+        q_rot = self.rotator.rotate(decode_queries(q, qscale, self.dim))
+        return fused_exact_scan(
+            q_rot, lay.centroids, lay.ex, lay.f_add_ex, lay.f_rescale_ex,
+            lay.cluster_of, row_allowed, lay.ids, self._c_blk,
+            nprobe=params.nprobe, top_k=params.top_k, metric=self.metric,
+            ex_bits=self.ex_bits,
+            max_tiles=self._fused_max_tiles(params.nprobe, batch=q.shape[0]),
+            probe_k=probe_k_bucket(params.nprobe, self.cluster_count(), self.scan_dtype),
+        )
+
+
+def _check_scan_config(scan_dtype: str, ex_bits: int, padded_dim: int | None) -> None:
+    """Refuse configurations the JAX package serves through a scan the port
+    has not ported yet."""
+    if not is_fused(scan_dtype):
+        raise NotImplementedError(
+            f"scan_dtype={scan_dtype!r}: only the fused EXACT scan is ported "
+            "(ROADMAP.md C: dense and packed scans)"
+        )
+    if not ex_plane_is_total(ex_bits):
+        raise NotImplementedError(
+            f"total_bits={ex_bits + 1}: the fused EXACT scan needs total_bits "
+            "2..7; the two-stage scan is not ported (ROADMAP.md C)"
+        )
+    if padded_dim is not None and padded_dim + (-padded_dim) % 128 > EXACT_MAX_WIDTH:
+        raise NotImplementedError(
+            f"plane width {padded_dim} exceeds the EXACT scan's "
+            f"{EXACT_MAX_WIDTH}; the two-stage scan is not ported (ROADMAP.md C)"
+        )
+
+
+def _check_geometry(cluster_sizes) -> None:
+    if not fused_geometry_ok(cluster_sizes):
+        raise NotImplementedError(
+            "a row tile would span more than 128 clusters; the dense scan the "
+            "JAX package falls back to is not ported (ROADMAP.md C)"
+        )

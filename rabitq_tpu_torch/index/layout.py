@@ -1,0 +1,155 @@
+"""Device layout assembler (port of ``rabitq_tpu/index/layout.py``).
+
+Codes live on the device as dense int8 planes ``[Np, Dpad]`` plus flat
+per-row factor vectors, rows grouped by cluster, padded to a multiple of
+``row_pad`` with invalid tail rows. The fused scan keeps the rows
+cluster-sorted (``permute=False``, ``row_pad=TN``), width-pads the refine
+plane to 128 columns and adds the packed bit planes; ``permute=True``
+scatters rows pseudorandomly (``device_row_permutation``) as the JAX
+package's approximate-top-k paths need.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..ops.packed_scan import pack_bitplanes
+from .scan import device_row_permutation, ex_plane_is_total, make_refine_plane
+
+_ROW_PAD = 128  # default device row padding multiple
+
+
+def pad_rows(n: int, row_pad: int = _ROW_PAD) -> int:
+    """Total device rows for ``n`` real rows."""
+    return max(row_pad, ((n + row_pad - 1) // row_pad) * row_pad)
+
+
+def cluster_of_rows(cluster_sizes: np.ndarray, n_pad: int) -> np.ndarray:
+    """Per-row cluster id for cluster-sorted rows ([C] sizes -> [n_pad])."""
+    sizes = np.asarray(cluster_sizes, np.int64)
+    out = np.zeros(n_pad, np.int32)
+    out[: int(sizes.sum())] = np.repeat(np.arange(len(sizes), dtype=np.int32), sizes)
+    return out
+
+
+def refine_plane_dtype(ex_bits: int) -> torch.dtype:
+    """int8 when the refine plane fits (total codes <= 127 or raw ex <=
+    127), else int32."""
+    return torch.int8 if ex_bits <= 7 else torch.int32
+
+
+@dataclass
+class DeviceLayout:
+    """Device-resident arrays in the scan's layout. ``binary`` is None for
+    fused layouts whose refine plane holds TOTAL codes (no reader)."""
+
+    binary: torch.Tensor | None  # [Np, Dpad] int8 {0,1}
+    ex: torch.Tensor  # [Np, Dpad(+128 pad)] refine plane (scan.make_refine_plane)
+    f_add: torch.Tensor  # [Np] f32
+    f_rescale: torch.Tensor
+    f_error: torch.Tensor
+    f_add_ex: torch.Tensor
+    f_rescale_ex: torch.Tensor
+    cluster_of: torch.Tensor  # [Np] int32
+    valid: torch.Tensor  # [Np] bool
+    ids: torch.Tensor  # [Np] int32 original ids (-1 on padding)
+    centroids: torch.Tensor  # [C, Dpad] f32
+    perm: np.ndarray  # host->device row permutation actually used
+    delta: torch.Tensor | None = None
+    vl: torch.Tensor | None = None
+    packed: torch.Tensor | None = None  # [Np, Db] uint8 bit planes (fused layouts)
+
+
+def _tensor(x, device) -> torch.Tensor:
+    """A tensor on ``device`` from a tensor or a host array (unsigned
+    16-bit codes widen to int32)."""
+    if isinstance(x, np.ndarray):
+        # a copy: host arrays may be read-only views
+        return torch.from_numpy(x.astype(np.int32 if x.dtype == np.uint16 else x.dtype)).to(device)
+    return torch.as_tensor(x).to(device)
+
+
+def _pad_permute(x, n: int, n_pad: int, perm: torch.Tensor, dtype, device) -> torch.Tensor:
+    """Trim to ``n`` rows, zero-pad to ``n_pad``, apply the permutation."""
+    x = _tensor(x[:n], device).to(dtype)
+    out = torch.zeros((n_pad, *x.shape[1:]), dtype=dtype, device=device)
+    out[:n] = x
+    return out.index_select(0, perm)
+
+
+def assemble_device_layout(
+    *,
+    n: int,
+    ex_bits: int,
+    binary,  # [>=n, Dpad] {0,1} codes (numpy or tensor)
+    ex,  # [>=n, Dpad] RAW ex codes (not the refine plane)
+    f_add,
+    f_rescale,
+    f_error,
+    f_add_ex,
+    f_rescale_ex,
+    cluster_sizes: np.ndarray,  # [C] rows per cluster, cluster-sorted order
+    ids: np.ndarray,  # [n] original ids
+    centroids,  # [C, Dpad] f32
+    delta=None,
+    vl=None,
+    row_pad: int = _ROW_PAD,
+    permute: bool = True,
+    device: "torch.device | str" = "cpu",
+) -> DeviceLayout:
+    """Build the padded (and, with ``permute``, scattered) device layout
+    from cluster-sorted rows."""
+    device = torch.device(device)
+    n_pad = pad_rows(n, row_pad)
+    perm = (
+        device_row_permutation(n, n_pad) if permute else np.arange(n_pad, dtype=np.int64)
+    )
+    perm_t = torch.from_numpy(perm).to(device)
+
+    cluster_of = cluster_of_rows(cluster_sizes, n_pad)
+    valid = np.zeros(n_pad, bool)
+    valid[:n] = True
+    ids_pad = np.full(n_pad, -1, np.int32)
+    ids_pad[:n] = np.asarray(ids)[:n].astype(np.int32)
+
+    binary_t = _tensor(binary[:n], device)
+    plane = make_refine_plane(binary_t, _tensor(ex[:n], device), ex_bits)
+
+    def scalar(x):
+        return _pad_permute(x, n, n_pad, perm_t, torch.float32, device)
+
+    binary_dev = _pad_permute(binary_t, n, n_pad, perm_t, torch.int8, device)
+    packed_dev = None
+    if not permute:
+        packed_dev = pack_bitplanes(binary_dev, binary_dev.shape[1])
+        if ex_plane_is_total(ex_bits):
+            binary_dev = None  # nothing on the fused TOTAL path reads it
+
+    ex_dev = _pad_permute(plane, n, n_pad, perm_t, refine_plane_dtype(ex_bits), device)
+    if not permute and ex_dev.shape[1] % 128:
+        # width-pad to 128 columns; zero columns never change a dot
+        ex_dev = torch.nn.functional.pad(ex_dev, (0, (-ex_dev.shape[1]) % 128))
+
+    def host_vec(x):
+        return torch.from_numpy(x[perm]).to(device)
+
+    return DeviceLayout(
+        binary=binary_dev,
+        packed=packed_dev,
+        ex=ex_dev.contiguous(),
+        f_add=scalar(f_add),
+        f_rescale=scalar(f_rescale),
+        f_error=scalar(f_error),
+        f_add_ex=scalar(f_add_ex),
+        f_rescale_ex=scalar(f_rescale_ex),
+        cluster_of=host_vec(cluster_of),
+        valid=host_vec(valid),
+        ids=host_vec(ids_pad),
+        centroids=_tensor(centroids, device).to(torch.float32),
+        perm=perm,
+        delta=scalar(delta) if delta is not None else None,
+        vl=scalar(vl) if vl is not None else None,
+    )

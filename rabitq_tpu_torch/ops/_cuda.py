@@ -1,0 +1,118 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each source ``csrc/<name>.cu`` exposes a plain C entry point. It is compiled
+at first use with ``nvcc`` for ``sm_90a`` into ``_build/lib<name>-<hash>.so``
+(the hash is of the source, so an edited kernel rebuilds) and loaded with
+``ctypes``; no PyTorch headers are involved, so a build takes seconds.
+:func:`build_all` starts one ``nvcc`` per source, all at once.
+
+Wrappers pass tensor pointers (``data_ptr()``) and the current CUDA stream
+as ``c_void_p``; every entry point returns ``cudaGetLastError()`` after its
+launch, and :func:`check_launch` raises on a non-zero code.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+SOURCES = ("fht", "fused_bin_scan")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# argtypes of each C entry point, in order
+_SIGNATURES = {
+    "fht": ("rabitq_fht", (_P, _P, _I, _I, _P)),
+    "fused_bin_scan": (
+        "rabitq_bin_scan",
+        (_P,) * 13 + (_I,) * 6 + (_P,),
+    ),
+}
+
+_entries: dict = {}  # kernel name -> (library, entry point)
+_lock = threading.Lock()
+
+
+class KernelBuildError(RuntimeError):
+    """nvcc is missing or refused a kernel source."""
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise KernelBuildError("nvcc not found: put it on PATH or set CUDA_HOME")
+
+
+def library_path(name: str) -> Path:
+    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build_all(names=SOURCES) -> dict[str, str]:
+    """Compile every listed source that has no current library, one
+    ``nvcc`` process per source, all started together. Returns
+    ``{name: compiler log}`` (``-Xptxas -v`` register and shared-memory
+    report; empty for a library that was already built). Raises
+    :class:`KernelBuildError` naming every source that failed."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [
+            nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
+            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+            "-Xptxas", "-v", "-o", str(tmp), str(CSRC / f"{name}.cu"),
+        ]
+        procs[name] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        ), tmp, out)
+    logs = {name: "" for name in names}
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        logs[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise KernelBuildError("kernel build failed: " + "\n".join(failed))
+    return logs
+
+
+def entry(name: str):
+    """The C entry point of kernel ``name`` (built first if needed), with
+    its argtypes set."""
+    with _lock:
+        loaded = _entries.get(name)
+        if loaded is None:
+            build_all((name,))
+            symbol, argtypes = _SIGNATURES[name]
+            lib = ctypes.CDLL(str(library_path(name)))
+            fn = getattr(lib, symbol)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+            loaded = _entries[name] = (lib, fn)  # the library stays loaded
+        return loaded[1]
+
+
+def check_launch(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")

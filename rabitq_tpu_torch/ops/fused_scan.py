@@ -1,0 +1,429 @@
+"""Fused EXACT bin scan: kernel, plain version and the selection around it.
+
+Counterpart of ``rabitq_tpu/ops/pallas_fused_scan.py`` in direct (EXACT)
+mode. For every query b and stored row n the scan forms the final distance
+
+    lb[b, n] = fa_eff[n] + fr[n] * (<plane[n], q[b]> + k1x[b]) + g1[b, cluster_of[n]]
+
+and keeps, per query, the minimum over rows n == l (mod L) in bin l
+(L = GROUPS * TN = 8192) with its arg-row; unprobed clusters carry
+``g1 = BIG`` and masked rows ``fa_eff = BIG``, so they never enter a bin.
+Rows are cluster-sorted in TN-row tiles; each tile's clusters lie in a
+W-wide window starting at ``128 * c_blk[t]`` (``tile_cluster_blocks``), and
+``g1`` applies only inside it, as the TPU kernel's one-hot window does.
+
+:func:`fused_bin_scan` is the entry: a CUDA tensor goes to the hand-written
+kernel (``csrc/fused_bin_scan.cu``), a CPU tensor to
+:func:`fused_bin_scan_plain`. With ``tiles``/``tcount`` each query block of
+``Bp // tiles.shape[0]`` queries walks only its listed tiles (probed-tile
+compaction); unlisted tiles hold only BIG rows for that block, so the bins
+are unchanged.
+
+Geometry of the port: ``TB`` (queries per compaction list) is 32, not the
+TPU's 128 -- on the card the per-block union of probed clusters, not VMEM,
+sets the list length, and a 32-query block is also the kernel's block.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import _cuda
+
+TN = 512  # rows per tile (device layouts for this path pad rows to TN)
+GROUPS = 16  # bin groups: L = GROUPS * TN bins
+TB = 32  # queries per compaction list (and per kernel block)
+W = 256  # cluster window width
+BIG = 1.0e30  # masked-value sentinel
+EXACT_MAX_WIDTH = 2560  # widest plane the JAX package scans in EXACT mode
+
+
+def n_bins() -> int:
+    return GROUPS * TN
+
+
+def tile_cluster_blocks(cluster_of: np.ndarray, valid: np.ndarray) -> np.ndarray:
+    """Per-row-tile 128-aligned cluster-window index ``c_blk``: every valid
+    row n of tile i has ``0 <= cluster_of[n] - 128 * c_blk[i] < W``. Raises
+    ``ValueError`` if a tile spans more than 128 clusters."""
+    n_pad = len(cluster_of)
+    if n_pad % TN:
+        raise ValueError(f"row count {n_pad} is not a multiple of {TN}")
+    cl = np.asarray(cluster_of, np.int64).reshape(-1, TN)
+    ok = np.asarray(valid, bool).reshape(-1, TN)
+    any_valid = ok.any(axis=1)
+    lo = np.where(any_valid, np.min(np.where(ok, cl, np.iinfo(np.int64).max), axis=1), 0)
+    hi = np.where(any_valid, np.max(np.where(ok, cl, -1), axis=1), 0)
+    span = hi - lo
+    if span.max(initial=0) > 128:
+        raise ValueError(
+            f"row tile spans {int(span.max())} clusters (> 128); "
+            "fused scan needs cluster-sorted rows with clusters >= "
+            f"{TN // 128} rows on average"
+        )
+    c_pad = _pad_clusters(int(cl.max(initial=0)) + 1)
+    c_blk = np.minimum(lo // 128, c_pad // 128 - W // 128)
+    return np.maximum(c_blk, 0).astype(np.int32)
+
+
+def _pad_clusters(c: int) -> int:
+    """g-plane cluster padding: at least one full window, 128-aligned."""
+    return max(W, ((c + 127) // 128) * 128)
+
+
+def fused_geometry_ok(cluster_sizes, row_pad: int = TN) -> bool:
+    """Whether cluster-sorted rows with these sizes fit the <=128-cluster
+    tile windows (:func:`tile_cluster_blocks` would not raise)."""
+    sizes = np.asarray(cluster_sizes, np.int64)
+    n = int(sizes.sum())
+    n_pad = max(row_pad, ((n + row_pad - 1) // row_pad) * row_pad)
+    cl = np.zeros(n_pad, np.int32)
+    cl[:n] = np.repeat(np.arange(len(sizes), dtype=np.int32), sizes)
+    try:
+        tile_cluster_blocks(cl, np.arange(n_pad) < n)
+        return True
+    except ValueError:
+        return False
+
+
+def _cluster_spans(sizes: np.ndarray) -> np.ndarray:
+    """Row tiles each cluster's rows touch (0 for empty clusters)."""
+    off = np.zeros(len(sizes) + 1, np.int64)
+    np.cumsum(sizes, out=off[1:])
+    spans = np.zeros(len(sizes), np.int64)
+    nonempty = sizes > 0
+    spans[nonempty] = (off[1:][nonempty] - 1) // TN - off[:-1][nonempty] // TN + 1
+    return spans
+
+
+def probed_tile_bound(cluster_sizes, nprobe: int, batch_tile: int | None = None) -> int:
+    """Safe upper bound on the row tiles one block of ``batch_tile``
+    queries can touch: the sum of the largest ``batch_tile * nprobe``
+    cluster tile spans, capped at the tile count."""
+    if batch_tile is None:
+        batch_tile = TB
+    sizes = np.asarray(cluster_sizes, np.int64)
+    n = int(sizes.sum())
+    n_tiles = max(TN, ((n + TN - 1) // TN) * TN) // TN
+    spans = np.sort(_cluster_spans(sizes))[::-1]
+    u = min(len(sizes), batch_tile * max(int(nprobe), 1))
+    return int(min(n_tiles, spans[:u].sum()))
+
+
+def expected_tile_cost(cluster_sizes, nprobe: int, batch_tile: int | None = None) -> float:
+    """Expected per-block probed-tile count, ``u * mean_span``: gates
+    compaction (sizing always uses the safe bound)."""
+    if batch_tile is None:
+        batch_tile = TB
+    sizes = np.asarray(cluster_sizes, np.int64)
+    n = int(sizes.sum())
+    if n == 0 or not len(sizes):
+        return 0.0
+    n_tiles = max(TN, ((n + TN - 1) // TN) * TN) // TN
+    spans = _cluster_spans(sizes)
+    u = min(len(sizes), batch_tile * max(int(nprobe), 1))
+    return float(min(n_tiles, u * spans[sizes > 0].astype(np.float64).mean()))
+
+
+def sliced_max_tiles(
+    cluster_sizes, nprobe: int, slices, batch_tile: int | None = None
+) -> int | None:
+    """Compaction budget valid for every TN-aligned row slice
+    ``(start, stop)`` in ``slices``: the max over slices of the local safe
+    bound, with the expected-cost gate applied per slice; one
+    pow2-bucketed budget, or None for the dense walk."""
+    if batch_tile is None:
+        batch_tile = TB
+    sizes = np.asarray(cluster_sizes, np.int64)
+    off = np.zeros(len(sizes) + 1, np.int64)
+    np.cumsum(sizes, out=off[1:])
+    c_nonempty = max(int((sizes > 0).sum()), 1)
+    u = min(c_nonempty, batch_tile * max(int(nprobe), 1))
+    best = 0
+    max_slab_tiles = 0
+    for s, e in slices:
+        local = np.maximum(np.minimum(off[1:], e) - np.maximum(off[:-1], s), 0)
+        nonempty = local > 0
+        m = int(nonempty.sum())
+        if m == 0:
+            continue
+        slab_tiles = (int(e) - int(s) + TN - 1) // TN
+        max_slab_tiles = max(max_slab_tiles, slab_tiles)
+        spans = _cluster_spans(local)
+        exp = u * (m / c_nonempty) * float(spans[nonempty].mean())
+        if exp >= 0.6 * slab_tiles:
+            return None
+        top = np.sort(spans[nonempty])[::-1][: min(m, u)]
+        best = max(best, int(min(slab_tiles, top.sum())))
+    if best <= 0:
+        return None
+    return int(min(1 << (best - 1).bit_length(), max_slab_tiles))
+
+
+# ----------------------------------------------------------------------
+# the bin scan
+# ----------------------------------------------------------------------
+
+
+def _check_bin_scan_args(plane, q, fa_eff, f_rescale, cluster_of, k1x, g1, c_blk, tiles, tcount):
+    n, d = plane.shape
+    bq = q.shape[0]
+    if n % TN or q.shape[1] != d:
+        raise ValueError(f"plane {tuple(plane.shape)} / q {tuple(q.shape)} mismatch")
+    if fa_eff.shape != (n,) or f_rescale.shape != (n,) or cluster_of.shape != (n,):
+        raise ValueError("per-row vectors must be [Np]")
+    if k1x.shape != (bq,) or g1.shape[0] != bq or c_blk.shape != (n // TN,):
+        raise ValueError("per-query inputs or c_blk have the wrong shape")
+    if g1.shape[1] % 128 or g1.shape[1] < W:
+        raise ValueError(f"g1 width {g1.shape[1]} must be a multiple of 128 and >= {W}")
+    if (tiles is None) != (tcount is None):
+        raise ValueError("tiles and tcount go together")
+    if tiles is not None and (bq % tiles.shape[0] or tcount.shape != (tiles.shape[0],)):
+        raise ValueError("tiles must hold one list per equal query block")
+
+
+def fused_bin_scan(
+    plane: torch.Tensor,  # [Np, D] int8 codes (the TOTAL plane), Np % TN == 0
+    q: torch.Tensor,  # [Bp, D] f32 rotated queries (zero-padded to D)
+    fa_eff: torch.Tensor,  # [Np] f32 f_add_ex, BIG on masked rows
+    f_rescale: torch.Tensor,  # [Np] f32 f_rescale_ex
+    cluster_of: torch.Tensor,  # [Np] int32
+    k1x: torch.Tensor,  # [Bp] f32
+    g1: torch.Tensor,  # [Bp, C_pad] bf16: g_add, BIG where unprobed
+    c_blk: torch.Tensor,  # [N_tiles] int32
+    tiles: torch.Tensor | None = None,  # [Bp // tb, T] int32 tile lists
+    tcount: torch.Tensor | None = None,  # [Bp // tb] int32 valid entries
+):
+    """Returns (bins_val [Bp, L] f32, bins_idx [Bp, L] int32,
+    offered [Bp, 128] int32). The kernel on the card, the plain version on
+    the CPU."""
+    _check_bin_scan_args(plane, q, fa_eff, f_rescale, cluster_of, k1x, g1, c_blk, tiles, tcount)
+    if plane.is_cuda:
+        return fused_bin_scan_cuda(
+            plane, q, fa_eff, f_rescale, cluster_of, k1x, g1, c_blk, tiles, tcount
+        )
+    if plane.device.type != "cpu":
+        raise ValueError(f"no bin scan for device {plane.device}")
+    return fused_bin_scan_plain(
+        plane, q, fa_eff, f_rescale, cluster_of, k1x, g1, c_blk, tiles, tcount
+    )
+
+
+def fused_bin_scan_plain(
+    plane, q, fa_eff, f_rescale, cluster_of, k1x, g1, c_blk, tiles=None, tcount=None
+):
+    """Plain PyTorch version of the bin scan, on any device: the same walk
+    as the kernel (ascending tiles; list order per query block), the same
+    f32 epilogue order, and strict-< updates, so the first row wins a tie."""
+    n, d = plane.shape
+    bq = q.shape[0]
+    dev = q.device
+    n_tiles = n // TN
+    c_pad = g1.shape[1]
+    if tiles is None:
+        nb = 1
+        steps = [
+            torch.arange(c0, min(c0 + GROUPS, n_tiles), device=dev)[None, :]
+            for c0 in range(0, n_tiles, GROUPS)
+        ]
+        actives = [torch.ones_like(t, dtype=torch.bool) for t in steps]
+    else:
+        nb = tiles.shape[0]
+        t_all = tiles.to(torch.int64)
+        cnt = torch.clamp(tcount.to(torch.int64), max=tiles.shape[1])
+        steps = [t_all[:, s : s + 1] for s in range(tiles.shape[1])]
+        actives = [
+            (s < cnt)[:, None] & (t >= 0) & (t < n_tiles) for s, t in enumerate(steps)
+        ]
+    tb = bq // nb
+    val = torch.full((nb, tb, GROUPS, TN), BIG, dtype=torch.float32, device=dev)
+    idx = torch.full((nb, tb, GROUPS, TN), -1, dtype=torch.int32, device=dev)
+    offered = torch.zeros((nb, tb, 128), dtype=torch.int32, device=dev)
+    qv = q.to(torch.float32).reshape(nb, tb, d)
+    kx = k1x.reshape(nb, tb, 1, 1)
+    g1f = g1.to(torch.float32).reshape(nb, tb, c_pad)
+    lane = torch.arange(TN, device=dev)
+    for t, act in zip(steps, actives):
+        m = t.shape[1]
+        t = torch.clamp(t, 0, n_tiles - 1)
+        rows = t[:, :, None] * TN + lane  # [nb, m, TN]
+        codes = plane[rows.reshape(-1)].reshape(nb, m * TN, d).to(torch.float32)
+        acc = torch.bmm(qv, codes.transpose(1, 2)).reshape(nb, tb, m, TN)
+        fa = fa_eff[rows][:, None]  # [nb, 1, m, TN]
+        fr = f_rescale[rows][:, None]
+        cl = cluster_of[rows].to(torch.int64)
+        loc = cl - (c_blk[t].to(torch.int64) * 128)[:, :, None]
+        inwin = (loc >= 0) & (loc < W) & (cl < c_pad)
+        g = torch.gather(
+            g1f, 2, torch.clamp(cl, 0, c_pad - 1).reshape(nb, 1, m * TN).expand(nb, tb, m * TN)
+        ).reshape(nb, tb, m, TN)
+        g = torch.where(inwin[:, None], g, 0.0)
+        lb = fa + fr * (acc + kx) + g
+        a = act[:, None, :, None]
+        offered += ((lb < BIG / 2) & a).to(torch.int32).reshape(nb, tb, m * TN // 128, 128).sum(2, dtype=torch.int32)
+        grp = (t % GROUPS)[:, None, :, None].expand(nb, tb, m, TN)
+        cur = torch.gather(val, 2, grp)
+        cur_i = torch.gather(idx, 2, grp)
+        better = (lb < cur) & a
+        val.scatter_(2, grp, torch.where(better, lb, cur))
+        idx.scatter_(2, grp, torch.where(better, rows[:, None].to(torch.int32), cur_i))
+    return val.reshape(bq, n_bins()), idx.reshape(bq, n_bins()), offered.reshape(bq, 128)
+
+
+_KERNEL_QB = 32  # queries per kernel block (csrc/fused_bin_scan.cu QB)
+
+
+def fused_bin_scan_cuda(
+    plane, q, fa_eff, f_rescale, cluster_of, k1x, g1, c_blk, tiles=None, tcount=None
+):
+    """The CUDA kernel. Counts its launches in
+    ``fused_bin_scan_cuda.dense_launches`` (no tile lists) and
+    ``fused_bin_scan_cuda.compact_launches`` (tile lists)."""
+    n, d = plane.shape
+    bq = q.shape[0]
+    want = (
+        (plane, torch.int8), (q, torch.float32), (fa_eff, torch.float32),
+        (f_rescale, torch.float32), (cluster_of, torch.int32), (k1x, torch.float32),
+        (g1, torch.bfloat16), (c_blk, torch.int32),
+    )
+    if tiles is not None:
+        want += ((tiles, torch.int32), (tcount, torch.int32))
+    for t, dtype in want:
+        if not t.is_cuda or t.device != plane.device:
+            raise ValueError("bin scan inputs must all lie on one CUDA device")
+        if t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"bin scan needs contiguous {dtype}, got {t.dtype}")
+    if d % 64 or plane.data_ptr() % 16 or q.data_ptr() % 16:
+        raise ValueError("bin scan needs D % 64 == 0 and 16-byte aligned planes")
+    if bq % _KERNEL_QB:
+        raise ValueError(f"bin scan needs a batch that is a multiple of {_KERNEL_QB}")
+    tb = bq // tiles.shape[0] if tiles is not None else bq
+    if tb % _KERNEL_QB:
+        raise ValueError(f"tile lists need query blocks of a multiple of {_KERNEL_QB}")
+    val = torch.empty((bq, n_bins()), dtype=torch.float32, device=q.device)
+    idx = torch.empty((bq, n_bins()), dtype=torch.int32, device=q.device)
+    offered = torch.zeros((bq, 128), dtype=torch.int32, device=q.device)
+    fn = _cuda.entry("fused_bin_scan")
+    err = fn(
+        plane.data_ptr(), q.data_ptr(), fa_eff.data_ptr(), f_rescale.data_ptr(),
+        cluster_of.data_ptr(), k1x.data_ptr(), g1.data_ptr(), c_blk.data_ptr(),
+        tiles.data_ptr() if tiles is not None else None,
+        tcount.data_ptr() if tiles is not None else None,
+        val.data_ptr(), idx.data_ptr(), offered.data_ptr(),
+        n // TN, d, bq, g1.shape[1],
+        tiles.shape[1] if tiles is not None else 0, tb,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _cuda.check_launch(err, "fused_bin_scan")
+    if tiles is None:
+        fused_bin_scan_cuda.dense_launches += 1
+    else:
+        fused_bin_scan_cuda.compact_launches += 1
+    return val, idx, offered
+
+
+fused_bin_scan_cuda.dense_launches = 0
+fused_bin_scan_cuda.compact_launches = 0
+
+
+# ----------------------------------------------------------------------
+# selection around the kernel
+# ----------------------------------------------------------------------
+
+
+def compaction_lists(
+    fa_eff: torch.Tensor,
+    cluster_of: torch.Tensor,
+    probe_mask: torch.Tensor,  # [Bp, C] bool, Bp a multiple of tb
+    tb: int,
+    max_tiles: int,
+):
+    """Per query block of ``tb`` queries, the row tiles holding an unmasked
+    row of a probed cluster, needed-first in ascending order, padded with
+    the last valid tile to ``max_tiles``. Returns (tiles [nb, max_tiles]
+    int32, tcount [nb] int32)."""
+    n = cluster_of.shape[0]
+    n_tiles = n // TN
+    bp, c = probe_mask.shape
+    dev = cluster_of.device
+    masked = fa_eff > BIG / 2
+    cl = cluster_of.to(torch.int64)
+    lo = torch.where(masked, c, cl).reshape(n_tiles, TN).amin(1)
+    hi = torch.where(masked, -1, cl).reshape(n_tiles, TN).amax(1)
+    nb = bp // tb
+    block_probe = probe_mask.reshape(nb, tb, c).any(dim=1)
+    ps = torch.cat(
+        [
+            torch.zeros((nb, 1), dtype=torch.int64, device=dev),
+            torch.cumsum(block_probe.to(torch.int64), dim=1),
+        ],
+        dim=1,
+    )
+    needed = (ps[:, torch.clamp(hi + 1, 0, c)] - ps[:, torch.clamp(lo, 0, c)]) > 0
+    key = torch.where(needed, 0, n_tiles) + torch.arange(n_tiles, device=dev)[None, :]
+    order_t = torch.argsort(key, dim=1)[:, :max_tiles]
+    tcount = torch.clamp(needed.sum(dim=1), max=max_tiles)
+    slot = torch.minimum(
+        torch.arange(max_tiles, device=dev)[None, :],
+        torch.clamp_min(tcount, 1)[:, None] - 1,
+    )
+    tiles = torch.gather(order_t, 1, slot)
+    return tiles.to(torch.int32).contiguous(), tcount.to(torch.int32).contiguous()
+
+
+def fused_select(
+    q_rot: torch.Tensor,  # [B, D] f32 queries, zero-padded to the plane width
+    plane: torch.Tensor,
+    fa_eff: torch.Tensor,
+    f_rescale: torch.Tensor,
+    cluster_of: torch.Tensor,
+    k1x: torch.Tensor,  # [B] f32
+    g_add: torch.Tensor,  # [B, C] f32
+    probe_mask: torch.Tensor,  # [B, C] bool
+    c_blk: torch.Tensor,
+    top_k: int,
+    max_tiles: int | None = None,
+):
+    """Bin scan + selection of the ``top_k`` best bins per query. Returns
+    (cand_idx [B, R] int32 rows, cand_ok [B, R] bool, cand_val [B, R] f32
+    bin minima best-first, probed [B] int32 offered-row counts)."""
+    b = q_rot.shape[0]
+    tb = min(TB, ((b + 31) // 32) * 32)
+    b_pad = ((b + tb - 1) // tb) * tb
+    if b_pad != b:
+        q_rot = torch.nn.functional.pad(q_rot, (0, 0, 0, b_pad - b))
+        k1x = torch.nn.functional.pad(k1x, (0, b_pad - b))
+        g_add = torch.nn.functional.pad(g_add, (0, 0, 0, b_pad - b))
+        probe_mask = torch.nn.functional.pad(probe_mask, (0, 0, 0, b_pad - b))
+    c = g_add.shape[1]
+    c_pad = _pad_clusters(c)
+    g1 = torch.where(probe_mask, g_add, BIG)
+    if c_pad != c:
+        g1 = torch.nn.functional.pad(g1, (0, c_pad - c), value=BIG)
+    n_tiles = plane.shape[0] // TN
+    tiles = tcount = None
+    if max_tiles is not None:
+        max_tiles = min(max_tiles, n_tiles)
+    if max_tiles is not None and max_tiles > 0:
+        tiles, tcount = compaction_lists(fa_eff, cluster_of, probe_mask, tb, max_tiles)
+    bins_val, bins_idx, offered = fused_bin_scan(
+        plane,
+        q_rot.to(torch.float32).contiguous(),
+        fa_eff,
+        f_rescale,
+        cluster_of,
+        k1x.to(torch.float32).contiguous(),
+        g1.to(torch.bfloat16).contiguous(),
+        c_blk,
+        tiles=tiles,
+        tcount=tcount,
+    )
+    r = min(top_k, n_bins())
+    # ascending stable sort: ties keep the lower bin, as lax.top_k does
+    vals, pos = torch.sort(bins_val, dim=1, stable=True)
+    vals, pos = vals[:, :r], pos[:, :r]
+    cand_idx = torch.gather(bins_idx, 1, pos)
+    cand_ok = (vals < BIG / 2) & (cand_idx >= 0)
+    probed = offered.sum(dim=1, dtype=torch.int32)
+    return cand_idx[:b], cand_ok[:b], vals[:b], probed[:b]

@@ -1,0 +1,77 @@
+"""The port stands alone: importing it loads neither JAX nor the JAX
+package, its sources and ``chip_smoke.py`` import neither, and its entry
+points never drop to the CPU on their own."""
+
+from __future__ import annotations
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "rabitq_tpu_torch"
+
+_PROBE = """
+import sys, importlib, pkgutil
+import rabitq_tpu_torch
+for m in pkgutil.walk_packages(rabitq_tpu_torch.__path__, "rabitq_tpu_torch."):
+    importlib.import_module(m.name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "rabitq_tpu" or m.startswith("rabitq_tpu."))
+print("LOADED:" + ",".join(bad))
+"""
+
+
+def test_import_loads_no_jax():
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=ROOT, capture_output=True, text=True, timeout=300
+    )
+    assert out.returncode == 0, out.stderr
+    assert "LOADED:\n" in out.stdout, out.stdout
+
+
+def test_sources_import_no_jax():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax\b|rabitq_tpu(\.|\s|$))", re.M)
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    for path in files:
+        hits = pattern.findall(path.read_text())
+        assert not hits, (path, hits)
+
+
+def test_entry_points_refuse_a_missing_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    from rabitq_tpu_torch import IvfRabitqIndex
+    from rabitq_tpu_torch.ops.kmeans import run_kmeans
+
+    data = np.random.default_rng(0).standard_normal((600, 32)).astype(np.float32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        IvfRabitqIndex.train(data, nlist=4, total_bits=7)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        IvfRabitqIndex.train_with_clusters(data, data[:4], np.arange(600) % 4, 7)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_kmeans(data, 4)
+    # asking for the CPU works
+    assert len(IvfRabitqIndex.train(data, nlist=4, total_bits=7, device="cpu")) == 600
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_fails_without_a_card(tmp_path, alone):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    cwd = ROOT
+    if alone:  # the script without the rest of the repository
+        (tmp_path / "chip_smoke.py").write_text((ROOT / "chip_smoke.py").read_text())
+        cwd = tmp_path
+    out = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=cwd, capture_output=True, text=True, timeout=300
+    )
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
