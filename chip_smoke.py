@@ -19,7 +19,17 @@ Phases, one line each:
      path gives it for one 256-query block, dense walk and compacted walk,
      with times and bound;
   6. profile: device time by kernel and the device's busy share over one
-     pipelined serving run at nprobe 16 and 256 (torch.profiler).
+     pipelined serving run at nprobe 16 and 256 (torch.profiler);
+  7. two-stage and dense paths at full size: a second index on the same
+     data with total_bits=8 (raw ex codes: no EXACT scan), served through
+     scan_dtype fused8 and fused (the packed bin kernel, int8 and bf16
+     query, compacted walk at nprobe 16 and dense walk at 256), packed (the
+     packed lower-bound kernel; the index is re-laid on the card to the
+     permuted layout) and bf16 (a plain matrix product: the reference
+     point), with recall@10 and QPS; launch counters zeroed before and read
+     after; then each kernel against its plain version on the main path's
+     inputs for one 256-query block, and a profile of a fused8 run at
+     nprobe 16 and a packed run at nprobe 256.
 Then one JSON line of kernel numbers, nvidia-smi's line again, and last
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
 
@@ -37,9 +47,11 @@ import time
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS = 67e12  # H100 SXM, CUDA cores (the FHT's adds)
 BF16_TENSOR_FLOPS = 989e12  # H100 SXM, dense bf16 tensor cores (the bin scan's dot)
+INT8_TENSOR_OPS = 1979e12  # H100 SXM, dense int8 tensor cores (the int8 bit-plane dot)
 ROWS, DIM, N_QUERIES, NLIST = 1_000_000, 960, 2048, 4096  # bench.py's headline
 RECALL_FLOOR = 0.90  # recall@10 at nprobe=256
 QPS_RUNS = 5  # timed serving runs per nprobe (after one warm-up)
+QPS_RUNS_8BIT = 3  # the same on the total_bits=8 index
 
 
 def log(msg: str) -> None:
@@ -134,18 +146,21 @@ def check_fht():
     return rows_out
 
 
-def bin_scan_bound(args):
+def bin_scan_bound(args, kw):
     """Least time for the bin scan on these inputs: the plane rows it must
     read (listed tiles, or all), the other inputs and outputs once, and
-    2 * D flops per (query, row) pair it must score, at the bf16 tensor
-    rate: the int8 codes are exact in bf16, so a tensor-core kernel could
-    do this work (the CUDA-core f32 kernel is slower than that yardstick)."""
+    2 flops per plane column and (query, row) pair it must score. Direct
+    mode: D columns at the bf16 tensor rate (the int8 codes are exact in
+    bf16, so a tensor-core kernel could do this work; the CUDA-core f32
+    kernel is slower than that yardstick). Packed mode: 8 * Db columns at
+    the int8 tensor rate for an int8 query, the bf16 rate for a bf16 one,
+    against an eighth of the plane bytes."""
     from rabitq_tpu_torch.ops.fused_scan import TN, n_bins
 
-    plane, q, _, _, _, _, g1, c_blk = args[:8]
-    tiles, tcount = args[8], args[9]
+    plane, q, _, _, _, _, g1, c_blk, tiles, tcount = args
     n, d = plane.shape
     bq = q.shape[0]
+    packed = kw.get("f_error") is not None
     if tiles is None:
         pair_tiles = bq * (n // TN)
         read_tiles = n // TN
@@ -159,17 +174,22 @@ def bin_scan_bound(args):
         read_tiles = len(listed)
     rows = read_tiles * TN
     n_bytes = (
-        rows * d + rows * 12 + q.numel() * 4 + bq * 4 + g1.numel() * 2 + c_blk.numel() * 4
+        rows * d + rows * (16 if packed else 12) + q.numel() * q.element_size() + bq * 4
+        + g1.numel() * 2 * (2 if packed else 1) + c_blk.numel() * 4
         + 2 * bq * n_bins() * 4 + bq * 128 * 4
     )
-    ops = 2 * pair_tiles * TN * d
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / BF16_TENSOR_FLOPS
+    if kw.get("q_scale") is not None:
+        n_bytes += bq * 4
+    ops = 2 * pair_tiles * TN * q.shape[1]
+    rate = INT8_TENSOR_OPS if kw.get("q_scale") is not None else BF16_TENSOR_FLOPS
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def check_bin_scan(index, queries_np, nprobe):
-    """Kernel vs plain on the exact inputs the main path hands the kernel
-    for one 256-query block at this nprobe."""
+    """Kernel vs plain on the exact inputs the main path hands the bin
+    kernel for one 256-query block at this nprobe, in the mode the index's
+    scan_dtype takes (direct, or packed with a bf16 or int8 query)."""
     import torch
     from rabitq_tpu_torch import SearchParams
     from rabitq_tpu_torch.ops import fused_scan
@@ -177,49 +197,106 @@ def check_bin_scan(index, queries_np, nprobe):
     captured = []
     real = fused_scan.fused_bin_scan
 
-    def spy(*a, **kw):
-        captured.append(a + (kw.get("tiles"), kw.get("tcount")))
-        return real(*a, **kw)
+    def spy(*a, tiles=None, tcount=None, **kw):
+        captured.append((a + (tiles, tcount), kw))
+        return real(*a, tiles=tiles, tcount=tcount, **kw)
 
     fused_scan.fused_bin_scan = spy
     try:
         index.batch_search_arrays(queries_np[:256], SearchParams(top_k=10, nprobe=nprobe))
     finally:
         fused_scan.fused_bin_scan = real
-    args = captured[0]
+    args, kw = captured[0]
     walk = "dense" if args[8] is None else "compacted"
-    kv, ki, ko = fused_scan.fused_bin_scan_cuda(*args)
-    pv, pi, po = fused_scan.fused_bin_scan_plain(*args)
+    if kw.get("f_error") is None:
+        mode, kernel = "direct", fused_scan.fused_bin_scan_cuda
+    else:
+        mode = "packed int8 q" if kw.get("q_scale") is not None else "packed bf16 q"
+        kernel = fused_scan.fused_bin_scan_packed_cuda
+    what = f"bin scan ({mode}, {walk})" if mode != "direct" else f"bin scan ({walk})"
+    kv, ki, ko = kernel(*args, **kw)
+    pv, pi, po = fused_scan.fused_bin_scan_plain(*args, **kw)
     torch.cuda.synchronize()
     if not torch.equal(ko, po):
-        raise AssertionError(f"bin scan ({walk}): offered counts differ")
+        raise AssertionError(f"{what}: offered counts differ")
     finite = pv < fused_scan.BIG / 2
     if not torch.equal(finite, kv < fused_scan.BIG / 2):
-        raise AssertionError(f"bin scan ({walk}): different bins filled")
+        raise AssertionError(f"{what}: different bins filled")
     err = float((kv - pv)[finite].abs().max()) if bool(finite.any()) else 0.0
-    if not torch.allclose(kv[finite], pv[finite], rtol=1e-5, atol=1e-3):
-        raise AssertionError(f"bin scan ({walk}): values differ, max |err| {err}")
+    # an int8 dot is exact; f32 sums of a bf16 or f32 dot run in another order
+    tol = dict(rtol=1e-6, atol=1e-6) if kw.get("q_scale") is not None else dict(rtol=1e-5, atol=1e-3)
+    if not torch.allclose(kv[finite], pv[finite], **tol):
+        raise AssertionError(f"{what}: values differ, max |err| {err}")
     agree = float((ki == pi).float().mean())
     if agree < 0.999:
-        raise AssertionError(f"bin scan ({walk}): bins_idx agree on {agree:.5f} < 0.999")
-    ms = cuda_ms(lambda: fused_scan.fused_bin_scan_cuda(*args), 10)
-    plain_ms = cuda_ms(lambda: fused_scan.fused_bin_scan_plain(*args), 2)
-    bound, bound_by = bin_scan_bound(args)
+        raise AssertionError(f"{what}: bins_idx agree on {agree:.5f} < 0.999")
+    ms = cuda_ms(lambda: kernel(*args, **kw), 10)
+    plain_ms = cuda_ms(lambda: fused_scan.fused_bin_scan_plain(*args, **kw), 2)
+    bound, bound_by = bin_scan_bound(args, kw)
     extra = ""
     if args[8] is not None:
         cnt = args[9].clamp(max=args[8].shape[1])
         extra = (f", lists of {args[8].shape[1]} slots, {int(cnt.sum())} tiles listed over "
                  f"{cnt.numel()} blocks of {args[1].shape[0] // cnt.numel()} queries")
-    log(f"bin scan ({walk}, nprobe={nprobe}, q {tuple(args[1].shape)}, plane "
+    log(f"{what} (nprobe={nprobe}, q {tuple(args[1].shape)}, plane "
         f"{tuple(args[0].shape)}{extra}): offered equal, max |err| {err:.3g}, idx agree "
         f"{agree:.5f}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound:.3f} ms ({bound_by})")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, err=err)
 
 
-def profile_serving(index, queries_np, nprobe):
+def check_packed_lb_scan(index, queries_np, nprobe):
+    """The packed lower-bound kernel vs its plain version on the inputs the
+    main path (scan_dtype "packed") hands it for one 256-query block."""
+    import torch
+    from rabitq_tpu_torch import SearchParams
+    from rabitq_tpu_torch.index import scan
+    from rabitq_tpu_torch.ops import packed_scan
+
+    captured = []
+    real = scan.packed_lb_scan
+
+    def spy(*a):
+        captured.append(a)
+        return real(*a)
+
+    scan.packed_lb_scan = spy
+    try:
+        index.batch_search_arrays(queries_np[:256], SearchParams(top_k=10, nprobe=nprobe))
+    finally:
+        scan.packed_lb_scan = real
+    args = captured[0]
+    packed, q_perm = args[0], args[1]
+    got = packed_scan.packed_lb_scan_cuda(*args).float()
+    want = packed_scan.packed_lb_scan_plain(*args).float()
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    err = float(diff.max())
+    # one bf16 ulp: a reordered f32 sum can cross a rounding boundary
+    if not bool((diff <= 2.0 ** -7 * want.abs() + 1e-3).all()):
+        raise AssertionError(f"packed lb scan: an entry is off by more than a bf16 ulp ({err})")
+    same = float((got == want).float().mean())
+    if same < 0.99:
+        raise AssertionError(f"packed lb scan: only {same:.5f} of entries bitwise equal")
+    del got, want, diff
+    ms = cuda_ms(lambda: packed_scan.packed_lb_scan_cuda(*args), 5)
+    plain_ms = cuda_ms(lambda: packed_scan.packed_lb_scan_plain(*args), 2)
+    n, db = packed.shape
+    bq = q_perm.shape[0]
+    n_bytes = n * db + n * 8 + q_perm.numel() * 2 + bq * 4 + 2 * bq * n * 2
+    ops = 2 * bq * n * 8 * db
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / BF16_TENSOR_FLOPS
+    bound, bound_by = max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    log(f"packed lb scan (nprobe={nprobe}, q {tuple(q_perm.shape)}, packed {tuple(packed.shape)}): "
+        f"max |err| {err:.3g}, {same:.5f} bitwise equal; kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bound:.3f} ms ({bound_by})")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, err=err)
+
+
+def profile_serving(index, queries_np, nprobe, label=""):
     """Device time by kernel over one pipelined serving run, and the share
     of the run's wall time the device was busy (torch.profiler)."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from rabitq_tpu_torch import SearchParams
@@ -233,15 +310,20 @@ def profile_serving(index, queries_np, nprobe):
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
     for ev in prof.key_averages():
+        # kernel rows only: an operator's row repeats its kernels' device time
+        if ev.device_type != DeviceType.CUDA:
+            continue
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(ev, "self_cuda_time_total", 0.0)
         if dev_us > 0:
             rows.append((dev_us / 1e3, ev.key, ev.count))
+    if not rows:
+        raise AssertionError("the profiler recorded no kernel on the device")
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     top = "; ".join(f"{name[:48]} x{n} {ms:.2f} ms" for ms, name, n in rows[:8])
-    log(f"profile nprobe={nprobe}: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
+    log(f"profile {label}nprobe={nprobe}: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
         f"({100 * busy / wall_ms:.0f}%); top: {top}")
 
 
@@ -256,7 +338,11 @@ def main() -> int:
         from rabitq_tpu_torch import IvfRabitqIndex, Metric, RotatorType, SearchParams
         from rabitq_tpu_torch.ops import _cuda
         from rabitq_tpu_torch.ops.fht import fht_kernel
-        from rabitq_tpu_torch.ops.fused_scan import fused_bin_scan_cuda
+        from rabitq_tpu_torch.ops.fused_scan import (
+            fused_bin_scan_cuda,
+            fused_bin_scan_packed_cuda,
+        )
+        from rabitq_tpu_torch.ops.packed_scan import packed_lb_scan_cuda
     except ImportError as e:
         print(f"chip_smoke: the rabitq_tpu_torch package is missing ({e})", file=sys.stderr)
         return 2
@@ -302,6 +388,7 @@ def main() -> int:
         f"fht launches {build_fht}")
     index.upload_dtype = "int8"
     recalls = {}
+    t0_serve = time.perf_counter()
     for nprobe in (16, 64, 256):
         params = SearchParams(top_k=10, nprobe=nprobe)
         index.batch_search_arrays_pipelined(queries_np, params, batch_size=256, upload_block=1024)
@@ -333,15 +420,87 @@ def main() -> int:
         "fused_bin_scan_compact": fused_bin_scan_cuda.compact_launches,
     }
     log(f"launches on the main path: {launches}")
+    log(f"phase seconds: 7-bit serving {time.perf_counter() - t0_serve:.1f}")
     if min(launches.values()) <= 0 or launches["fht"] <= build_fht:
         raise AssertionError(f"a kernel of the main path never ran in serving: {launches}")
     if recalls[256] < RECALL_FLOOR:
         raise AssertionError(f"recall@10 {recalls[256]:.4f} < {RECALL_FLOOR} at nprobe=256")
 
+    t0 = time.perf_counter()
     compact = check_bin_scan(index, queries_np, 16)
     dense = check_bin_scan(index, queries_np, 256)
     for nprobe in (16, 256):
         profile_serving(index, queries_np, nprobe)
+    log(f"phase seconds: 7-bit checks and profiles {time.perf_counter() - t0:.1f}")
+
+    # ---- two-stage and dense paths: total_bits=8 keeps raw ex codes, so the
+    # fused scans run two-stage through the packed bin kernel
+    del index
+    torch.cuda.empty_cache()
+    fht_before = fht_kernel.launches
+    packed_launches = fused_bin_scan_packed_cuda.launches
+    for key in packed_launches:
+        packed_launches[key] = 0
+    packed_lb_scan_cuda.launches = 0
+    t0 = time.perf_counter()
+    index8 = IvfRabitqIndex.train(
+        data, nlist=NLIST, total_bits=8, metric=Metric.L2,
+        rotator_type=RotatorType.FhtKacRotator, seed=42, use_faster_config=True,
+        scan_dtype="fused8", device=dev,
+    )
+    torch.cuda.synchronize()
+    log(f"train total_bits=8: {time.perf_counter() - t0:.2f} s; report "
+        f"{json.dumps(index8.build_report)}; fused EXACT ok {index8._fused_exact_ok()}")
+    if index8._fused_exact_ok():
+        raise AssertionError("the total_bits=8 index must take the two-stage scan")
+    del data
+    torch.cuda.empty_cache()
+    index8.upload_dtype = "int8"
+    t0 = time.perf_counter()
+    for scan_dtype, nprobe in (("fused8", 16), ("fused8", 256), ("fused", 16), ("fused", 256),
+                               ("packed", 256), ("bf16", 256)):
+        index8.scan_dtype = scan_dtype  # "packed" re-lays the index to the permuted layout
+        params = SearchParams(top_k=10, nprobe=nprobe)
+        index8.batch_search_arrays_pipelined(queries_np, params, batch_size=256, upload_block=1024)
+        qps = []
+        for _ in range(QPS_RUNS_8BIT):
+            t1 = time.perf_counter()
+            ids, dists = index8.batch_search_arrays_pipelined(
+                queries_np, params, batch_size=256, upload_block=1024
+            )
+            qps.append(len(queries_np) / (time.perf_counter() - t1))
+        if index8.scan_dtype != scan_dtype:
+            raise AssertionError(f"{scan_dtype} was downgraded to {index8.scan_dtype}")
+        if ids.shape != (len(queries_np), 10) or (ids < 0).any() or not np.isfinite(dists).all():
+            raise AssertionError(f"{scan_dtype} nprobe={nprobe}: malformed results {ids.shape}")
+        if (np.diff(dists, axis=1) < 0).any():
+            raise AssertionError(f"{scan_dtype} nprobe={nprobe}: rows not sorted by distance")
+        recall = recall_at(ids, gt, 10)
+        log(f"serve total_bits=8 {scan_dtype} nprobe={nprobe}: recall@10 {recall:.4f}; "
+            f"pipelined int8 QPS over {QPS_RUNS_8BIT} runs (median [min, max]): "
+            f"{np.median(qps):.0f} [{min(qps):.0f}, {max(qps):.0f}]")
+        if nprobe == 256 and recall < RECALL_FLOOR:
+            raise AssertionError(
+                f"{scan_dtype}: recall@10 {recall:.4f} < {RECALL_FLOOR} at nprobe=256")
+    launches8 = {f"fused_bin_scan_packed_{k}": v for k, v in packed_launches.items()}
+    launches8["packed_lb_scan"] = packed_lb_scan_cuda.launches
+    launches8["fht"] = fht_kernel.launches - fht_before
+    log(f"launches on the two-stage and dense paths: {launches8}")
+    if min(launches8.values()) <= 0:
+        raise AssertionError(f"a kernel of the two-stage or dense path never ran: {launches8}")
+    log(f"phase seconds: total_bits=8 serving {time.perf_counter() - t0:.1f}")
+
+    t0 = time.perf_counter()
+    index8.scan_dtype = "packed"
+    lb_plane = check_packed_lb_scan(index8, queries_np, 256)
+    profile_serving(index8, queries_np, 256, label="total_bits=8 packed ")
+    index8.scan_dtype = "fused8"  # re-laid back to the cluster-sorted layout
+    p_int8_compact = check_bin_scan(index8, queries_np, 16)
+    p_int8_dense = check_bin_scan(index8, queries_np, 256)
+    profile_serving(index8, queries_np, 16, label="total_bits=8 fused8 ")
+    index8.scan_dtype = "fused"
+    p_bf16_dense = check_bin_scan(index8, queries_np, 256)
+    log(f"phase seconds: total_bits=8 checks and profiles {time.perf_counter() - t0:.1f}")
 
     def entry(name, source, replaces, n, r):
         return {
@@ -353,13 +512,22 @@ def main() -> int:
 
     scan_src = "rabitq_tpu_torch/csrc/fused_bin_scan.cu"
     scan_tpu = "rabitq_tpu/ops/pallas_fused_scan.py:497"
+    packed_src = "rabitq_tpu_torch/csrc/packed_bin_scan.cu"
     kernels = [
         entry("fht", "rabitq_tpu_torch/csrc/fht.cu", "rabitq_tpu/ops/pallas_fht.py:49",
-              launches["fht"], fht_rows[8192]),
+              launches["fht"] + launches8["fht"], fht_rows[8192]),
         entry("fused_bin_scan_compact", scan_src, scan_tpu,
               launches["fused_bin_scan_compact"], compact),
         entry("fused_bin_scan_dense", scan_src, scan_tpu,
               launches["fused_bin_scan_dense"], dense),
+        entry("fused_bin_scan_packed_int8_compact", packed_src, scan_tpu,
+              launches8["fused_bin_scan_packed_int8_compact"], p_int8_compact),
+        entry("fused_bin_scan_packed_int8_dense", packed_src, scan_tpu,
+              launches8["fused_bin_scan_packed_int8_dense"], p_int8_dense),
+        entry("fused_bin_scan_packed_bf16_dense", packed_src, scan_tpu,
+              launches8["fused_bin_scan_packed_bf16_dense"], p_bf16_dense),
+        entry("packed_lb_scan", "rabitq_tpu_torch/csrc/packed_lb_scan.cu",
+              "rabitq_tpu/ops/pallas_scan.py:141", launches8["packed_lb_scan"], lb_plane),
     ]
     for k in kernels:
         if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms")):

@@ -2,13 +2,17 @@
 
 Build: k-means on the device (``ops/kmeans.py``), FhtKac rotation (the FHT
 kernel), residual quantization in row chunks (``index/build.py``) and the
-cluster-sorted fused layout (``index/layout.py``). Search: the fused EXACT
-scan (``index/scan.py``) around the bin kernel.
+device layout (``index/layout.py``): cluster-sorted for the fused scans,
+pseudorandomly permuted for the dense and packed ones. Search:
+``index/scan.scan_kernel``, routed as the reference routes it.
 
-This slice serves ``scan_dtype`` "fused"/"fused8" with ``total_bits`` 2..7
-(``ex_bits`` 1..6, the TOTAL int8 plane) and planes up to 2048 columns.
-Where the JAX package would quietly switch to a path the port does not have
-yet, the port raises ``NotImplementedError`` naming the ``ROADMAP.md`` item.
+``scan_dtype`` "fused"/"fused8" takes the EXACT scan for ``total_bits`` 2..7
+(``ex_bits`` 1..6, the TOTAL int8 plane) and planes up to 2560 columns, the
+two-stage fused scan otherwise (through 3072 columns with bf16 queries,
+7168 with int8 ones), and drops to "bf16" with a warning beyond that or
+where a row tile would span more than 128 clusters. "f32", "bf16", "int8"
+and "packed" are the dense scans. Assigning ``scan_dtype`` after
+construction re-lays the index on the device at the next search.
 """
 
 from __future__ import annotations
@@ -24,25 +28,29 @@ from ..ops.fused_scan import (
     EXACT_MAX_WIDTH,
     TB,
     TN,
+    TWO_STAGE_MAX_WIDTH,
+    TWO_STAGE_MAX_WIDTH_INT8,
     expected_tile_cost,
     fused_geometry_ok,
     probed_tile_bound,
     tile_cluster_blocks,
 )
+from ..ops.packed_scan import pack_bitplanes
 from ..ops.quantize import compute_const_scaling_factor
 from ..ops.rotation import Rotator, deserialize_rotator, make_rotator
-from ..types import Metric, RotatorType, SearchParams, SearchResult
+from ..types import Metric, RotatorType, SearchDiagnostics, SearchParams, SearchResult
 from ..utils.device import resolve_device, synchronize
 from ..utils.logging import get_logger, timed
 from .build import build_codes_device, exact_t_rows
 from .layout import DeviceLayout, assemble_device_layout, cluster_of_rows, pad_rows
 from .scan import (
+    SCAN_DTYPES,
     decode_queries,
     ex_plane_is_total,
-    fused_exact_scan,
     is_fused,
     pack_int4_queries,
     probe_k_bucket,
+    scan_kernel,
 )
 
 _log = get_logger("ivf")
@@ -76,9 +84,10 @@ class IvfRabitqIndex:
         rotator: Rotator,
         ex_bits: int,
         device: "str | torch.device | None" = None,
-        scan_dtype: str = "fused8",
+        scan_dtype: str = "bf16",
+        approx_topk: bool | None = None,
     ):
-        _check_scan_config(scan_dtype, ex_bits, padded_dim)
+        _check_scan_dtype(scan_dtype)
         self.dim = dim
         self.padded_dim = padded_dim
         self.metric = metric
@@ -86,6 +95,9 @@ class IvfRabitqIndex:
         self.ex_bits = ex_bits
         self.device = resolve_device(device)
         self.scan_dtype = scan_dtype
+        # survivors of the dense scans come from the bf16 plane unless this
+        # is off; the f32 oracle configuration defaults to f32 selection
+        self.approx_topk = approx_topk if approx_topk is not None else scan_dtype != "f32"
         # query upload encoding: "f32", "bf16", "int8" (per-query scale,
         # a quarter of the bytes) or "int4" (nibble pairs, an eighth)
         self.upload_dtype: str = "f32"
@@ -93,7 +105,10 @@ class IvfRabitqIndex:
         self._ids: np.ndarray | None = None  # [N] original ids, cluster-sorted
         self._offsets: np.ndarray | None = None  # [C+1] cluster row ranges
         self._layout: DeviceLayout | None = None
+        self._layout_mode_built: str | None = None  # see _layout_mode
+        self._packed: torch.Tensor | None = None  # bit planes ("packed" and fused)
         self._c_blk: torch.Tensor | None = None
+        self._geometry_ok: bool | None = None  # fused_geometry_ok of the clusters
         self._max_tiles_cache: dict = {}
 
     # ------------------------------------------------------------------
@@ -111,7 +126,7 @@ class IvfRabitqIndex:
         seed: int = 42,
         use_faster_config: bool = False,
         kmeans_iters: int = 30,
-        scan_dtype: str = "fused8",
+        scan_dtype: str = "bf16",
         kmeans_dtype: str = "auto",
         kmeans_tol: float = 1e-3,
         device: "str | torch.device | None" = None,
@@ -130,7 +145,7 @@ class IvfRabitqIndex:
             raise InvalidConfig("total_bits must be between 1 and 16")
         if nlist > n:
             raise InvalidConfig("nlist cannot exceed number of vectors")
-        _check_scan_config(scan_dtype, total_bits - 1, None)
+        _check_scan_dtype(scan_dtype)
         t0 = time.perf_counter()
         data_dev = torch.as_tensor(data, dtype=torch.float32).to(dev)
         synchronize(dev)
@@ -169,7 +184,7 @@ class IvfRabitqIndex:
         rotator_type: RotatorType = RotatorType.FhtKacRotator,
         seed: int = 42,
         use_faster_config: bool = False,
-        scan_dtype: str = "fused8",
+        scan_dtype: str = "bf16",
         device: "str | torch.device | None" = None,
     ) -> "IvfRabitqIndex":
         """Build with an external clustering (``ivf.rs:1025-1103``)."""
@@ -191,7 +206,7 @@ class IvfRabitqIndex:
             raise InvalidConfig("nlist cannot exceed number of vectors")
         if assignments.min(initial=0) < 0 or assignments.max(initial=0) >= centroids.shape[0]:
             raise InvalidConfig("assignments reference invalid cluster ids")
-        _check_scan_config(scan_dtype, total_bits - 1, None)
+        _check_scan_dtype(scan_dtype)
         return cls._build(
             data, torch.from_numpy(data).to(dev), torch.from_numpy(centroids).to(dev),
             assignments, total_bits, metric, rotator_type, seed, use_faster_config,
@@ -208,7 +223,6 @@ class IvfRabitqIndex:
         ex_bits = total_bits - 1
         rotator = make_rotator(dim, rotator_type, seed)
         padded_dim = rotator.padded_dim
-        _check_scan_config(scan_dtype, ex_bits, padded_dim)
         with timed("rotate centroids", _log):
             rotated_centroids = rotator.rotate(centroids)
 
@@ -218,7 +232,6 @@ class IvfRabitqIndex:
         sizes = np.bincount(assignments, minlength=nlist)
         offsets = np.zeros(nlist + 1, np.int64)
         np.cumsum(sizes, out=offsets[1:])
-        _check_geometry(sizes)
 
         t_const = 0.0
         t_rows = None
@@ -272,16 +285,20 @@ class IvfRabitqIndex:
         ids: np.ndarray,  # [N] original ids
         cluster_offsets: np.ndarray,  # [C+1] row ranges per cluster
         centroids: np.ndarray,  # [C, Dpad] rotated centroids
-        scan_dtype: str = "fused8",
+        scan_dtype: str = "bf16",
+        approx_topk: bool | None = None,
         device: "str | torch.device | None" = None,
     ) -> "IvfRabitqIndex":
         """An index over existing codes: the JAX package's index state
         (``HostCodes`` plus the rotator's serialized bytes) as host arrays,
-        carried across so both packages search the same codes."""
+        carried across so both packages search the same codes, in the same
+        device row order (the permuted layouts share the permutation)."""
         rotator = deserialize_rotator(dim, padded_dim, rotator_type, rotator_bytes)
-        index = cls(dim, padded_dim, metric, rotator, ex_bits, device=device, scan_dtype=scan_dtype)
+        index = cls(
+            dim, padded_dim, metric, rotator, ex_bits, device=device,
+            scan_dtype=scan_dtype, approx_topk=approx_topk,
+        )
         offsets = np.asarray(cluster_offsets, np.int64)
-        _check_geometry(np.diff(offsets))
         index._set_layout(
             ids=np.asarray(ids, np.int64), offsets=offsets,
             centroids=np.asarray(centroids, np.float32), binary=binary_bits,
@@ -291,19 +308,64 @@ class IvfRabitqIndex:
         return index
 
     def _set_layout(self, *, ids, offsets, centroids, **planes) -> None:
-        n = int(ids.shape[0])
+        """Assemble the device layout of the current ``scan_dtype`` from
+        cluster-sorted planes (host arrays or tensors)."""
         self._ids = ids
         self._offsets = offsets
-        sizes = np.diff(offsets)
+        self._geometry_ok = None
+        self._maybe_downgrade_fused()
         self._layout = assemble_device_layout(
-            n=n, ex_bits=self.ex_bits, cluster_sizes=sizes, ids=ids,
-            centroids=centroids, row_pad=TN, permute=False, device=self.device,
-            **planes,
+            n=int(ids.shape[0]), ex_bits=self.ex_bits, cluster_sizes=np.diff(offsets),
+            ids=ids, centroids=centroids, device=self.device, **planes,
+            **self._layout_kwargs(),
         )
-        n_pad = pad_rows(n, TN)
-        c_blk = tile_cluster_blocks(cluster_of_rows(sizes, n_pad), np.arange(n_pad) < n)
-        self._c_blk = torch.from_numpy(c_blk).to(self.device)
+        self._layout_mode_built = self._layout_mode()
+        self._packed = None
+        self._c_blk = None
         self._max_tiles_cache = {}
+
+    def _layout_mode(self) -> str:
+        """'sorted' (cluster-contiguous, TN-padded: the fused scans) or
+        'perm' (pseudorandom scatter, 128-padded: the dense and packed
+        scans)."""
+        return "sorted" if is_fused(self.scan_dtype) else "perm"
+
+    def _layout_kwargs(self) -> dict:
+        if self._layout_mode() == "sorted":
+            return {"permute": False, "row_pad": TN}
+        return {}
+
+    def _relayout(self) -> None:
+        """Rebuild the device layout for the other layout mode, on the
+        device, from the current one: undo the row permutation, recover the
+        raw planes (``binary = total >> ex_bits`` where the binary plane was
+        dropped) and assemble again."""
+        old = self._layout
+        n = len(self)
+        pos_of_row = np.empty_like(old.perm)
+        pos_of_row[old.perm] = np.arange(old.perm.shape[0])
+        take = torch.from_numpy(pos_of_row[:n]).to(self.device)
+
+        def rows(x):
+            return x.index_select(0, take)
+
+        ex = rows(old.ex)[:, : self.padded_dim]  # drop the fused width pad
+        if old.binary is not None:
+            binary = rows(old.binary)
+        else:
+            binary = (ex >> self.ex_bits).to(torch.int8)
+        if ex_plane_is_total(self.ex_bits):
+            ex = ex - (binary << self.ex_bits)  # the plane held TOTAL codes
+        planes = {
+            name: rows(getattr(old, name))
+            for name in ("f_add", "f_rescale", "f_error", "f_add_ex", "f_rescale_ex", "delta", "vl")
+        }
+        centroids = old.centroids
+        self._layout = old = None
+        self._set_layout(
+            ids=self._ids, offsets=self._offsets, centroids=centroids,
+            binary=binary, ex=ex, **planes,
+        )
 
     # ------------------------------------------------------------------
     # accessors
@@ -313,6 +375,8 @@ class IvfRabitqIndex:
     def layout(self) -> DeviceLayout:
         if self._layout is None:
             raise EmptyIndex()
+        if self._layout_mode_built != self._layout_mode():
+            self._relayout()  # scan_dtype was assigned since the layout was built
         return self._layout
 
     def __len__(self) -> int:
@@ -428,9 +492,55 @@ class IvfRabitqIndex:
         dists = torch.cat([p[1] for p in pending]).cpu().numpy()[:b_total]
         return ids, dists
 
+    def _maybe_downgrade_fused(self) -> None:
+        """The fused kernels need cluster-sorted tiles spanning <= 128
+        clusters and a plane within the two-stage width; other indexes are
+        served by the dense bf16 scan, as the reference does."""
+        if not is_fused(self.scan_dtype):
+            return
+        if self._geometry_ok is None:
+            self._geometry_ok = fused_geometry_ok(np.diff(self._offsets))
+        plane_w = self.padded_dim + (-self.padded_dim) % 128
+        limit = TWO_STAGE_MAX_WIDTH_INT8 if self.scan_dtype == "fused8" else TWO_STAGE_MAX_WIDTH
+        if not (self._geometry_ok and plane_w <= limit):
+            _log.warning(
+                "geometry unsuited for scan_dtype=%r (a row tile would span >128 "
+                "clusters, or the plane is wider than the two-stage fused scan "
+                "serves); falling back to bf16",
+                self.scan_dtype,
+            )
+            self.scan_dtype = "bf16"
+
+    def _fused_exact_ok(self) -> bool:
+        """Whether the fused scan runs in EXACT mode: it needs the TOTAL
+        refine plane and a plane within ``EXACT_MAX_WIDTH``; otherwise the
+        two-stage scan serves the index."""
+        plane_w = self.padded_dim + (-self.padded_dim) % 128
+        return (
+            is_fused(self.scan_dtype)
+            and ex_plane_is_total(self.ex_bits)
+            and plane_w <= EXACT_MAX_WIDTH
+        )
+
     def _scan_inputs(self, filter_ids: np.ndarray | None) -> torch.Tensor:
-        """Row mask of the scan: valid rows, narrowed by the user filter."""
-        row_allowed = self.layout.valid
+        """Bring the layout, the packed plane and the tile windows up to
+        date for the current ``scan_dtype``; returns the row mask of the
+        scan: valid rows, narrowed by the user filter."""
+        self._maybe_downgrade_fused()
+        lay = self.layout
+        fused = is_fused(self.scan_dtype)
+        if (fused or self.scan_dtype == "packed") and self._packed is None:
+            if lay.packed is not None:  # fused layouts pre-pack
+                self._packed = lay.packed
+            else:
+                self._packed = pack_bitplanes(lay.binary, self.padded_dim)
+        if fused and self._c_blk is None:
+            n_pad = int(lay.ids.shape[0])
+            c_blk = tile_cluster_blocks(
+                cluster_of_rows(np.diff(self._offsets), n_pad), np.arange(n_pad) < len(self)
+            )
+            self._c_blk = torch.from_numpy(c_blk).to(self.device)
+        row_allowed = lay.valid
         if filter_ids is not None:
             mask = torch.from_numpy(self._row_filter(filter_ids)).to(self.device)
             row_allowed = row_allowed & mask
@@ -452,6 +562,8 @@ class IvfRabitqIndex:
         the dense walk: compaction is on when the EXPECTED per-block tile
         count is under 0.6 of all tiles, sized by the SAFE bound (so no
         probed tile is dropped), bucketed to a power of two."""
+        if not is_fused(self.scan_dtype):
+            return None
         bt = TB if batch is None else min(TB, ((int(batch) + 31) // 32) * 32)
         key = (int(nprobe), bt)
         if key not in self._max_tiles_cache:
@@ -482,44 +594,52 @@ class IvfRabitqIndex:
             raise InvalidConfig(f"unknown upload_dtype {self.upload_dtype!r}")
         return torch.from_numpy(q), None
 
-    def _dispatch_scan(self, q, qscale, params: SearchParams, row_allowed):
+    def _dispatch_scan(self, q, qscale, params: SearchParams, row_allowed, **scan_kw):
         """Queue decode + rotation + scan of one padded query block on the
         device; returns device tensors (callers fetch)."""
         lay = self.layout
+        fused = is_fused(self.scan_dtype)
+        scan_kw.setdefault("fused_exact", self._fused_exact_ok())
         q_rot = self.rotator.rotate(decode_queries(q, qscale, self.dim))
-        return fused_exact_scan(
-            q_rot, lay.centroids, lay.ex, lay.f_add_ex, lay.f_rescale_ex,
-            lay.cluster_of, row_allowed, lay.ids, self._c_blk,
-            nprobe=params.nprobe, top_k=params.top_k, metric=self.metric,
-            ex_bits=self.ex_bits,
+        return scan_kernel(
+            q_rot, lay.centroids, lay.binary, lay.ex, lay.f_add, lay.f_rescale,
+            lay.f_error, lay.f_add_ex, lay.f_rescale_ex, lay.cluster_of, row_allowed,
+            lay.ids,
+            nprobe=params.nprobe,
+            packed=self._packed if (fused or self.scan_dtype == "packed") else None,
+            fused_cblk=self._c_blk if fused else None,
+            top_k=params.top_k, rerank=params.resolved_rerank(), metric=self.metric,
+            ex_bits=self.ex_bits, scan_dtype=self.scan_dtype, approx_topk=self.approx_topk,
             max_tiles=self._fused_max_tiles(params.nprobe, batch=q.shape[0]),
             probe_k=probe_k_bucket(params.nprobe, self.cluster_count(), self.scan_dtype),
+            **scan_kw,
+        )
+
+    def search_with_diagnostics(
+        self, query: np.ndarray, params: SearchParams
+    ) -> tuple[list[SearchResult], SearchDiagnostics]:
+        """Search plus scan counters measured from the scan's own masks; on
+        the fused paths, the bin kernel's offered-row counters (reference
+        test accessor ``ivf.rs:2131-2140``). As in the reference, a fused
+        index is measured through its two-stage scan, whose lower-bound cut
+        is what ``skipped_by_lower_bound`` counts."""
+        query = self._check_queries(query)[:1]
+        row_allowed = self._scan_inputs(None)
+        ids, dists, diag = self._dispatch_scan(
+            torch.from_numpy(query).to(self.device), None, params, row_allowed,
+            with_diagnostics=True, fused_exact=False,
+        )
+        results = []
+        for i, dd in zip(ids[0].tolist(), dists[0].tolist()):
+            if i < 0 or not np.isfinite(dd):
+                continue
+            results.append(SearchResult(id=i, score=dd if self.metric is Metric.L2 else -dd))
+        d = diag[0].tolist()
+        return results, SearchDiagnostics(
+            estimated=d[0], skipped_by_lower_bound=d[1], extended_evaluations=d[2]
         )
 
 
-def _check_scan_config(scan_dtype: str, ex_bits: int, padded_dim: int | None) -> None:
-    """Refuse configurations the JAX package serves through a scan the port
-    has not ported yet."""
-    if not is_fused(scan_dtype):
-        raise NotImplementedError(
-            f"scan_dtype={scan_dtype!r}: only the fused EXACT scan is ported "
-            "(ROADMAP.md C: dense and packed scans)"
-        )
-    if not ex_plane_is_total(ex_bits):
-        raise NotImplementedError(
-            f"total_bits={ex_bits + 1}: the fused EXACT scan needs total_bits "
-            "2..7; the two-stage scan is not ported (ROADMAP.md C)"
-        )
-    if padded_dim is not None and padded_dim + (-padded_dim) % 128 > EXACT_MAX_WIDTH:
-        raise NotImplementedError(
-            f"plane width {padded_dim} exceeds the EXACT scan's "
-            f"{EXACT_MAX_WIDTH}; the two-stage scan is not ported (ROADMAP.md C)"
-        )
-
-
-def _check_geometry(cluster_sizes) -> None:
-    if not fused_geometry_ok(cluster_sizes):
-        raise NotImplementedError(
-            "a row tile would span more than 128 clusters; the dense scan the "
-            "JAX package falls back to is not ported (ROADMAP.md C)"
-        )
+def _check_scan_dtype(scan_dtype: str) -> None:
+    if scan_dtype not in SCAN_DTYPES:
+        raise InvalidConfig(f"unknown scan_dtype {scan_dtype!r}; one of {SCAN_DTYPES}")

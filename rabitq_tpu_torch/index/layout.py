@@ -88,16 +88,19 @@ def assemble_device_layout(
     ex,  # [>=n, Dpad] RAW ex codes (not the refine plane)
     f_add,
     f_rescale,
-    f_error,
     f_add_ex,
     f_rescale_ex,
+    f_error=None,  # omit (or zero_f_error=True) -> zeros, as MSTG's scan wants
     cluster_sizes: np.ndarray,  # [C] rows per cluster, cluster-sorted order
     ids: np.ndarray,  # [n] original ids
     centroids,  # [C, Dpad] f32
     delta=None,
     vl=None,
+    zero_f_error: bool = False,
     row_pad: int = _ROW_PAD,
     permute: bool = True,
+    keep_binary: bool = False,  # keep the dense binary plane in fused layouts
+    # too (with stage-2 refinement off, the 1-bit re-score reads it)
     device: "torch.device | str" = "cpu",
 ) -> DeviceLayout:
     """Build the padded (and, with ``permute``, scattered) device layout
@@ -125,7 +128,7 @@ def assemble_device_layout(
     packed_dev = None
     if not permute:
         packed_dev = pack_bitplanes(binary_dev, binary_dev.shape[1])
-        if ex_plane_is_total(ex_bits):
+        if ex_plane_is_total(ex_bits) and not keep_binary:
             binary_dev = None  # nothing on the fused TOTAL path reads it
 
     ex_dev = _pad_permute(plane, n, n_pad, perm_t, refine_plane_dtype(ex_bits), device)
@@ -142,7 +145,9 @@ def assemble_device_layout(
         ex=ex_dev.contiguous(),
         f_add=scalar(f_add),
         f_rescale=scalar(f_rescale),
-        f_error=scalar(f_error),
+        f_error=torch.zeros(n_pad, dtype=torch.float32, device=device)
+        if (zero_f_error or f_error is None)
+        else scalar(f_error),
         f_add_ex=scalar(f_add_ex),
         f_rescale_ex=scalar(f_rescale_ex),
         cluster_of=host_vec(cluster_of),

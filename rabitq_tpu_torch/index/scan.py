@@ -1,12 +1,20 @@
-"""Batched search over the fused EXACT scan (port of the EXACT branch of
-``rabitq_tpu/index/scan.py``).
+"""The batched RaBitQ scan (port of ``rabitq_tpu/index/scan.py``).
 
-Per query block: rank the centroids, mark the first ``nprobe`` as probed,
-sort the queries by their best centroid (so each kernel block's probed set,
-and so its compacted tile list, stays small), stream the int8 TOTAL plane
-through the bin kernel with the extended factors -- the bin minima are the
-final distances (``est_extended``, reference ``ivf.rs:2086-2099``) -- then
-restore the f32 g_add on the returned values and sort each result row.
+Per query block, :func:`scan_kernel` ranks the centroids, marks the first
+``nprobe`` as probed and takes one of three scans:
+
+* fused EXACT (``fused_exact``): the int8 TOTAL plane streams through the
+  direct bin kernel with the extended factors; the bin minima are the final
+  distances (``est_extended``, reference ``ivf.rs:2086-2099``);
+* fused two-stage (``scan_dtype`` "fused"/"fused8" otherwise): the packed
+  bin kernel reduces 1-bit lower bounds into bins, the best ``rerank`` bins
+  are the survivors, and :func:`_stage2_rerank` re-scores them exactly;
+* dense (``scan_dtype`` "f32"/"bf16"/"int8"/"packed"): a ``[B, Np]`` plane
+  of 1-bit lower bounds (a matrix product, or the packed lower-bound kernel),
+  a top-``rerank`` survivor selection over it, then the same stage 2.
+
+The products, gathers and selections outside the kernels are torch ops, as
+they are XLA ops in the reference.
 """
 
 from __future__ import annotations
@@ -16,7 +24,10 @@ import torch
 
 from ..ops import estimator as est_ops
 from ..ops.fused_scan import BIG, fused_select
+from ..ops.packed_scan import packed_lb_scan, permute_query
 from ..types import Metric
+
+SCAN_DTYPES = ("f32", "bf16", "int8", "packed", "fused", "fused8")
 
 
 def probe_k_bucket(nprobe, n_clusters: int, scan_dtype: str = "fused") -> int | None:
@@ -97,74 +108,312 @@ def decode_queries(q: torch.Tensor, qscale: torch.Tensor | None, dim: int) -> to
     return q
 
 
-def fused_exact_scan(
+_DOT_ROWS = 1 << 17  # code rows converted per product of _stage1_dots
+
+
+def _stage1_dots(q_rot: torch.Tensor, codes: torch.Tensor, scan_dtype: str) -> torch.Tensor:
+    """<code_row, q> for all rows: q_rot [B, D] f32, codes [N, D] int8 ->
+    [B, N] f32. ``scan_dtype`` picks the operand precision: "f32" exact,
+    "bf16" the query rounded to bf16 (the codes are exact in bf16; f32
+    accumulation), "int8" a per-query symmetric int8 quantization of the
+    query with an exact integer dot, scaled back."""
+    scale = None
+    if scan_dtype == "f32":
+        q = q_rot
+    elif scan_dtype == "bf16":
+        q = q_rot.to(torch.bfloat16)
+    elif scan_dtype == "int8":
+        scale = torch.clamp_min(q_rot.abs().amax(dim=-1, keepdim=True) / 127.0, 1e-30)
+        q = torch.clamp(torch.round(q_rot / scale), -127, 127)
+    else:
+        raise ValueError(f"unknown scan_dtype: {scan_dtype}")
+    out = torch.empty((q.shape[0], codes.shape[0]), dtype=torch.float32, device=q.device)
+    for s in range(0, codes.shape[0], _DOT_ROWS):
+        blk = codes[s : s + _DOT_ROWS]
+        if scan_dtype == "bf16" and q.is_cuda:
+            # bf16 operands on the tensor cores, f32 accumulation and output
+            out[:, s : s + _DOT_ROWS] = torch.mm(
+                q, blk.to(torch.bfloat16).T, out_dtype=torch.float32
+            )
+        else:
+            # f32 product of the rounded operands: the same products, summed
+            # in f32 (int8: every partial sum is an integer below 2^24)
+            torch.mm(q.to(torch.float32), blk.to(torch.float32).T, out=out[:, s : s + _DOT_ROWS])
+    return out if scale is None else out * scale
+
+
+def scan_kernel(
     q_rot: torch.Tensor,  # [B, Dpad] f32 rotated queries
     centroids: torch.Tensor,  # [C, Dpad] f32 rotated centroids
-    plane: torch.Tensor,  # [Np, Dplane] int8 TOTAL codes, Dplane % 128 == 0
-    f_add_ex: torch.Tensor,  # [Np] f32
-    f_rescale_ex: torch.Tensor,  # [Np] f32
+    binary: torch.Tensor | None,  # [Np, Dpad] int8 {0,1} (None: fused + TOTAL plane)
+    ex: torch.Tensor,  # refine plane: TOTAL codes when ex_plane_is_total, else raw ex
+    f_add: torch.Tensor,  # [Np] f32
+    f_rescale: torch.Tensor,
+    f_error: torch.Tensor,
+    f_add_ex: torch.Tensor,
+    f_rescale_ex: torch.Tensor,
     cluster_of: torch.Tensor,  # [Np] int32
     row_allowed: torch.Tensor,  # [Np] bool (valid & user filter)
     ids: torch.Tensor,  # [Np] int32 original ids
-    c_blk: torch.Tensor,  # [N_tiles] int32
+    nprobe: int = 1,
+    prune_epsilon: float = 0.0,
+    packed: torch.Tensor | None = None,  # [Np, Db] uint8 bit planes ("packed"/fused)
+    fused_cblk: torch.Tensor | None = None,  # [N_tiles] int32 (fused windows)
     *,
-    nprobe: int,
     top_k: int,
+    rerank: int,
     metric: Metric,
     ex_bits: int,
+    scan_dtype: str,
+    use_prune_epsilon: bool = False,
+    refine_ex: bool = True,
+    clamp_l2: bool = False,
+    centroid_select_l2: bool = False,
+    approx_topk: bool = True,
+    with_diagnostics: bool = False,
     max_tiles: int | None = None,
     probe_k: int | None = None,
-    clamp_l2: bool = False,
+    fused_exact: bool = False,
+    fused_exact_sort: bool = True,
+    locality_depth: int = 1,
 ):
     """Returns (result_ids [B, top_k] int32, -1 padded; result_dist
     [B, top_k] f32 internal distances, +inf padded). For InnerProduct the
-    score is -dist."""
-    b = q_rot.shape[0]
-    n_clusters = centroids.shape[0]
-    qc = est_ops.query_constants(q_rot, ex_bits)
-    g_add, _, sq_dist, cent_dot = est_ops.g_terms(q_rot, centroids, metric)
+    score is -dist (``ivf.rs:2106-2109``).
 
-    # cluster selection (ivf.rs:1782-1835): stable descending order, ties to
-    # the lower cluster id as lax.top_k breaks them
-    sel = -sq_dist if metric is Metric.L2 else cent_dot
+    With ``with_diagnostics`` a third output ``diag [B, 3] int32``, measured
+    from the scan's own masks: ``[:, 0]`` candidates fully scored and
+    offered to the final top-k, ``[:, 1]`` probed rows cut by the
+    lower-bound survivor selection, ``[:, 2]`` extended-code evaluations.
+
+    ``approx_topk`` selects survivors from the bf16 plane as the reference
+    does; the selection itself is an exact ``torch.topk`` (the reference's
+    approximate op has no counterpart, and an exact selection is one of its
+    legal outcomes)."""
+    b = q_rot.shape[0]
+    n_rows = ids.shape[0]
+    n_clusters = centroids.shape[0]
+    rerank = min(max(rerank, top_k), n_rows)
+
+    qc = est_ops.query_constants(q_rot, ex_bits)
+    g_add, g_error, sq_dist, cent_dot = est_ops.g_terms(q_rot, centroids, metric)
+
+    # --- cluster selection (ivf.rs:1782-1835): stable descending order, ties
+    # to the lower cluster id as lax.top_k breaks them; MSTG navigates
+    # centroids by L2 whatever the scan metric
+    sel = -sq_dist if (centroid_select_l2 or metric is Metric.L2) else cent_dot
     k_sel = n_clusters if probe_k is None else min(probe_k, n_clusters)
     nprobe = min(max(int(nprobe), 1), n_clusters, k_sel)
-    ranked = torch.sort(sel, dim=1, descending=True, stable=True).indices[:, :k_sel]
+    ranked_sel, ranked = torch.sort(sel, dim=1, descending=True, stable=True)
+    ranked_sel, ranked = ranked_sel[:, :k_sel], ranked[:, :k_sel]
+    within = (torch.arange(k_sel, device=q_rot.device) < nprobe)[None, :].expand(b, k_sel)
+    if use_prune_epsilon:
+        # MSTG dynamic pruning (mstg/index.rs:349-362) on squared distances
+        ranked_sq = -ranked_sel
+        within = within & (ranked_sq <= ranked_sq[:, :1] * (1.0 + prune_epsilon) ** 2)
     probe_mask = torch.zeros((b, n_clusters), dtype=torch.bool, device=q_rot.device)
-    probe_mask.scatter_(1, ranked[:, :nprobe], True)
+    probe_mask.scatter_(1, ranked, within)
 
-    fa_eff = torch.where(row_allowed, f_add_ex, BIG)
-    q_in, k1x_in, g_add_in, probe_in = q_rot, qc.kbx_sum_q, g_add, probe_mask
-    inv = None
-    if max_tiles is not None:
-        # locality sort: queries sharing a best centroid share a kernel block
-        order = torch.argsort(ranked[:, 0], stable=True)
-        inv = torch.argsort(order, stable=True)
-        q_in, k1x_in = q_rot[order], k1x_in[order]
-        g_add_in, probe_in = g_add[order], probe_mask[order]
-    if plane.shape[1] != q_in.shape[1]:
-        q_in = torch.nn.functional.pad(q_in, (0, plane.shape[1] - q_in.shape[1]))
-    cand_idx, cand_ok, cand_val, _ = fused_select(
-        q_in, plane, fa_eff, f_rescale_ex, cluster_of, k1x_in, g_add_in, probe_in,
-        c_blk, top_k, max_tiles=max_tiles,
+    if is_fused(scan_dtype):
+        if fused_cblk is None:
+            raise ValueError("the fused scans need the c_blk windows")
+        if fused_exact and ex.shape[1] % 128:
+            fused_exact = False  # a plane not width-padded to 128 columns: two-stage scan
+        if fused_exact:
+            if not (ex_plane_is_total(ex_bits) and refine_ex):
+                raise ValueError("fused_exact needs the TOTAL refine plane")
+            plane = ex
+            fa_eff = torch.where(row_allowed, f_add_ex, BIG)
+            fr_in, k1x_full = f_rescale_ex, qc.kbx_sum_q
+        else:
+            if packed is None:
+                raise ValueError("the two-stage fused scan needs the packed plane")
+            plane = packed
+            fa_eff = torch.where(row_allowed, f_add, BIG)
+            fr_in, k1x_full = f_rescale, qc.k1x_sum_q
+        q_in, k1x_in, g_add_in, g_err_in, probe_in = q_rot, k1x_full, g_add, g_error, probe_mask
+        inv = None
+        if max_tiles is not None:
+            # locality sort: queries sharing a best centroid (and, at depth 2,
+            # a second one) share a kernel block
+            if locality_depth >= 2 and ranked.shape[1] >= 2:
+                key = ranked[:, 0] * n_clusters + ranked[:, 1]
+            else:
+                key = ranked[:, 0]
+            order = torch.argsort(key, stable=True)
+            inv = torch.argsort(order, stable=True)
+            q_in, k1x_in = q_rot[order], k1x_full[order]
+            g_add_in, g_err_in, probe_in = g_add[order], g_error[order], probe_mask[order]
+        if fused_exact and plane.shape[1] != q_in.shape[1]:
+            q_in = torch.nn.functional.pad(q_in, (0, plane.shape[1] - q_in.shape[1]))
+        packed_kw = {} if fused_exact else dict(
+            f_error=f_error, g_err=g_err_in, int8_stage1=scan_dtype == "fused8"
+        )
+        cand_idx, cand_ok, cand_val, probed = fused_select(
+            q_in, plane, fa_eff, fr_in, cluster_of, k1x_in, g_add_in, probe_in,
+            fused_cblk, top_k if fused_exact else rerank, max_tiles=max_tiles,
+            direct_plane=fused_exact, **packed_kw,
+        )
+        if inv is not None:
+            cand_idx, cand_ok, cand_val, probed = (
+                cand_idx[inv], cand_ok[inv], cand_val[inv], probed[inv]
+            )
+        if fused_exact:
+            result = _exact_result(
+                cand_idx, cand_ok, cand_val, g_add, cluster_of, ids, top_k=top_k,
+                metric=metric, clamp_l2=clamp_l2, sort=fused_exact_sort,
+            )
+        else:
+            result = _stage2_rerank(
+                q_rot, qc, g_add, binary, ex, f_add, f_rescale, f_add_ex, f_rescale_ex,
+                cluster_of, ids, cand_idx, cand_ok, top_k=top_k, rerank=cand_idx.shape[1],
+                metric=metric, ex_bits=ex_bits, scan_dtype=scan_dtype, refine_ex=refine_ex,
+                clamp_l2=clamp_l2,
+            )
+        if not with_diagnostics:
+            return result
+        # `probed` is the kernel's own offered-row count. In exact mode
+        # every offered row is scored at full precision: none is skipped
+        if fused_exact:
+            return (*result, torch.stack([probed, torch.zeros_like(probed), probed], dim=1))
+        return (*result, _diagnostics(probed, cand_ok, ex_bits, refine_ex))
+
+    # --- stage 1: dense 1-bit estimate for every row; the [B, Np] g planes
+    # are bf16 except on the f32 oracle path
+    g_dtype = torch.float32 if scan_dtype == "f32" else torch.bfloat16
+    g_add_rows = g_add.to(g_dtype).index_select(1, cluster_of)
+    g_err_rows = g_error.to(g_dtype).index_select(1, cluster_of)
+    allowed = probe_mask.index_select(1, cluster_of) & row_allowed[None, :]
+    if scan_dtype == "packed":
+        if packed is None:
+            raise ValueError("scan_dtype='packed' needs the packed plane")
+        g_comb = (g_add_rows - f_error[None, :] * g_err_rows).to(torch.bfloat16)
+        lb = packed_lb_scan(
+            packed, permute_query(q_rot, q_rot.shape[1]).contiguous(), f_add, f_rescale,
+            qc.k1x_sum_q.contiguous(), g_comb,
+        ).to(torch.float32)
+    else:
+        if binary is None:
+            raise ValueError("the dense scan needs the binary plane")
+        bdot = _stage1_dots(q_rot, binary, scan_dtype)
+        est = est_ops.est_1bit(
+            f_add[None, :], g_add_rows, f_rescale[None, :], bdot, qc.k1x_sum_q[:, None]
+        )
+        lb = est_ops.lower_bound(est, f_error[None, :], g_err_rows)
+    # non-finite lower bounds never prune (ivf.rs:2031-2042)
+    lb = torch.where(torch.isfinite(lb), lb, -float("inf"))
+    neg_lb = torch.where(allowed, -lb, -float("inf"))
+
+    # --- survivor selection: a fixed-size replacement of the heap prune
+    if approx_topk:
+        neg_lb = neg_lb.to(torch.bfloat16)
+    top_neg, cand_idx = torch.topk(neg_lb, rerank, dim=1)
+    cand_ok = top_neg.to(torch.float32) > -float("inf")
+    cand_idx = cand_idx.to(torch.int32)
+
+    result = _stage2_rerank(
+        q_rot, qc, g_add, binary, ex, f_add, f_rescale, f_add_ex, f_rescale_ex,
+        cluster_of, ids, cand_idx, cand_ok, top_k=top_k, rerank=rerank, metric=metric,
+        ex_bits=ex_bits, scan_dtype=scan_dtype, refine_ex=refine_ex, clamp_l2=clamp_l2,
     )
-    if inv is not None:
-        cand_idx, cand_ok, cand_val = cand_idx[inv], cand_ok[inv], cand_val[inv]
+    if not with_diagnostics:
+        return result
+    probed = allowed.sum(dim=1, dtype=torch.int32)
+    return (*result, _diagnostics(probed, cand_ok, ex_bits, refine_ex))
 
-    # g_add entered the kernel as bf16: restore the f32 value on the
-    # returned distances; the selected set stays the kernel's order
+
+def _diagnostics(probed, cand_ok, ex_bits: int, refine_ex: bool) -> torch.Tensor:
+    """[B, 3] int32: survivors, probed rows cut by the lower bound, extended
+    evaluations (the survivors when stage 2 refines, else 0)."""
+    survivors = cand_ok.sum(dim=1, dtype=torch.int32)
+    extended = survivors if (ex_bits > 0 and refine_ex) else torch.zeros_like(survivors)
+    return torch.stack([survivors, probed - survivors, extended], dim=1)
+
+
+def _pad_results(result_ids, result_dist, top_k: int):
+    k = result_ids.shape[1]
+    if k < top_k:
+        result_ids = torch.nn.functional.pad(result_ids, (0, top_k - k), value=-1)
+        result_dist = torch.nn.functional.pad(result_dist, (0, top_k - k), value=float("inf"))
+    return result_ids, result_dist
+
+
+def _clamp_l2(result_dist, metric: Metric, clamp_l2: bool):
+    """MSTG clamps small negative L2 estimates to 0 (mstg/index.rs:322-327),
+    after ranking: clamping first would turn them into ties."""
+    if clamp_l2 and metric is Metric.L2:
+        return torch.where(
+            torch.isfinite(result_dist), torch.clamp_min(result_dist, 0.0), result_dist
+        )
+    return result_dist
+
+
+def _exact_result(
+    cand_idx, cand_ok, cand_val, g_add, cluster_of, ids, *, top_k, metric, clamp_l2, sort
+):
+    """Results of the fused EXACT scan from its best bins. g_add entered the
+    kernel as bf16: the f32 value is restored on the returned distances,
+    while the selected set stays the kernel's order; ``sort`` then orders
+    each row by the corrected values."""
     g_corr = g_add - g_add.to(torch.bfloat16).to(torch.float32)
     rows = torch.clamp_min(cand_idx, 0).to(torch.int64)
     corr = torch.gather(g_corr, 1, cluster_of[rows].to(torch.int64))
     cand_val = cand_val + torch.where(cand_ok, corr, 0.0)
     result_dist = torch.where(cand_ok & torch.isfinite(cand_val), cand_val, float("inf"))
-    if clamp_l2 and metric is Metric.L2:
-        result_dist = torch.where(
-            torch.isfinite(result_dist), torch.clamp_min(result_dist, 0.0), result_dist
-        )
+    result_dist = _clamp_l2(result_dist, metric, clamp_l2)
     result_ids = torch.where(torch.isfinite(result_dist), ids[rows], -1)
-    k = result_ids.shape[1]
-    if k < top_k:
-        result_ids = torch.nn.functional.pad(result_ids, (0, top_k - k), value=-1)
-        result_dist = torch.nn.functional.pad(result_dist, (0, top_k - k), value=float("inf"))
-    return sort_result_rows(result_ids[:, :top_k], result_dist[:, :top_k])
+    result_ids, result_dist = _pad_results(result_ids, result_dist, top_k)
+    result_ids, result_dist = result_ids[:, :top_k], result_dist[:, :top_k]
+    if sort:
+        return sort_result_rows(result_ids, result_dist)
+    return result_ids, result_dist
+
+
+def _stage2_rerank(
+    q_rot, qc, g_add, binary, ex, f_add, f_rescale, f_add_ex, f_rescale_ex,
+    cluster_of, ids, cand_idx, cand_ok,
+    *, top_k, rerank, metric, ex_bits, scan_dtype, refine_ex, clamp_l2,
+):
+    """High-precision re-rank of the survivors and the final top-k
+    (``ivf.rs:2060-2099``), shared by the dense and the fused two-stage
+    scans. Codes <= 127 are exact in bf16, so outside the f32 oracle
+    configuration only the query is rounded to bf16; the sums are f32."""
+    rows = torch.clamp_min(cand_idx, 0).to(torch.int64)  # [B, R]
+    q_op = q_rot if scan_dtype == "f32" else q_rot.to(torch.bfloat16).to(torch.float32)
+
+    def _dot(plane, q):
+        codes = plane[rows].to(torch.float32)  # [B, R, D]
+        if codes.shape[-1] != q.shape[-1]:  # width-padded refine plane
+            q = torch.nn.functional.pad(q, (0, codes.shape[-1] - q.shape[-1]))
+        return torch.bmm(codes, q[:, :, None])[:, :, 0]
+
+    g_add_c = torch.gather(g_add, 1, cluster_of[rows].to(torch.int64))
+    if ex_bits > 0 and refine_ex and ex_plane_is_total(ex_bits):
+        # single gather: <total, q> == binary_scale * bdot + edot exactly
+        total_term = _dot(ex, q_op) + qc.kbx_sum_q[:, None]
+        dist = f_add_ex[rows] + g_add_c + f_rescale_ex[rows] * total_term
+    elif ex_bits > 0 and refine_ex:
+        if binary is None:
+            raise ValueError("the two-gather refine needs the binary plane")
+        dist = est_ops.est_extended(
+            f_add_ex[rows], g_add_c, f_rescale_ex[rows], _dot(binary, q_op),
+            _dot(ex, q_rot),  # raw ex codes may exceed 127: f32 operands
+            qc.binary_scale, qc.kbx_sum_q[:, None],
+        )
+    else:
+        if binary is None:
+            raise ValueError("the 1-bit re-score needs the binary plane")
+        dist = est_ops.est_1bit(
+            f_add[rows], g_add_c, f_rescale[rows], _dot(binary, q_op), qc.k1x_sum_q[:, None]
+        )
+    dist = torch.where(cand_ok & torch.isfinite(dist), dist, float("inf"))
+
+    # final top-k: a stable ascending sort, ties to the earlier survivor as
+    # lax.top_k breaks them
+    k = min(top_k, rerank)
+    result_dist, pos = torch.sort(dist, dim=1, stable=True)
+    result_dist, pos = result_dist[:, :k], pos[:, :k]
+    result_dist = _clamp_l2(result_dist, metric, clamp_l2)
+    result_rows = torch.gather(rows, 1, pos)
+    result_ids = torch.where(torch.isfinite(result_dist), ids[result_rows], -1)
+    return _pad_results(result_ids, result_dist, top_k)

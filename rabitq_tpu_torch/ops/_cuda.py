@@ -2,7 +2,8 @@
 
 Each source ``csrc/<name>.cu`` exposes a plain C entry point. It is compiled
 at first use with ``nvcc`` for ``sm_90a`` into ``_build/lib<name>-<hash>.so``
-(the hash is of the source, so an edited kernel rebuilds) and loaded with
+(the hash is of the source and the shared headers ``csrc/*.cuh``, so an
+edited kernel rebuilds) and loaded with
 ``ctypes``; no PyTorch headers are involved, so a build takes seconds.
 :func:`build_all` starts one ``nvcc`` per source, all at once.
 
@@ -24,7 +25,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("fht", "fused_bin_scan")
+SOURCES = ("fht", "fused_bin_scan", "packed_bin_scan", "packed_lb_scan")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,6 +36,11 @@ _SIGNATURES = {
         "rabitq_bin_scan",
         (_P,) * 13 + (_I,) * 6 + (_P,),
     ),
+    "packed_bin_scan": (
+        "rabitq_packed_bin_scan",
+        (_P,) * 16 + (_I,) * 7 + (_P,),
+    ),
+    "packed_lb_scan": ("rabitq_packed_lb_scan", (_P,) * 7 + (_I,) * 3 + (_P,)),
 }
 
 _entries: dict = {}  # kernel name -> (library, entry point)
@@ -57,7 +63,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -1,5 +1,7 @@
 """Distance estimator formulas (port of ``rabitq_tpu/ops/estimator.py``).
 
+  est_1bit   = f_add + g_add + f_rescale * (<binary_code, q_rot> + c1 * sum(q)),  c1 = -.5
+  lower      = est_1bit - f_error * g_error
   total_term = 2^ex_bits * <binary_code, q_rot> + <ex_code, q_rot>
                + cb * sum(q),                        cb = -(2^ex_bits - .5)
   dist_ex    = f_add_ex + g_add + f_rescale_ex * total_term
@@ -50,6 +52,22 @@ def g_terms(q_rot: torch.Tensor, centroids: torch.Tensor, metric: Metric):
     g_add = sq_dist if metric is Metric.L2 else -dot
     g_error = torch.sqrt(sq_dist)
     return g_add, g_error, sq_dist, dot
+
+
+def est_1bit(
+    f_add: torch.Tensor,
+    g_add: torch.Tensor,
+    f_rescale: torch.Tensor,
+    binary_dot: torch.Tensor,
+    k1x_sum_q: torch.Tensor,
+) -> torch.Tensor:
+    """1-bit distance estimate (``simd.rs:2058``)."""
+    return f_add + g_add + f_rescale * (binary_dot + k1x_sum_q)
+
+
+def lower_bound(est: torch.Tensor, f_error: torch.Tensor, g_error: torch.Tensor) -> torch.Tensor:
+    """Pruning lower bound (``simd.rs:2059``)."""
+    return est - f_error * g_error
 
 
 def est_extended(

@@ -1,19 +1,30 @@
-"""Fused EXACT bin scan: kernel, plain version and the selection around it.
+"""Fused bin scan: kernels, plain version and the selection around them.
 
-Counterpart of ``rabitq_tpu/ops/pallas_fused_scan.py`` in direct (EXACT)
-mode. For every query b and stored row n the scan forms the final distance
+Counterpart of ``rabitq_tpu/ops/pallas_fused_scan.py``. For every query b
+and stored row n the scan forms
 
-    lb[b, n] = fa_eff[n] + fr[n] * (<plane[n], q[b]> + k1x[b]) + g1[b, cluster_of[n]]
+    lb[b, n] = fa_eff[n] + fr[n] * (<plane[n], q[b]> + k1x[b]) + g[b, n]
 
 and keeps, per query, the minimum over rows n == l (mod L) in bin l
 (L = GROUPS * TN = 8192) with its arg-row; unprobed clusters carry
 ``g1 = BIG`` and masked rows ``fa_eff = BIG``, so they never enter a bin.
 Rows are cluster-sorted in TN-row tiles; each tile's clusters lie in a
 W-wide window starting at ``128 * c_blk[t]`` (``tile_cluster_blocks``), and
-``g1`` applies only inside it, as the TPU kernel's one-hot window does.
+the g term applies only inside it, as the TPU kernel's one-hot window does.
 
-:func:`fused_bin_scan` is the entry: a CUDA tensor goes to the hand-written
-kernel (``csrc/fused_bin_scan.cu``), a CPU tensor to
+Two modes, told apart by the shapes as in the reference:
+
+* direct (EXACT): ``plane`` is the dense int8 TOTAL plane, ``q`` f32 of the
+  same width, ``g = g1[b, cluster_of[n]]``, and ``lb`` is the final distance;
+* packed (stage 1 of the two-stage scan): ``plane`` holds 1-bit planes
+  ``[Np, Db]`` uint8, ``q`` is ``8 * Db`` wide in bit-plane order
+  (``packed_scan.permute_query``), bf16 or int8 with a per-query
+  ``q_scale``, and ``g = g1[b, cl] - bf16(f_error[n]) * g2[b, cl]`` with
+  ``g2`` the bf16 g_error: ``lb`` is the 1-bit lower bound.
+
+:func:`fused_bin_scan` is the entry: a CUDA tensor goes to a hand-written
+kernel (``csrc/fused_bin_scan.cu`` direct, ``csrc/packed_bin_scan.cu``
+packed), a CPU tensor to
 :func:`fused_bin_scan_plain`. With ``tiles``/``tcount`` each query block of
 ``Bp // tiles.shape[0]`` queries walks only its listed tiles (probed-tile
 compaction); unlisted tiles hold only BIG rows for that block, so the bins
@@ -30,13 +41,19 @@ import numpy as np
 import torch
 
 from . import _cuda
+from .packed_scan import permute_query, unpack_bitplanes
 
 TN = 512  # rows per tile (device layouts for this path pad rows to TN)
 GROUPS = 16  # bin groups: L = GROUPS * TN bins
 TB = 32  # queries per compaction list (and per kernel block)
 W = 256  # cluster window width
 BIG = 1.0e30  # masked-value sentinel
-EXACT_MAX_WIDTH = 2560  # widest plane the JAX package scans in EXACT mode
+# Widest plane (columns, 128-aligned) each fused mode serves. They mirror the
+# reference's routing, so one configuration takes the same scan in both
+# packages; they are not limits of the card.
+EXACT_MAX_WIDTH = 2560  # EXACT (direct) mode
+TWO_STAGE_MAX_WIDTH = 3072  # packed mode, bf16 query
+TWO_STAGE_MAX_WIDTH_INT8 = 7168  # packed mode, int8 query
 
 
 def n_bins() -> int:
@@ -166,10 +183,14 @@ def sliced_max_tiles(
 # ----------------------------------------------------------------------
 
 
-def _check_bin_scan_args(plane, q, fa_eff, f_rescale, cluster_of, k1x, g1, c_blk, tiles, tcount):
+def _check_bin_scan_args(
+    plane, q, fa_eff, f_rescale, cluster_of, k1x, g1, c_blk, tiles, tcount, f_error, g2, q_scale
+) -> bool:
+    """Shape checks; returns whether the call is in packed mode."""
     n, d = plane.shape
     bq = q.shape[0]
-    if n % TN or q.shape[1] != d:
+    packed = q.shape[1] == 8 * d
+    if n % TN or (q.shape[1] != d and not packed):
         raise ValueError(f"plane {tuple(plane.shape)} / q {tuple(q.shape)} mismatch")
     if fa_eff.shape != (n,) or f_rescale.shape != (n,) or cluster_of.shape != (n,):
         raise ValueError("per-row vectors must be [Np]")
@@ -181,44 +202,68 @@ def _check_bin_scan_args(plane, q, fa_eff, f_rescale, cluster_of, k1x, g1, c_blk
         raise ValueError("tiles and tcount go together")
     if tiles is not None and (bq % tiles.shape[0] or tcount.shape != (tiles.shape[0],)):
         raise ValueError("tiles must hold one list per equal query block")
+    if packed:
+        if d % 128 or f_error is None or g2 is None:
+            raise ValueError("packed mode needs Db % 128 == 0, f_error and g2")
+        if f_error.shape != (n,) or g2.shape != g1.shape:
+            raise ValueError("f_error must be [Np] and g2 shaped as g1")
+        if (q.dtype == torch.int8) != (q_scale is not None):
+            raise ValueError("q_scale goes with an int8 query, and only with one")
+        if q_scale is not None and q_scale.shape != (bq,):
+            raise ValueError("q_scale must be [Bp]")
+    elif f_error is not None or g2 is not None or q_scale is not None:
+        raise ValueError("f_error, g2 and q_scale belong to packed mode")
+    return packed
 
 
 def fused_bin_scan(
-    plane: torch.Tensor,  # [Np, D] int8 codes (the TOTAL plane), Np % TN == 0
-    q: torch.Tensor,  # [Bp, D] f32 rotated queries (zero-padded to D)
-    fa_eff: torch.Tensor,  # [Np] f32 f_add_ex, BIG on masked rows
-    f_rescale: torch.Tensor,  # [Np] f32 f_rescale_ex
+    plane: torch.Tensor,  # [Np, D] int8 TOTAL plane, or [Np, Db] uint8 bit planes
+    q: torch.Tensor,  # [Bp, D] f32, or [Bp, 8*Db] bf16 / int8 in bit-plane order
+    fa_eff: torch.Tensor,  # [Np] f32 f_add (f_add_ex in direct mode), BIG on masked rows
+    f_rescale: torch.Tensor,  # [Np] f32
     cluster_of: torch.Tensor,  # [Np] int32
     k1x: torch.Tensor,  # [Bp] f32
     g1: torch.Tensor,  # [Bp, C_pad] bf16: g_add, BIG where unprobed
     c_blk: torch.Tensor,  # [N_tiles] int32
     tiles: torch.Tensor | None = None,  # [Bp // tb, T] int32 tile lists
     tcount: torch.Tensor | None = None,  # [Bp // tb] int32 valid entries
+    *,
+    f_error: torch.Tensor | None = None,  # [Np] f32 (packed mode)
+    g2: torch.Tensor | None = None,  # [Bp, C_pad] bf16 g_error (packed mode)
+    q_scale: torch.Tensor | None = None,  # [Bp] f32 dequant scale (int8 q)
 ):
     """Returns (bins_val [Bp, L] f32, bins_idx [Bp, L] int32,
-    offered [Bp, 128] int32). The kernel on the card, the plain version on
-    the CPU."""
-    _check_bin_scan_args(plane, q, fa_eff, f_rescale, cluster_of, k1x, g1, c_blk, tiles, tcount)
+    offered [Bp, 128] int32). Packed mode is inferred from the shapes
+    (``q`` is 8 x the plane's width). The kernel on the card, the plain
+    version on the CPU."""
+    packed = _check_bin_scan_args(
+        plane, q, fa_eff, f_rescale, cluster_of, k1x, g1, c_blk, tiles, tcount,
+        f_error, g2, q_scale,
+    )
+    args = (plane, q, fa_eff, f_rescale, cluster_of, k1x, g1, c_blk, tiles, tcount)
     if plane.is_cuda:
-        return fused_bin_scan_cuda(
-            plane, q, fa_eff, f_rescale, cluster_of, k1x, g1, c_blk, tiles, tcount
-        )
+        if packed:
+            return fused_bin_scan_packed_cuda(*args, f_error=f_error, g2=g2, q_scale=q_scale)
+        return fused_bin_scan_cuda(*args)
     if plane.device.type != "cpu":
         raise ValueError(f"no bin scan for device {plane.device}")
-    return fused_bin_scan_plain(
-        plane, q, fa_eff, f_rescale, cluster_of, k1x, g1, c_blk, tiles, tcount
-    )
+    return fused_bin_scan_plain(*args, f_error=f_error, g2=g2, q_scale=q_scale)
 
 
 def fused_bin_scan_plain(
-    plane, q, fa_eff, f_rescale, cluster_of, k1x, g1, c_blk, tiles=None, tcount=None
+    plane, q, fa_eff, f_rescale, cluster_of, k1x, g1, c_blk, tiles=None, tcount=None,
+    *, f_error=None, g2=None, q_scale=None,
 ):
-    """Plain PyTorch version of the bin scan, on any device: the same walk
-    as the kernel (ascending tiles; list order per query block), the same
-    f32 epilogue order, and strict-< updates, so the first row wins a tie."""
+    """Plain PyTorch version of the bin scan in both modes, on any device:
+    the same walk as the kernels (ascending tiles; list order per query
+    block), the same f32 epilogue order, and strict-< updates, so the first
+    row wins a tie. In packed mode (``q`` 8 x the plane's width) the bits
+    are unpacked in bit-plane order, an int8 dot is exact and scaled by
+    ``q_scale``, and ``f_error`` is rounded to bf16 before its product."""
     n, d = plane.shape
     bq = q.shape[0]
     dev = q.device
+    packed = q.shape[1] == 8 * d
     n_tiles = n // TN
     c_pad = g1.shape[1]
     if tiles is None:
@@ -240,24 +285,34 @@ def fused_bin_scan_plain(
     val = torch.full((nb, tb, GROUPS, TN), BIG, dtype=torch.float32, device=dev)
     idx = torch.full((nb, tb, GROUPS, TN), -1, dtype=torch.int32, device=dev)
     offered = torch.zeros((nb, tb, 128), dtype=torch.int32, device=dev)
-    qv = q.to(torch.float32).reshape(nb, tb, d)
+    qv = q.to(torch.float32).reshape(nb, tb, q.shape[1])
     kx = k1x.reshape(nb, tb, 1, 1)
     g1f = g1.to(torch.float32).reshape(nb, tb, c_pad)
+    if packed:
+        g2f = g2.to(torch.float32).reshape(nb, tb, c_pad)
+        neg_fe = (-f_error).to(torch.bfloat16).to(torch.float32)
+        qs = None if q_scale is None else q_scale.reshape(nb, tb, 1, 1)
     lane = torch.arange(TN, device=dev)
     for t, act in zip(steps, actives):
         m = t.shape[1]
         t = torch.clamp(t, 0, n_tiles - 1)
         rows = t[:, :, None] * TN + lane  # [nb, m, TN]
-        codes = plane[rows.reshape(-1)].reshape(nb, m * TN, d).to(torch.float32)
+        codes = plane[rows.reshape(-1)]
+        if packed:
+            codes = unpack_bitplanes(codes)
+        codes = codes.reshape(nb, m * TN, -1).to(torch.float32)
         acc = torch.bmm(qv, codes.transpose(1, 2)).reshape(nb, tb, m, TN)
+        if packed and qs is not None:
+            acc = acc * qs  # the int8 dot is exact in f32
         fa = fa_eff[rows][:, None]  # [nb, 1, m, TN]
         fr = f_rescale[rows][:, None]
         cl = cluster_of[rows].to(torch.int64)
         loc = cl - (c_blk[t].to(torch.int64) * 128)[:, :, None]
         inwin = (loc >= 0) & (loc < W) & (cl < c_pad)
-        g = torch.gather(
-            g1f, 2, torch.clamp(cl, 0, c_pad - 1).reshape(nb, 1, m * TN).expand(nb, tb, m * TN)
-        ).reshape(nb, tb, m, TN)
+        cl_idx = torch.clamp(cl, 0, c_pad - 1).reshape(nb, 1, m * TN).expand(nb, tb, m * TN)
+        g = torch.gather(g1f, 2, cl_idx).reshape(nb, tb, m, TN)
+        if packed:
+            g = g + neg_fe[rows][:, None] * torch.gather(g2f, 2, cl_idx).reshape(nb, tb, m, TN)
         g = torch.where(inwin[:, None], g, 0.0)
         lb = fa + fr * (acc + kx) + g
         a = act[:, None, :, None]
@@ -271,7 +326,25 @@ def fused_bin_scan_plain(
     return val.reshape(bq, n_bins()), idx.reshape(bq, n_bins()), offered.reshape(bq, 128)
 
 
-_KERNEL_QB = 32  # queries per kernel block (csrc/fused_bin_scan.cu QB)
+_KERNEL_QB = 32  # queries per kernel block (QB in csrc/fused_bin_scan.cu, bitplane_dot.cuh)
+
+
+def _check_cuda_inputs(want, device) -> None:
+    for t, dtype in want:
+        if not t.is_cuda or t.device != device:
+            raise ValueError("bin scan inputs must all lie on one CUDA device")
+        if t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"bin scan needs contiguous {dtype}, got {t.dtype}")
+
+
+def _check_cuda_batch(bq: int, tiles) -> int:
+    """The kernels' batch rules; returns the queries per tile list."""
+    if bq % _KERNEL_QB:
+        raise ValueError(f"bin scan needs a batch that is a multiple of {_KERNEL_QB}")
+    tb = bq // tiles.shape[0] if tiles is not None else bq
+    if tb % _KERNEL_QB:
+        raise ValueError(f"tile lists need query blocks of a multiple of {_KERNEL_QB}")
+    return tb
 
 
 def fused_bin_scan_cuda(
@@ -289,18 +362,10 @@ def fused_bin_scan_cuda(
     )
     if tiles is not None:
         want += ((tiles, torch.int32), (tcount, torch.int32))
-    for t, dtype in want:
-        if not t.is_cuda or t.device != plane.device:
-            raise ValueError("bin scan inputs must all lie on one CUDA device")
-        if t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(f"bin scan needs contiguous {dtype}, got {t.dtype}")
+    _check_cuda_inputs(want, plane.device)
     if d % 64 or plane.data_ptr() % 16 or q.data_ptr() % 16:
         raise ValueError("bin scan needs D % 64 == 0 and 16-byte aligned planes")
-    if bq % _KERNEL_QB:
-        raise ValueError(f"bin scan needs a batch that is a multiple of {_KERNEL_QB}")
-    tb = bq // tiles.shape[0] if tiles is not None else bq
-    if tb % _KERNEL_QB:
-        raise ValueError(f"tile lists need query blocks of a multiple of {_KERNEL_QB}")
+    tb = _check_cuda_batch(bq, tiles)
     val = torch.empty((bq, n_bins()), dtype=torch.float32, device=q.device)
     idx = torch.empty((bq, n_bins()), dtype=torch.int32, device=q.device)
     offered = torch.zeros((bq, 128), dtype=torch.int32, device=q.device)
@@ -325,6 +390,57 @@ def fused_bin_scan_cuda(
 
 fused_bin_scan_cuda.dense_launches = 0
 fused_bin_scan_cuda.compact_launches = 0
+
+
+def fused_bin_scan_packed_cuda(
+    plane, q, fa_eff, f_rescale, cluster_of, k1x, g1, c_blk, tiles=None, tcount=None,
+    *, f_error, g2, q_scale=None,
+):
+    """The packed-mode CUDA kernel (bf16 query, or int8 with ``q_scale``).
+    Counts its launches in ``fused_bin_scan_packed_cuda.launches`` under
+    ``bf16_dense``, ``bf16_compact``, ``int8_dense`` and ``int8_compact``."""
+    n, db = plane.shape
+    bq = q.shape[0]
+    int8_q = q_scale is not None
+    want = (
+        (plane, torch.uint8), (q, torch.int8 if int8_q else torch.bfloat16),
+        (fa_eff, torch.float32), (f_rescale, torch.float32), (f_error, torch.float32),
+        (cluster_of, torch.int32), (k1x, torch.float32), (g1, torch.bfloat16),
+        (g2, torch.bfloat16), (c_blk, torch.int32),
+    )
+    if int8_q:
+        want += ((q_scale, torch.float32),)
+    if tiles is not None:
+        want += ((tiles, torch.int32), (tcount, torch.int32))
+    _check_cuda_inputs(want, plane.device)
+    if db % 128 or q.shape[1] != 8 * db or plane.data_ptr() % 16 or q.data_ptr() % 16:
+        raise ValueError("packed bin scan needs Db % 128 == 0, q 8 * Db wide, 16-byte aligned")
+    tb = _check_cuda_batch(bq, tiles)
+    val = torch.empty((bq, n_bins()), dtype=torch.float32, device=q.device)
+    idx = torch.empty((bq, n_bins()), dtype=torch.int32, device=q.device)
+    offered = torch.zeros((bq, 128), dtype=torch.int32, device=q.device)
+    fn = _cuda.entry("packed_bin_scan")
+    err = fn(
+        plane.data_ptr(), q.data_ptr(), q_scale.data_ptr() if int8_q else None,
+        fa_eff.data_ptr(), f_rescale.data_ptr(), f_error.data_ptr(),
+        cluster_of.data_ptr(), k1x.data_ptr(), g1.data_ptr(), g2.data_ptr(),
+        c_blk.data_ptr(),
+        tiles.data_ptr() if tiles is not None else None,
+        tcount.data_ptr() if tiles is not None else None,
+        val.data_ptr(), idx.data_ptr(), offered.data_ptr(),
+        n // TN, db, bq, g1.shape[1],
+        tiles.shape[1] if tiles is not None else 0, tb, int(int8_q),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _cuda.check_launch(err, "packed_bin_scan")
+    key = ("int8" if int8_q else "bf16") + ("_dense" if tiles is None else "_compact")
+    fused_bin_scan_packed_cuda.launches[key] += 1
+    return val, idx, offered
+
+
+fused_bin_scan_packed_cuda.launches = {
+    "bf16_dense": 0, "bf16_compact": 0, "int8_dense": 0, "int8_compact": 0,
+}
 
 
 # ----------------------------------------------------------------------
@@ -373,8 +489,8 @@ def compaction_lists(
 
 
 def fused_select(
-    q_rot: torch.Tensor,  # [B, D] f32 queries, zero-padded to the plane width
-    plane: torch.Tensor,
+    q_rot: torch.Tensor,  # [B, D] f32 rotated queries (direct: zero-padded to the plane width)
+    plane: torch.Tensor,  # int8 TOTAL plane (direct) or uint8 bit planes (packed)
     fa_eff: torch.Tensor,
     f_rescale: torch.Tensor,
     cluster_of: torch.Tensor,
@@ -382,12 +498,24 @@ def fused_select(
     g_add: torch.Tensor,  # [B, C] f32
     probe_mask: torch.Tensor,  # [B, C] bool
     c_blk: torch.Tensor,
-    top_k: int,
+    rerank: int,  # bins to extract: top_k in direct mode
     max_tiles: int | None = None,
+    *,
+    f_error: torch.Tensor | None = None,  # [Np] f32 (packed mode)
+    g_err: torch.Tensor | None = None,  # [B, C] f32 g_error (packed mode)
+    int8_stage1: bool = False,
+    direct_plane: bool = True,
+    with_values: bool = True,
 ):
-    """Bin scan + selection of the ``top_k`` best bins per query. Returns
+    """Bin scan + selection of the ``rerank`` best bins per query. Returns
     (cand_idx [B, R] int32 rows, cand_ok [B, R] bool, cand_val [B, R] f32
-    bin minima best-first, probed [B] int32 offered-row counts)."""
+    bin minima best-first, probed [B] int32 offered-row counts); without
+    ``with_values`` the values are left out, as in the reference.
+
+    ``direct_plane`` (the port's default) is the EXACT mode. Otherwise
+    ``plane`` holds packed bit planes, the query is permuted to bit-plane
+    order in bf16, and ``int8_stage1`` quantizes it symmetrically per row
+    for the int8 dot."""
     b = q_rot.shape[0]
     tb = min(TB, ((b + 31) // 32) * 32)
     b_pad = ((b + tb - 1) // tb) * tb
@@ -396,11 +524,26 @@ def fused_select(
         k1x = torch.nn.functional.pad(k1x, (0, b_pad - b))
         g_add = torch.nn.functional.pad(g_add, (0, 0, 0, b_pad - b))
         probe_mask = torch.nn.functional.pad(probe_mask, (0, 0, 0, b_pad - b))
+        if g_err is not None:
+            g_err = torch.nn.functional.pad(g_err, (0, 0, 0, b_pad - b))
     c = g_add.shape[1]
     c_pad = _pad_clusters(c)
     g1 = torch.where(probe_mask, g_add, BIG)
     if c_pad != c:
         g1 = torch.nn.functional.pad(g1, (0, c_pad - c), value=BIG)
+    extra = {}
+    if direct_plane:
+        q_in = q_rot.to(torch.float32).contiguous()
+    else:
+        q_in = permute_query(q_rot, q_rot.shape[1]).contiguous()
+        if int8_stage1:
+            qf = q_in.to(torch.float32)
+            q_scale = torch.clamp_min(qf.abs().amax(dim=1), 1e-30) / 127.0
+            q_in = torch.clamp(torch.round(qf / q_scale[:, None]), -127, 127).to(torch.int8)
+            extra["q_scale"] = q_scale
+        g2 = torch.nn.functional.pad(g_err, (0, c_pad - c)) if c_pad != c else g_err
+        extra["f_error"] = f_error
+        extra["g2"] = g2.to(torch.bfloat16).contiguous()
     n_tiles = plane.shape[0] // TN
     tiles = tcount = None
     if max_tiles is not None:
@@ -409,7 +552,7 @@ def fused_select(
         tiles, tcount = compaction_lists(fa_eff, cluster_of, probe_mask, tb, max_tiles)
     bins_val, bins_idx, offered = fused_bin_scan(
         plane,
-        q_rot.to(torch.float32).contiguous(),
+        q_in,
         fa_eff,
         f_rescale,
         cluster_of,
@@ -418,12 +561,15 @@ def fused_select(
         c_blk,
         tiles=tiles,
         tcount=tcount,
+        **extra,
     )
-    r = min(top_k, n_bins())
+    r = min(rerank, n_bins())
     # ascending stable sort: ties keep the lower bin, as lax.top_k does
     vals, pos = torch.sort(bins_val, dim=1, stable=True)
     vals, pos = vals[:, :r], pos[:, :r]
     cand_idx = torch.gather(bins_idx, 1, pos)
     cand_ok = (vals < BIG / 2) & (cand_idx >= 0)
     probed = offered.sum(dim=1, dtype=torch.int32)
-    return cand_idx[:b], cand_ok[:b], vals[:b], probed[:b]
+    if with_values:
+        return cand_idx[:b], cand_ok[:b], vals[:b], probed[:b]
+    return cand_idx[:b], cand_ok[:b], probed[:b]

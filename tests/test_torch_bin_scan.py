@@ -5,7 +5,13 @@ package's Pallas ``fused_bin_scan`` in interpret mode and its
 
 Tolerances: ``offered`` equal; bin values rtol 1e-5 (the f32 dot sums in
 another order); ``bins_idx`` equal on >= 99.5% of bins (a reordered sum can
-flip a near-tie inside a bin)."""
+flip a near-tie inside a bin).
+
+Packed mode (stage 1 of the two-stage scan: bit planes, a bf16 or int8
+query in bit-plane order, the ``- f_error * g_error`` term): ``offered``
+and the filled bins equal, values rtol 1e-5 with a bf16 query and 1e-6 with
+an int8 one (its dot is exact), ``bins_idx`` >= 99.9% equal, and
+``fused_select`` returns the same candidate rows."""
 
 from __future__ import annotations
 
@@ -15,7 +21,9 @@ import pytest
 import torch
 
 from rabitq_tpu.ops import pallas_fused_scan as jfs
+from rabitq_tpu.ops import pallas_scan as jps
 from rabitq_tpu_torch.ops import fused_scan as tfs
+from rabitq_tpu_torch.ops import packed_scan as tps
 
 N_TILES, D = 24, 128
 # (clusters, duplicate rows): 96 clusters share one window and rows 8192
@@ -156,3 +164,156 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     )
     with pytest.raises(ValueError):
         tfs.fused_bin_scan_cuda(*args)
+
+
+# ----------------------------------------------------------------------
+# packed mode
+# ----------------------------------------------------------------------
+
+
+def _packed_inputs(seed, bq=64, c=300):
+    """The geometry of ``_inputs`` with bit planes, f_error and g_error, as
+    ``tests/test_pallas_fused_scan.py`` builds them. Almost no f_error is a
+    bf16 number, so a scan that skips the bf16 rounding of f_error gives
+    other values."""
+    x = _inputs(seed, bq=bq, c=c, dup=False)
+    rng = np.random.default_rng(seed + 50)
+    n = N_TILES * tfs.TN
+    x["binary"] = rng.integers(0, 2, (n, D)).astype(np.int8)
+    x["k1x"] = (-0.5 * x["q"].sum(1)).astype(np.float32)
+    fe = np.abs(rng.normal(size=n)).astype(np.float32) + 0.01
+    assert np.mean(torch.from_numpy(fe).to(torch.bfloat16).float().numpy() == fe) < 0.01
+    x["fe"] = fe
+    x["g_err"] = (rng.random(x["g_add"].shape) * 7).astype(np.float32)
+    return x
+
+
+def _q_operand(x, int8_q):
+    """(q_perm, q_scale | None) as numpy, quantized as fused_select does."""
+    q_perm = tps.permute_query(torch.from_numpy(x["q"]), D)
+    if not int8_q:
+        return q_perm, None
+    qf = q_perm.float()
+    scale = torch.clamp_min(qf.abs().amax(1), 1e-30) / 127.0
+    return torch.clamp(torch.round(qf / scale[:, None]), -127, 127).to(torch.int8), scale
+
+
+def _run_packed(x, int8_q, tiles=None, tcount=None, t_fe=None):
+    g1 = _g1(x)
+    g2 = np.zeros_like(g1)
+    g2[:, : x["g_err"].shape[1]] = x["g_err"]
+    q_perm, q_scale = _q_operand(x, int8_q)
+    j_q = jnp.asarray(q_perm.float().numpy()).astype(jnp.int8 if int8_q else jnp.bfloat16)
+    j_out = jfs.fused_bin_scan(
+        jps.pack_bitplanes(jnp.asarray(x["binary"]), D), j_q, jnp.asarray(x["fa_eff"]),
+        jnp.asarray(x["fr"]), jnp.asarray(x["fe"]), jnp.asarray(x["cluster_of"]),
+        jnp.asarray(x["k1x"]), jnp.asarray(g1, jnp.bfloat16), jnp.asarray(g2, jnp.bfloat16),
+        jnp.asarray(x["c_blk"]),
+        q_scale=None if q_scale is None else jnp.asarray(q_scale.numpy()),
+        tiles=None if tiles is None else jnp.asarray(tiles),
+        tcount=None if tcount is None else jnp.asarray(tcount),
+    )
+    t_out = tfs.fused_bin_scan(
+        tps.pack_bitplanes(torch.from_numpy(x["binary"]), D), q_perm,
+        torch.from_numpy(x["fa_eff"]), torch.from_numpy(x["fr"]),
+        torch.from_numpy(x["cluster_of"]), torch.from_numpy(x["k1x"]),
+        torch.from_numpy(g1).to(torch.bfloat16), torch.from_numpy(x["c_blk"]),
+        tiles=None if tiles is None else torch.from_numpy(tiles),
+        tcount=None if tcount is None else torch.from_numpy(tcount),
+        f_error=torch.from_numpy(x["fe"] if t_fe is None else t_fe),
+        g2=torch.from_numpy(g2).to(torch.bfloat16), q_scale=q_scale,
+    )
+    return j_out, t_out
+
+
+def _compare_packed(j_out, t_out, rtol):
+    jv, ji, jo = (np.asarray(a) for a in j_out)
+    tv, ti, to = (a.numpy() for a in t_out)
+    np.testing.assert_array_equal(to, jo)
+    filled = jv < tfs.BIG / 2
+    np.testing.assert_array_equal(tv < tfs.BIG / 2, filled)
+    np.testing.assert_allclose(tv[filled], jv[filled], rtol=rtol, atol=rtol * 10)
+    assert np.mean(ti == ji) >= 0.999
+    return jo.sum()
+
+
+@pytest.mark.parametrize("int8_q", [False, True])
+@pytest.mark.parametrize("compact", [False, True])
+def test_packed_bin_scan_matches_jax(compact, int8_q):
+    x = _packed_inputs(5)
+    tiles = tcount = None
+    if compact:
+        rng = np.random.default_rng(9)
+        keep = np.sort(rng.choice(N_TILES, 18, replace=False)).astype(np.int32)
+        tiles = np.concatenate([keep, np.full(6, keep[-1], np.int32)])[None, :]
+        tcount = np.array([18], np.int32)
+    j_out, t_out = _run_packed(x, int8_q, tiles, tcount)
+    assert _compare_packed(j_out, t_out, 1e-6 if int8_q else 1e-5) > 0
+
+
+def test_packed_bin_scan_rounds_f_error_to_bf16():
+    """With f_error values bf16 cannot hold, the scan still matches the
+    reference; handing the port the pre-rounded values changes nothing,
+    and the unrounded product would: the rounding is really there."""
+    x = _packed_inputs(11)
+    j_out, t_out = _run_packed(x, int8_q=True)
+    _compare_packed(j_out, t_out, 1e-6)
+    fe_bf16 = torch.from_numpy(x["fe"]).to(torch.bfloat16).float().numpy()
+    _, t_rounded = _run_packed(x, int8_q=True, t_fe=fe_bf16)
+    assert torch.equal(t_rounded[0], t_out[0])
+    # the same scan with f32 f_error in the product, from the dense formula
+    filled = t_out[0] < tfs.BIG / 2
+    rows = t_out[1][filled].long()
+    b_of = torch.nonzero(filled)[:, 0]
+    g2 = torch.from_numpy(x["g_err"]).to(torch.bfloat16).float()
+    cl = torch.from_numpy(x["cluster_of"]).long()[rows]
+    shift = (torch.from_numpy(fe_bf16)[rows] - torch.from_numpy(x["fe"])[rows]) * g2[b_of, cl]
+    assert float(shift.abs().max()) > 1e-3  # skipping the rounding would move values
+
+
+@pytest.mark.parametrize("int8_q", [False, True])
+@pytest.mark.parametrize("max_tiles", [None, 32])
+def test_packed_fused_select_matches_jax(max_tiles, int8_q):
+    x = _packed_inputs(7, bq=40)
+    rerank = 400
+    j_idx, j_ok, j_probed = (np.asarray(a) for a in jfs.fused_select(
+        jnp.asarray(x["q"]), jps.pack_bitplanes(jnp.asarray(x["binary"]), D),
+        jnp.asarray(x["fa_eff"]), jnp.asarray(x["fr"]), jnp.asarray(x["fe"]),
+        jnp.asarray(x["cluster_of"]), jnp.asarray(x["k1x"]), jnp.asarray(x["g_add"]),
+        jnp.asarray(x["g_err"]), jnp.asarray(x["probe"]), jnp.asarray(x["c_blk"]),
+        rerank, D, int8_stage1=int8_q, max_tiles=max_tiles,
+    ))
+    t_idx, t_ok, t_probed = (a.numpy() for a in tfs.fused_select(
+        torch.from_numpy(x["q"]), tps.pack_bitplanes(torch.from_numpy(x["binary"]), D),
+        torch.from_numpy(x["fa_eff"]), torch.from_numpy(x["fr"]),
+        torch.from_numpy(x["cluster_of"]), torch.from_numpy(x["k1x"]),
+        torch.from_numpy(x["g_add"]), torch.from_numpy(x["probe"]),
+        torch.from_numpy(x["c_blk"]), rerank, max_tiles=max_tiles,
+        f_error=torch.from_numpy(x["fe"]), g_err=torch.from_numpy(x["g_err"]),
+        int8_stage1=int8_q, direct_plane=False, with_values=False,
+    ))
+    assert t_idx.shape == (40, rerank)
+    np.testing.assert_array_equal(t_probed, j_probed)
+    np.testing.assert_array_equal(t_ok, j_ok)
+    for row in range(40):
+        j_rows, t_rows = set(j_idx[row][j_ok[row]]), set(t_idx[row][t_ok[row]])
+        assert len(j_rows & t_rows) >= 0.995 * len(j_rows), row
+
+
+def test_packed_mode_argument_checks():
+    x = _packed_inputs(1, bq=32)
+    q_perm, _ = _q_operand(x, False)
+    args = (
+        tps.pack_bitplanes(torch.from_numpy(x["binary"]), D), q_perm,
+        torch.from_numpy(x["fa_eff"]), torch.from_numpy(x["fr"]),
+        torch.from_numpy(x["cluster_of"]), torch.from_numpy(x["k1x"]),
+        torch.from_numpy(_g1(x)).to(torch.bfloat16), torch.from_numpy(x["c_blk"]),
+    )
+    g2 = torch.zeros_like(args[6])
+    fe = torch.from_numpy(x["fe"])
+    with pytest.raises(ValueError, match="f_error and g2"):
+        tfs.fused_bin_scan(*args)
+    with pytest.raises(ValueError, match="q_scale"):
+        tfs.fused_bin_scan(*args, f_error=fe, g2=g2, q_scale=torch.ones(32))
+    with pytest.raises(ValueError):
+        tfs.fused_bin_scan_packed_cuda(*args, f_error=fe, g2=g2)  # CPU tensors

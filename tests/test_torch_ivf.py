@@ -68,6 +68,7 @@ def test_carried_index_state(pair):
     assert len(tidx) == len(jidx) and tidx.cluster_count() == jidx.cluster_count()
     assert jidx._fused_exact_ok()  # the JAX index serves the EXACT scan too
     jidx._scan_inputs(None)  # builds the JAX index's c_blk windows
+    tidx._scan_inputs(None)
     jdev, tdev = jidx.device, tidx.layout
     np.testing.assert_array_equal(tdev.ex.numpy(), np.asarray(jdev.ex))
     np.testing.assert_array_equal(tdev.ids.numpy(), np.asarray(jdev.ids))
@@ -177,21 +178,32 @@ def test_port_alone_matches_naive_oracle():
 
 
 def test_unported_paths_raise():
+    """An unknown scan_dtype is refused; what the port refused before the
+    dense and two-stage scans were ported, it now serves. (FHT rows longer
+    than 8192 stay refused by the kernel: ``tests/test_torch_cuda.py``.)"""
     data = _data()[:600]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.IvfRabitqIndex.train(data, nlist=8, total_bits=7, scan_dtype="bf16", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.IvfRabitqIndex.train(data, nlist=8, total_bits=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        # 300 clusters over 600 rows: a 512-row tile spans > 128 clusters
-        tr.IvfRabitqIndex.train_with_clusters(
-            data, np.zeros((300, DIM), np.float32), np.arange(600) % 300, 7, device="cpu"
-        )
-    wide = np.zeros((600, 2700), np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.IvfRabitqIndex.train_with_clusters(
-            wide, np.zeros((2, 2700), np.float32), np.arange(600) % 2, 7, device="cpu"
-        )
+    with pytest.raises(tr.InvalidConfig, match="scan_dtype"):
+        tr.IvfRabitqIndex.train(data, nlist=8, total_bits=7, scan_dtype="fp4", device="cpu")
+    params = tr.SearchParams(top_k=5, nprobe=8)
+    dense = tr.IvfRabitqIndex.train(data, nlist=8, total_bits=7, scan_dtype="bf16", device="cpu")
+    assert dense.search(data[0], params)[0].id == 0
+    wide_bits = tr.IvfRabitqIndex.train(
+        data, nlist=8, total_bits=8, scan_dtype="fused8", device="cpu"
+    )
+    assert not wide_bits._fused_exact_ok()  # raw ex plane: the two-stage scan
+    assert wide_bits.search(data[0], params)[0].id == 0
+    # 300 clusters over 600 rows: a 512-row tile spans > 128 clusters
+    tiny = tr.IvfRabitqIndex.train_with_clusters(
+        data, data[:300].copy(), np.arange(600) % 300, 7, scan_dtype="fused8", device="cpu"
+    )
+    assert tiny.scan_dtype == "bf16"
+    assert tiny.search(data[0], tr.SearchParams(top_k=5, nprobe=300))[0].id == 0
+    wide = np.random.default_rng(1).standard_normal((600, 2700)).astype(np.float32)
+    idx = tr.IvfRabitqIndex.train_with_clusters(
+        wide, wide[:2].copy(), np.arange(600) % 2, 7, scan_dtype="fused8", device="cpu"
+    )
+    assert idx.scan_dtype == "fused8" and not idx._fused_exact_ok()  # 2752 > 2560
+    assert idx.search(wide[0], tr.SearchParams(top_k=5, nprobe=2))[0].id == 0
 
 
 def test_input_errors(pair):
@@ -205,16 +217,18 @@ def test_input_errors(pair):
 
 
 def test_clamp_l2_clamps_after_ranking(pair):
-    from rabitq_tpu_torch.index.scan import fused_exact_scan
+    from rabitq_tpu_torch.index.scan import scan_kernel
 
     data, _, tidx = pair
+    tidx._scan_inputs(None)
     lay = tidx.layout
     q_rot = tidx.rotator.rotate(torch.from_numpy(data[:8]))
-    args = (q_rot, lay.centroids, lay.ex, lay.f_add_ex, lay.f_rescale_ex, lay.cluster_of,
-            lay.valid, lay.ids, tidx._c_blk)
-    kw = dict(nprobe=6, top_k=10, metric=tidx.metric, ex_bits=tidx.ex_bits)
-    ids, d = fused_exact_scan(*args, **kw)
-    c_ids, c_d = fused_exact_scan(*args, clamp_l2=True, **kw)
+    args = (q_rot, lay.centroids, lay.binary, lay.ex, lay.f_add, lay.f_rescale, lay.f_error,
+            lay.f_add_ex, lay.f_rescale_ex, lay.cluster_of, lay.valid, lay.ids)
+    kw = dict(nprobe=6, fused_cblk=tidx._c_blk, top_k=10, rerank=400, metric=tidx.metric,
+              ex_bits=tidx.ex_bits, scan_dtype="fused8", fused_exact=True)
+    ids, d = scan_kernel(*args, **kw)
+    c_ids, c_d = scan_kernel(*args, clamp_l2=True, **kw)
     assert torch.equal(ids, c_ids)
     want = torch.clamp_min(d, 0.0) if tidx.metric.value == "l2" else d
     assert torch.equal(c_d, want)

@@ -31,7 +31,11 @@ def _codes(seed, n=1500, dpad=192, c=20):
     )
 
 
-@pytest.mark.parametrize("mode", [dict(permute=False, row_pad=512), dict()])
+@pytest.mark.parametrize("mode", [
+    dict(permute=False, row_pad=512), dict(),
+    # MSTG's layout: the binary plane kept for the 1-bit re-score, f_error zeroed
+    dict(permute=False, row_pad=512, keep_binary=True, zero_f_error=True),
+])
 def test_layout_planes_match_jax(mode):
     x = _codes(0)
     n = len(x["ids"])
@@ -47,7 +51,9 @@ def test_layout_planes_match_jax(mode):
     if not mode:
         assert t.binary.dtype == torch.int8 and t.packed is None
     else:
-        assert t.binary is None and t.ex.shape[1] == 256  # width-padded to 128
+        assert (t.binary is None) == ("keep_binary" not in mode)
+        assert bool(t.f_error.any()) == ("zero_f_error" not in mode)
+        assert t.ex.shape[1] == 256  # width-padded to 128
 
 
 def test_host_helpers_match_jax():
