@@ -4,9 +4,13 @@
 Phases, one line each:
   1. device: the card's name, and nvidia-smi's name and power limit;
   2. build: compile every kernel from ``rabitq_tpu_torch/csrc`` with nvcc
-     (one process per source, all at once);
-  3. fht: the FHT kernel against its plain version on [256, 512] and
-     [8192, 512] f32 (must be bitwise equal), with times and bound;
+     (one process per source, all at once), with each kernel's registers,
+     shared memory and spills as ptxas reports them; a spill in a bin-scan
+     kernel fails the phase;
+  3. fht: the FHT kernel against its plain version on [256, 512],
+     [8192, 512] and [64, 16384] f32 (must be bitwise equal), with times and
+     bound, and beside it the one library call that computes the same
+     function ([8192, 512] times the 512 x 512 Sylvester matrix, torch.mm);
   4. main path at full size: a seeded 1M x 960 dataset (the recipe of
      bench.py's make_workload, drawn on the card), IvfRabitqIndex.train
      (nlist 4096, 7 bits, FhtKac, faster config, fused8), then 2048 queries
@@ -17,7 +21,8 @@ Phases, one line each:
      every kernel must have run;
   5. bin scan: the kernel against its plain version on the inputs the main
      path gives it for one 256-query block, dense walk and compacted walk,
-     with times and bound;
+     with times and bound, and the host and device time of the query image
+     the wrapper makes before each launch;
   6. profile: device time by kernel and the device's busy share over one
      pipelined serving run at nprobe 16 and 256 (torch.profiler);
   7. two-stage and dense paths at full size: a second index on the same
@@ -28,8 +33,9 @@ Phases, one line each:
      permuted layout) and bf16 (a plain matrix product: the reference
      point), with recall@10 and QPS; launch counters zeroed before and read
      after; then each kernel against its plain version on the main path's
-     inputs for one 256-query block, and a profile of a fused8 run at
-     nprobe 16 and a packed run at nprobe 256.
+     inputs for one 256-query block (the packed bin kernel with an int8
+     query and with a bf16 query, both walks), and a profile of a fused8 run
+     at nprobe 16, a fused run at nprobe 256 and a packed run at nprobe 256.
 Then one JSON line of kernel numbers, nvidia-smi's line again, and last
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
 
@@ -82,6 +88,49 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def host_us(fn, reps: int) -> float:
+    """Median host time (microseconds) to call ``fn`` without waiting for
+    the device: what a call costs the thread that dispatches it. Called in
+    rounds of 10 from an idle device, so that no launch queue fills up and
+    makes the host wait."""
+    import statistics
+
+    import torch
+
+    fn()
+    rounds = []
+    for _ in range(max(reps // 10, 1)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            fn()
+        rounds.append((time.perf_counter() - t0) / 10 * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(rounds)
+
+
+def queued_us(fn, reps: int) -> float:
+    """Mean device time (microseconds) of ``fn`` over ``reps`` calls made
+    while the device is still busy with a long product, so that the calls
+    wait in the stream and run back to back: for work so short that the
+    host calls it more slowly than the device runs it."""
+    import torch
+
+    fn()
+    a = torch.ones((8192, 8192), device="cuda")
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.mm(a, a)
+    torch.mm(a, a)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps * 1e3
+
+
 def make_workload(rows, n_queries, dim, n_centers, seed, device):
     """bench.py's make_workload drawn on the card: overlapping Gaussian
     blobs, queries from the same mixture, sigma = 1.5 * (dim / 128)^0.25."""
@@ -127,22 +176,35 @@ def check_fht():
     g = torch.Generator(device="cuda")
     g.manual_seed(1)
     rows_out = {}
-    for rows in (256, 8192):
-        x = torch.randn((rows, 512), generator=g, device="cuda")
+    for rows, n in ((256, 512), (8192, 512), (64, 16384)):
+        x = torch.randn((rows, n), generator=g, device="cuda")
         k_out = fht_kernel(x)
         p_out = fht_plain(x)
         torch.cuda.synchronize()
         err = float((k_out - p_out).abs().max())
         if not torch.equal(k_out, p_out):
-            raise AssertionError(f"fht [{rows}, 512]: kernel != plain (max |err| {err})")
+            raise AssertionError(f"fht [{rows}, {n}]: kernel != plain (max |err| {err})")
         ms = cuda_ms(lambda: fht_kernel(x), 50)
         plain_ms = cuda_ms(lambda: fht_plain(x), 20)
-        n_bytes = 2 * rows * 512 * 4
-        ops = rows * 512 * 9
+        n_bytes = 2 * rows * n * 4
+        ops = rows * n * (n.bit_length() - 1)
         bound = max(n_bytes / HBM_BYTES_PER_S, ops / F32_FLOPS) * 1e3
-        log(f"fht [{rows}, 512]: bitwise equal; kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {bound:.4f} ms (bytes)")
-        rows_out[rows] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, err=err)
+        library = ""
+        library_ms = None
+        if (rows, n) == (8192, 512):
+            # the one library call for this function: a product with the
+            # Sylvester matrix (f32, no TF32); timed here, used nowhere
+            h = fht_plain(torch.eye(n, device="cuda"))
+            lib_out = torch.mm(x, h)
+            torch.cuda.synchronize()
+            if not torch.allclose(lib_out, p_out, rtol=1e-4, atol=1e-3):
+                raise AssertionError("fht: torch.mm with the Sylvester matrix disagrees")
+            library_ms = cuda_ms(lambda: torch.mm(x, h), 50)
+            library = f", library (torch.mm, f32) {library_ms:.4f} ms"
+        log(f"fht [{rows}, {n}]: bitwise equal; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bound:.4f} ms (bytes){library}")
+        rows_out[(rows, n)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, err=err,
+                                   library_ms=library_ms)
     return rows_out
 
 
@@ -151,10 +213,10 @@ def bin_scan_bound(args, kw):
     read (listed tiles, or all), the other inputs and outputs once, and
     2 flops per plane column and (query, row) pair it must score. Direct
     mode: D columns at the bf16 tensor rate (the int8 codes are exact in
-    bf16, so a tensor-core kernel could do this work; the CUDA-core f32
-    kernel is slower than that yardstick). Packed mode: 8 * Db columns at
-    the int8 tensor rate for an int8 query, the bf16 rate for a bf16 one,
-    against an eighth of the plane bytes."""
+    bf16; the kernel's three products a column, for the three bf16 parts of
+    the f32 query, are its own cost, not the function's). Packed mode: 8 * Db
+    columns at the int8 tensor rate for an int8 query, the bf16 rate for a
+    bf16 one, against an eighth of the plane bytes."""
     from rabitq_tpu_torch.ops.fused_scan import TN, n_bins
 
     plane, q, _, _, _, _, g1, c_blk, tiles, tcount = args
@@ -233,6 +295,17 @@ def check_bin_scan(index, queries_np, nprobe):
     ms = cuda_ms(lambda: kernel(*args, **kw), 10)
     plain_ms = cuda_ms(lambda: fused_scan.fused_bin_scan_plain(*args, **kw), 2)
     bound, bound_by = bin_scan_bound(args, kw)
+    # what the wrapper does to the query before each launch (the split into
+    # bf16 planes and the layout as the kernel's image), on the host and on
+    # the device, beside the whole wrapper's host time
+    if mode == "direct":
+        image = lambda: fused_scan.query_image(  # noqa: E731
+            fused_scan.split_bf16x3(args[1]), "direct", args[0].shape[1])
+    else:
+        image_mode = "bits_s8" if kw.get("q_scale") is not None else "bits_bf16"
+        image = lambda: fused_scan.query_image(args[1], image_mode, args[0].shape[1])  # noqa: E731
+    image_host, image_dev = host_us(image, 100), queued_us(image, 20)
+    wrapper_host = host_us(lambda: kernel(*args, **kw), 50)
     extra = ""
     if args[8] is not None:
         cnt = args[9].clamp(max=args[8].shape[1])
@@ -240,7 +313,9 @@ def check_bin_scan(index, queries_np, nprobe):
                  f"{cnt.numel()} blocks of {args[1].shape[0] // cnt.numel()} queries")
     log(f"{what} (nprobe={nprobe}, q {tuple(args[1].shape)}, plane "
         f"{tuple(args[0].shape)}{extra}): offered equal, max |err| {err:.3g}, idx agree "
-        f"{agree:.5f}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound:.3f} ms ({bound_by})")
+        f"{agree:.5f}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound:.3f} ms "
+        f"({bound_by}); query image {image_host:.0f} us on the host, {image_dev:.1f} us on "
+        f"the device, of {wrapper_host:.0f} us the wrapper takes on the host")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, err=err)
 
 
@@ -354,11 +429,21 @@ def main() -> int:
 
     t0 = time.perf_counter()
     build_logs = _cuda.build_all()
-    log(f"build: {time.perf_counter() - t0:.1f} s for {len(build_logs)} kernels")
+    log(f"build: {time.perf_counter() - t0:.1f} s for {len(build_logs)} sources")
+    # bin-scan kernels and the arguments of their shared-memory getters
+    dynamic = {"fused_bin_scan": {"direct": ()},
+               "packed_bin_scan": {"bits_bf16": (0,), "bits_s8": (1,)}}
     for name, text in build_logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+        for k in _cuda.ptxas_report(text):
+            log(f"  {name}: {k['kernel']}: {k['registers']} registers, {k['smem']} bytes static "
+                f"shared memory, spills {k['spill_stores']} / {k['spill_loads']} bytes "
+                f"(stores / loads)")
+            if name in dynamic and (k["spill_stores"] or k["spill_loads"]):
+                raise AssertionError(f"{name}: a bin-scan kernel spills registers")
+        if name in dynamic:
+            sizes = ", ".join(f"{m} {_cuda.dynamic_shared_memory(name, *a)}"
+                              for m, a in dynamic[name].items())
+            log(f"  {name}: dynamic shared memory a block, bytes (as the library says): {sizes}")
 
     fht_rows = check_fht()
 
@@ -499,7 +584,9 @@ def main() -> int:
     p_int8_dense = check_bin_scan(index8, queries_np, 256)
     profile_serving(index8, queries_np, 16, label="total_bits=8 fused8 ")
     index8.scan_dtype = "fused"
+    p_bf16_compact = check_bin_scan(index8, queries_np, 16)
     p_bf16_dense = check_bin_scan(index8, queries_np, 256)
+    profile_serving(index8, queries_np, 256, label="total_bits=8 fused ")
     log(f"phase seconds: total_bits=8 checks and profiles {time.perf_counter() - t0:.1f}")
 
     def entry(name, source, replaces, n, r):
@@ -507,7 +594,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": n, "max_abs_err": r["err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r.get("bound_by", "bytes"), "library_ms": None,
+            "bound_by": r.get("bound_by", "bytes"), "library_ms": r.get("library_ms"),
         }
 
     scan_src = "rabitq_tpu_torch/csrc/fused_bin_scan.cu"
@@ -515,7 +602,7 @@ def main() -> int:
     packed_src = "rabitq_tpu_torch/csrc/packed_bin_scan.cu"
     kernels = [
         entry("fht", "rabitq_tpu_torch/csrc/fht.cu", "rabitq_tpu/ops/pallas_fht.py:49",
-              launches["fht"] + launches8["fht"], fht_rows[8192]),
+              launches["fht"] + launches8["fht"], fht_rows[(8192, 512)]),
         entry("fused_bin_scan_compact", scan_src, scan_tpu,
               launches["fused_bin_scan_compact"], compact),
         entry("fused_bin_scan_dense", scan_src, scan_tpu,
@@ -524,6 +611,8 @@ def main() -> int:
               launches8["fused_bin_scan_packed_int8_compact"], p_int8_compact),
         entry("fused_bin_scan_packed_int8_dense", packed_src, scan_tpu,
               launches8["fused_bin_scan_packed_int8_dense"], p_int8_dense),
+        entry("fused_bin_scan_packed_bf16_compact", packed_src, scan_tpu,
+              launches8["fused_bin_scan_packed_bf16_compact"], p_bf16_compact),
         entry("fused_bin_scan_packed_bf16_dense", packed_src, scan_tpu,
               launches8["fused_bin_scan_packed_bf16_dense"], p_bf16_dense),
         entry("packed_lb_scan", "rabitq_tpu_torch/csrc/packed_lb_scan.cu",

@@ -1,6 +1,7 @@
-// <bit planes, q> for a block of QB queries x RU rows, shared by the packed
-// bin scan (packed_bin_scan.cu) and the packed lower-bound scan
-// (packed_lb_scan.cu).
+// <bit planes, q> for a block of QB queries x RU rows on CUDA cores, for the
+// packed lower-bound scan (packed_lb_scan.cu). The packed bin scan
+// (packed_bin_scan.cu) used these dots until it moved to the tensor-core tile
+// of mma_tile.cuh.
 //
 // A packed row holds Db bytes; byte j, bit k (LSB first) is dimension
 // j*8 + k. The query arrives in bit-plane order: position p = k*Db + j holds
@@ -17,7 +18,8 @@
 //     mask: (w >> k) & 0x01010101), and each thread runs its tile with
 //     __dp4a into int32. Exact.
 //
-// CUDA cores only; a tensor-core version comes later.
+// CUDA cores only; the lower-bound scan's move to the tensor-core tile is the
+// next kernel work (ROADMAP.md B).
 
 #pragma once
 

@@ -1,5 +1,5 @@
 // Unnormalized fast Walsh-Hadamard transform along the last axis of a
-// row-major f32 [rows, n] tensor, n a power of two up to 8192.
+// row-major f32 [rows, n] tensor, n a power of two.
 //
 // Replaces the TPU kernel rabitq_tpu/ops/pallas_fht.py (_fht_kernel /
 // fht_pallas). Stage h updates every pair (j, j + h) with j & h == 0 to
@@ -12,7 +12,10 @@
 // stages there with one barrier per stage, and touches device memory once
 // on the way in and once on the way out, with consecutive threads on
 // consecutive addresses. Short rows are packed several to a block so every
-// block moves at least 2048 floats.
+// block moves at least 2048 floats. A row longer than 8192 runs as n / 8192
+// segments through the same kernel (stages h < 8192 never leave a segment),
+// then one pass over device memory per remaining stage h >= 8192, each pair
+// updated in place by one thread: the same adds in the same order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -21,6 +24,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMinBlockElems = 2048;
+constexpr int kSegment = 8192;  // longest run staged in shared memory (32 KB)
 
 __global__ void __launch_bounds__(kThreads)
 fht_rows_kernel(const float* __restrict__ x, float* __restrict__ y,
@@ -51,11 +55,39 @@ fht_rows_kernel(const float* __restrict__ x, float* __restrict__ y,
   for (int i = threadIdx.x; i < total; i += kThreads) y[base + i] = s[i];
 }
 
+// One stage h of rows of length n, in place: pair p of row r is
+// (j, j + h) with j = (i / h) * 2h + i % h, i = p % (n / 2).
+__global__ void __launch_bounds__(kThreads)
+fht_stage_kernel(float* __restrict__ y, int64_t pairs, int n, int h) {
+  const int64_t p = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (p >= pairs) return;
+  const int half = n >> 1;
+  const int64_t r = p / half;
+  const int i = (int)(p - r * half);
+  const int j = ((i & ~(h - 1)) << 1) | (i & (h - 1));
+  float* row = y + r * n;
+  const float a = row[j];
+  const float b = row[j + h];
+  row[j] = a + b;
+  row[j + h] = a - b;
+}
+
 }  // namespace
 
 extern "C" int rabitq_fht(const void* x, void* y, int rows, int n,
                           void* stream) {
   if (rows <= 0) return 0;
+  if (n > kSegment) {
+    const int64_t segments = (int64_t)rows * (n / kSegment);
+    fht_rows_kernel<<<(unsigned)segments, kThreads, kSegment * sizeof(float),
+                      (cudaStream_t)stream>>>((const float*)x, (float*)y,
+                                              (int)segments, kSegment, 1);
+    const int64_t pairs = (int64_t)rows * (n / 2);
+    const unsigned blocks = (unsigned)((pairs + kThreads - 1) / kThreads);
+    for (int h = kSegment; h < n; h <<= 1)
+      fht_stage_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>((float*)y, pairs, n, h);
+    return (int)cudaGetLastError();
+  }
   const int rows_per_block = n >= kMinBlockElems ? 1 : kMinBlockElems / n;
   const int blocks = (rows + rows_per_block - 1) / rows_per_block;
   const size_t smem = (size_t)rows_per_block * n * sizeof(float);

@@ -3,8 +3,7 @@
 Each source ``csrc/<name>.cu`` exposes a plain C entry point. It is compiled
 at first use with ``nvcc`` for ``sm_90a`` into ``_build/lib<name>-<hash>.so``
 (the hash is of the source and the shared headers ``csrc/*.cuh``, so an
-edited kernel rebuilds) and loaded with
-``ctypes``; no PyTorch headers are involved, so a build takes seconds.
+edited kernel rebuilds) and loaded with ``ctypes``; no PyTorch headers are involved, so a build takes seconds.
 :func:`build_all` starts one ``nvcc`` per source, all at once.
 
 Wrappers pass tensor pointers (``data_ptr()``) and the current CUDA stream
@@ -17,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -106,6 +106,31 @@ def build_all(names=SOURCES) -> dict[str, str]:
     return logs
 
 
+def ptxas_report(log: str) -> list[dict]:
+    """What ``-Xptxas -v`` said of each kernel in one build log: ``kernel``
+    (mangled name), ``registers``, ``smem`` (static shared memory, bytes),
+    ``spill_stores`` and ``spill_loads`` (bytes)."""
+    out = []
+    cur = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = dict(kernel=m.group(1), registers=0, smem=0, spill_stores=0, spill_loads=0)
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(m.group(1)) if m else 0
+    return out
+
+
 def entry(name: str):
     """The C entry point of kernel ``name`` (built first if needed), with
     its argtypes set."""
@@ -120,6 +145,17 @@ def entry(name: str):
             fn.restype = ctypes.c_int
             loaded = _entries[name] = (lib, fn)  # the library stays loaded
         return loaded[1]
+
+
+def dynamic_shared_memory(name: str, *args: int) -> int:
+    """Dynamic shared memory (bytes) a block of bin-scan kernel ``name``
+    takes, as its library says (``<entry point>_smem_bytes``; ``args`` are
+    that getter's int arguments, e.g. whether the query is int8)."""
+    entry(name)
+    fn = getattr(_entries[name][0], _SIGNATURES[name][0] + "_smem_bytes")
+    fn.argtypes = [_I] * len(args)
+    fn.restype = _I
+    return fn(*args)
 
 
 def check_launch(err: int, what: str) -> None:

@@ -15,7 +15,7 @@ import torch
 
 from . import _cuda
 
-MAX_N = 8192  # widest row the kernel stages in shared memory (32 KB)
+SEGMENT = 8192  # longest run the kernel stages in shared memory (kSegment in csrc/fht.cu)
 
 
 def _log2(n: int) -> int:
@@ -52,8 +52,9 @@ def fht_np(x: np.ndarray) -> np.ndarray:
 
 
 def fht_supported(n: int) -> bool:
-    """Whether the kernel takes rows of length ``n``."""
-    return n >= 1 and n & (n - 1) == 0 and n <= MAX_N
+    """Whether the kernel takes rows of length ``n``: any power of two (rows
+    longer than ``SEGMENT`` finish their last stages in device memory)."""
+    return n >= 1 and n & (n - 1) == 0
 
 
 def fht_kernel(x: torch.Tensor) -> torch.Tensor:
@@ -65,10 +66,8 @@ def fht_kernel(x: torch.Tensor) -> torch.Tensor:
     if x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError("fht_kernel needs a contiguous float32 tensor")
     _log2(n)
-    if n > MAX_N:
-        raise NotImplementedError(
-            f"FHT rows longer than {MAX_N} are not ported (ROADMAP.md C)"
-        )
+    if x.numel() >= 1 << 31:
+        raise ValueError("fht_kernel takes fewer than 2**31 elements a call")
     out = torch.empty_like(x)
     rows = x.numel() // n
     if rows:

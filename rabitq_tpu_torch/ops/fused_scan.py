@@ -33,9 +33,17 @@ are unchanged.
 Geometry of the port: ``TB`` (queries per compaction list) is 32, not the
 TPU's 128 -- on the card the per-block union of probed clusters, not VMEM,
 sets the list length, and a 32-query block is also the kernel's block.
+
+The kernels run their dot on the tensor cores (``csrc/mma_tile.cuh``) and
+take the query as an image laid out for them: :func:`split_bf16x3` makes an
+f32 query three bf16 planes whose products with int8 codes are exact, and
+:func:`query_image` writes the planes as the swizzled tiles the kernels copy
+straight into shared memory.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -326,7 +334,86 @@ def fused_bin_scan_plain(
     return val.reshape(bq, n_bins()), idx.reshape(bq, n_bins()), offered.reshape(bq, 128)
 
 
-_KERNEL_QB = 32  # queries per kernel block (QB in csrc/fused_bin_scan.cu, bitplane_dot.cuh)
+_KERNEL_QB = 32  # queries per kernel block (QB in csrc/mma_tile.cuh)
+
+
+def split_bf16x3(q: torch.Tensor) -> torch.Tensor:
+    """``[3, Bp, D]`` bf16 planes ``hi, mid, lo`` of an f32 ``[Bp, D]`` tensor
+    with ``hi + mid + lo == q`` exactly in f32: 3 x 8 significant bits hold
+    an f32's 24, and bf16 has f32's exponent range. (Exact for zero and for
+    magnitudes from 2**-100, below which the lo part may leave the normal
+    range, up to the largest bf16, 3.39e38.) Each plane's product with an
+    integer code of up to 8 bits is exact in f32, so a tensor-core dot of
+    the planes keeps f32 accuracy."""
+    q = q.to(torch.float32)
+    hi = q.to(torch.bfloat16)
+    rest = q - hi  # f32: the bf16 operand is promoted inside the op
+    mid = rest.to(torch.bfloat16)
+    lo = (rest - mid).to(torch.bfloat16)
+    return torch.stack([hi, mid, lo])
+
+
+# Stage geometry of csrc/mma_tile.cuh by mode: (code bytes of a row per
+# stage, B tiles per stage, query planes, bytes per query element). A B tile
+# is [32 queries][128 bytes] with the 128-byte swizzle and holds 4 k-steps.
+_IMAGE_MODES = {"direct": (64, 3, 3, 2), "bits_bf16": (32, 4, 1, 2), "bits_s8": (32, 2, 1, 1)}
+
+
+@functools.lru_cache(maxsize=32)
+def query_image_index(mode: str, width: int) -> np.ndarray:
+    """For one block of 32 queries, the flat source element (in the block's
+    ``[planes, 32, K]`` slab, K = ``width`` columns in direct mode, ``8 *
+    width`` bit-plane positions in the packed modes) of every element of the
+    kernel's query image ``[stages, tiles, 32, 128 // elem_bytes]``.
+
+    Inside a k-step the fragment slots take the code bytes in the order the
+    kernel's conversions produce them, and the query follows: slot kap of a
+    16-wide bf16 k-step reads byte ``4 * ((kap % 8) // 2) + (kap % 2) + 2 *
+    (kap // 8)`` of the step's 16 code bytes in direct mode (a thread's word
+    gives slots 2t, 2t+1 from bytes 0, 1 and 2t+8, 2t+9 from bytes 2, 3) and
+    byte ``4 * ((kap % 8) // 2) + 2 * (kap % 2) + kap // 8`` in bits_bf16
+    (bytes 0, 2 and 1, 3); a 32-wide s8 k-step is bit 2kp of 16 bytes in
+    order, then bit 2kp + 1 of the same bytes."""
+    code_bytes, tiles, planes, elem = _IMAGE_MODES[mode]
+    if width % code_bytes:
+        raise ValueError(f"{mode}: width {width} is not a multiple of {code_bytes}")
+    stages = width // code_bytes
+    per_unit = 16 // elem  # elements in a 16-byte swizzle unit
+    step = 32 // elem  # elements in a k-step
+    c, tl, n, e = np.indices((stages, tiles, 32, 128 // elem))
+    kk = per_unit * ((e // per_unit) ^ (n % 8)) + e % per_unit  # logical position in the row
+    s, kap = kk // step, kk % step
+    if mode == "direct":
+        col = code_bytes * c + 16 * s + 4 * ((kap % 8) // 2) + kap % 2 + 2 * (kap // 8)
+        return ((tl * 32 + n) * width + col).reshape(-1)
+    i = 4 * tl + s  # k-step of the stage
+    if mode == "bits_bf16":
+        jg, k = i // 8, i % 8
+        byte = 4 * ((kap % 8) // 2) + 2 * (kap % 2) + kap // 8
+    else:
+        jg, k = i // 4, 2 * (i % 4) + kap // 16
+        byte = kap % 16
+    pos = k * width + code_bytes * c + 16 * jg + byte
+    return (n * 8 * width + pos).reshape(-1)
+
+
+_image_index_on: dict = {}  # (mode, width, device) -> index tensor
+
+
+def query_image(q: torch.Tensor, mode: str, width: int) -> torch.Tensor:
+    """The kernels' query image of ``q``: ``[Bp // 32, stages * tiles * 4096]``
+    bytes' worth of ``q.dtype``. ``q`` is ``[3, Bp, D]`` bf16 planes in
+    direct mode, else ``[Bp, 8 * Db]`` bf16 or int8 in bit-plane order."""
+    planes = _IMAGE_MODES[mode][2]
+    k = q.shape[-1]
+    q = q.reshape(planes, -1, 32, k)
+    key = (mode, width, q.device)
+    idx = _image_index_on.get(key)
+    if idx is None:
+        idx = torch.from_numpy(query_image_index(mode, width)).to(q.device)
+        _image_index_on[key] = idx
+    slab = q.permute(1, 0, 2, 3).reshape(q.shape[1], planes * 32 * k)
+    return torch.index_select(slab, 1, idx)
 
 
 def _check_cuda_inputs(want, device) -> None:
@@ -337,8 +424,13 @@ def _check_cuda_inputs(want, device) -> None:
             raise ValueError(f"bin scan needs contiguous {dtype}, got {t.dtype}")
 
 
-def _check_cuda_batch(bq: int, tiles) -> int:
-    """The kernels' batch rules; returns the queries per tile list."""
+def _check_cuda_batch(bq: int, tiles, n_tiles: int) -> int:
+    """The kernels' batch and walk-length rules; returns the queries per
+    tile list."""
+    # a block counts the rows it offers per (row slot, query) in 16 bits
+    walk = tiles.shape[1] if tiles is not None else -(-n_tiles // GROUPS)
+    if walk > 0xFFFF:
+        raise ValueError(f"bin scan walks at most 65535 tiles a block, got {walk}")
     if bq % _KERNEL_QB:
         raise ValueError(f"bin scan needs a batch that is a multiple of {_KERNEL_QB}")
     tb = bq // tiles.shape[0] if tiles is not None else bq
@@ -350,7 +442,8 @@ def _check_cuda_batch(bq: int, tiles) -> int:
 def fused_bin_scan_cuda(
     plane, q, fa_eff, f_rescale, cluster_of, k1x, g1, c_blk, tiles=None, tcount=None
 ):
-    """The CUDA kernel. Counts its launches in
+    """The CUDA kernel, fed the query as three bf16 planes
+    (:func:`split_bf16x3`, :func:`query_image`). Counts its launches in
     ``fused_bin_scan_cuda.dense_launches`` (no tile lists) and
     ``fused_bin_scan_cuda.compact_launches`` (tile lists)."""
     n, d = plane.shape
@@ -365,13 +458,14 @@ def fused_bin_scan_cuda(
     _check_cuda_inputs(want, plane.device)
     if d % 64 or plane.data_ptr() % 16 or q.data_ptr() % 16:
         raise ValueError("bin scan needs D % 64 == 0 and 16-byte aligned planes")
-    tb = _check_cuda_batch(bq, tiles)
+    tb = _check_cuda_batch(bq, tiles, n // TN)
     val = torch.empty((bq, n_bins()), dtype=torch.float32, device=q.device)
     idx = torch.empty((bq, n_bins()), dtype=torch.int32, device=q.device)
     offered = torch.zeros((bq, 128), dtype=torch.int32, device=q.device)
+    q_img = query_image(split_bf16x3(q), "direct", d)
     fn = _cuda.entry("fused_bin_scan")
     err = fn(
-        plane.data_ptr(), q.data_ptr(), fa_eff.data_ptr(), f_rescale.data_ptr(),
+        plane.data_ptr(), q_img.data_ptr(), fa_eff.data_ptr(), f_rescale.data_ptr(),
         cluster_of.data_ptr(), k1x.data_ptr(), g1.data_ptr(), c_blk.data_ptr(),
         tiles.data_ptr() if tiles is not None else None,
         tcount.data_ptr() if tiles is not None else None,
@@ -415,13 +509,14 @@ def fused_bin_scan_packed_cuda(
     _check_cuda_inputs(want, plane.device)
     if db % 128 or q.shape[1] != 8 * db or plane.data_ptr() % 16 or q.data_ptr() % 16:
         raise ValueError("packed bin scan needs Db % 128 == 0, q 8 * Db wide, 16-byte aligned")
-    tb = _check_cuda_batch(bq, tiles)
+    tb = _check_cuda_batch(bq, tiles, n // TN)
     val = torch.empty((bq, n_bins()), dtype=torch.float32, device=q.device)
     idx = torch.empty((bq, n_bins()), dtype=torch.int32, device=q.device)
     offered = torch.zeros((bq, 128), dtype=torch.int32, device=q.device)
+    q_img = query_image(q, "bits_s8" if int8_q else "bits_bf16", db)
     fn = _cuda.entry("packed_bin_scan")
     err = fn(
-        plane.data_ptr(), q.data_ptr(), q_scale.data_ptr() if int8_q else None,
+        plane.data_ptr(), q_img.data_ptr(), q_scale.data_ptr() if int8_q else None,
         fa_eff.data_ptr(), f_rescale.data_ptr(), f_error.data_ptr(),
         cluster_of.data_ptr(), k1x.data_ptr(), g1.data_ptr(), g2.data_ptr(),
         c_blk.data_ptr(),

@@ -47,8 +47,10 @@ def test_fht_kernel_bitwise(cuda, n):
 
 
 def test_fht_kernel_limits(cuda):
-    with pytest.raises(NotImplementedError):
-        fht_kernel(torch.zeros((2, 16384), device=cuda))
+    # rows longer than the shared-memory segment finish in device memory
+    for n in (16384, 32768):
+        x = torch.randn((5, n), device=cuda, generator=torch.Generator(device=cuda).manual_seed(n))
+        assert torch.equal(fht_kernel(x), fht_plain(x))
     with pytest.raises(ValueError):
         fht_kernel(torch.zeros((2, 96), device=cuda))
     with pytest.raises(ValueError):
@@ -77,28 +79,139 @@ def _bin_inputs(device, bq, n_tiles=24, d=256, c=300, seed=0):
     )
 
 
-@pytest.mark.parametrize("compact", [False, True])
-@pytest.mark.parametrize("bq", [32, 96])
-def test_bin_scan_kernel_matches_plain(cuda, compact, bq):
-    x = _bin_inputs(cuda, bq)
-    tiles = tcount = None
-    if compact:
-        tiles, tcount = fs.compaction_lists(x["fa"], x["cl"], x["probe"], 32, 24)
-    args = (x["plane"], x["q"], x["fa"], x["fr"], x["cl"], x["k1x"], x["g1"], x["c_blk"],
-            tiles, tcount)
-    kv, ki, ko = fs.fused_bin_scan_cuda(*args)
-    pv, pi, po = fs.fused_bin_scan_plain(*args)
+def _assert_bins_match(kernel_out, plain_out, exact_dot=False, atol=1e-3):
+    (kv, ki, ko), (pv, pi, po) = kernel_out, plain_out
     assert torch.equal(ko, po) and int(ko.sum()) > 0
     filled = pv < fs.BIG / 2
     assert torch.equal(kv < fs.BIG / 2, filled)
-    torch.testing.assert_close(kv[filled], pv[filled], rtol=1e-5, atol=1e-3)
+    if exact_dot:
+        torch.testing.assert_close(kv[filled], pv[filled], rtol=1e-6, atol=1e-6)
+    else:
+        torch.testing.assert_close(kv[filled], pv[filled], rtol=1e-5, atol=atol)
     assert float((ki == pi).float().mean()) >= 0.999
 
 
-def _packed_inputs(device, bq, int8_q, db=128, seed=0):
+# (row tiles, plane width): the base case; the narrowest plane; dim 960 padded
+# to 1024 columns on a tile count that is no multiple of the 16 bin groups; the
+# widest plane the EXACT scan serves
+@pytest.mark.parametrize("shape", [(24, 256), (21, 64), (19, 1024), (18, 2560)])
+@pytest.mark.parametrize("compact", [False, True])
+@pytest.mark.parametrize("bq", [32, 96])
+def test_bin_scan_kernel_matches_plain(cuda, compact, bq, shape):
+    n_tiles, d = shape
+    x = _bin_inputs(cuda, bq, n_tiles=n_tiles, d=d)
+    if d == 1024:
+        x["q"][:, 960:] = 0.0
+        x["plane"][:, 960:] = 0
+    tiles = tcount = None
+    if compact:
+        tiles, tcount = fs.compaction_lists(x["fa"], x["cl"], x["probe"], 32, n_tiles)
+    args = (x["plane"], x["q"], x["fa"], x["fr"], x["cl"], x["k1x"], x["g1"], x["c_blk"],
+            tiles, tcount)
+    # At 2560 columns the dots are ~3500 and two f32 sums of them differ by more:
+    # against float64 the kernel is off by up to 0.0051 and the plain version by
+    # 0.0071 (test_bin_scan_dot_against_float64), times f_rescale (up to 0.2
+    # here): 0.0029 seen.
+    _assert_bins_match(fs.fused_bin_scan_cuda(*args), fs.fused_bin_scan_plain(*args),
+                       atol=4e-3 if d == 2560 else 1e-3)
+
+
+@pytest.mark.parametrize("mode,width", [("direct", 1024), ("direct", 2560), ("bf16", 128),
+                                        ("bf16", 384)])
+def test_bin_scan_dot_against_float64(cuda, mode, width):
+    """The kernels' dot alone (one cluster, all probed, fa = 0, fr = 1, k1x = 0,
+    g = 0, 16 tiles: bin n is row n's dot) against a float64 product. The
+    tensor cores truncate as they accumulate; the kernel must stay within
+    three times the error of an f32 product (run with -s for the errors;
+    1.9 times seen at most, on the bit planes at width 384)."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    n, bq = 16 * fs.TN, 32
+    z = torch.zeros(n, device=cuda)
+    kw = {}
+    if mode == "direct":
+        plane = torch.randint(0, 128, (n, width), generator=g, device=cuda, dtype=torch.int8)
+        q = torch.randn((bq, width), generator=g, device=cuda)
+        codes = plane
+    else:
+        plane = torch.randint(0, 256, (n, width), generator=g, device=cuda, dtype=torch.uint8)
+        q = torch.randn((bq, 8 * width), generator=g, device=cuda).to(torch.bfloat16)
+        codes = ps.unpack_bitplanes(plane)
+        kw = dict(f_error=z, g2=torch.zeros((bq, 256), dtype=torch.bfloat16, device=cuda))
+    args = (plane, q, z, torch.ones(n, device=cuda), torch.zeros(n, dtype=torch.int32, device=cuda),
+            torch.zeros(bq, device=cuda), torch.zeros((bq, 256), dtype=torch.bfloat16, device=cuda),
+            torch.zeros(16, dtype=torch.int32, device=cuda), None, None)
+    exact = q.double() @ codes.double().T
+    k_err = float((fs.fused_bin_scan(*args, **kw)[0].double() - exact).abs().max())
+    p_err = float((fs.fused_bin_scan_plain(*args, **kw)[0].double() - exact).abs().max())
+    mm_err = float(((q.float() @ codes.float().T).double() - exact).abs().max())
+    print(f"\ndot {mode} width {width}: mean |dot| {float(exact.abs().mean()):.1f}; max |err| "
+          f"against float64: kernel {k_err:.3g}, plain version {p_err:.3g}, f32 torch.mm "
+          f"{mm_err:.3g}")
+    assert k_err <= 3 * max(mm_err, p_err)
+
+
+def _stray_lists(device, n_blocks, n_tiles):
+    """Tile lists as no caller builds them but the contract allows: slots
+    out of range (skipped), every bin group mixed (each block takes its own),
+    and slots past tcount that must not be walked."""
+    rng = np.random.default_rng(4)
+    tiles = np.full((n_blocks, n_tiles + 6), -1, np.int32)
+    tcount = np.zeros(n_blocks, np.int32)
+    for b in range(n_blocks):
+        keep = np.sort(rng.choice(n_tiles, n_tiles - 5, replace=False)).astype(np.int32)
+        row = np.concatenate([keep[:4], [-1, n_tiles + 3], keep[4:]])
+        tiles[b, : len(row)] = row
+        tiles[b, len(row):] = keep[0]  # past tcount: never walked
+        tcount[b] = len(row)
+    return torch.from_numpy(tiles).to(device), torch.from_numpy(tcount).to(device)
+
+
+def test_bin_scan_kernel_skips_stray_list_slots(cuda):
+    x = _bin_inputs(cuda, 64, n_tiles=21)
+    tiles, tcount = _stray_lists(cuda, 2, 21)
+    args = (x["plane"], x["q"], x["fa"], x["fr"], x["cl"], x["k1x"], x["g1"], x["c_blk"],
+            tiles, tcount)
+    _assert_bins_match(fs.fused_bin_scan_cuda(*args), fs.fused_bin_scan_plain(*args))
+
+
+@pytest.mark.parametrize("mode", ["direct", "bf16", "int8"])
+@pytest.mark.parametrize("compact", [False, True])
+def test_bin_scan_kernels_first_row_wins_a_tie(cuda, compact, mode):
+    """Rows 8192 apart share a bin. Copies of tile 0's rows in tiles 16 and
+    32 reach exactly its values: the bin must keep tile 0's row."""
+    n_tiles, bq = 35, 32
+    x = _bin_inputs(cuda, bq, n_tiles=n_tiles, c=1) if mode == "direct" else _packed_inputs(
+        cuda, bq, mode == "int8", n_tiles=n_tiles, c=1)
+    x["g1"][:, 0] = 25.0  # every query probes the one cluster
+    per_row = [x["plane"], x["fa"], x["fr"]] + ([x["fe"]] if mode != "direct" else [])
+    for a in per_row:
+        a[8192:8192 + fs.TN] = a[: fs.TN]
+        a[16384:16384 + fs.TN] = a[: fs.TN]
+    tiles = tcount = None
+    if compact:
+        tiles = torch.arange(n_tiles, dtype=torch.int32, device=cuda)[None, :].contiguous()
+        tcount = torch.tensor([n_tiles], dtype=torch.int32, device=cuda)
+    args = (x["plane"], x["q"], x["fa"], x["fr"], x["cl"], x["k1x"], x["g1"], x["c_blk"],
+            tiles, tcount)
+    kw = {} if mode == "direct" else dict(f_error=x["fe"], g2=x["g2"], q_scale=x["q_scale"])
+    kv, ki, ko = fs.fused_bin_scan(*args, **kw)
+    pv, pi, po = fs.fused_bin_scan_plain(*args, **kw)
+    # (the plain version's batched product on the card need not give a row's
+    # copies bitwise equal dots, so only the kernel is held to the rule)
+    first = ki[:, : fs.TN]
+    own = torch.arange(fs.TN, dtype=torch.int32, device=cuda)[None, :]
+    assert bool((first == own).float().mean() > 0.9)  # most bins filled
+    assert bool(((first == own) | (first == -1)).all())
+    assert torch.equal(ko, po)
+    filled = pv < fs.BIG / 2
+    assert torch.equal(kv < fs.BIG / 2, filled)
+    torch.testing.assert_close(kv[filled], pv[filled], rtol=1e-5, atol=1e-3)
+
+
+def _packed_inputs(device, bq, int8_q, db=128, seed=0, **geometry):
     """Packed-mode inputs over the geometry of ``_bin_inputs``: bit planes,
     a bit-plane-ordered query (bf16, or int8 with its scale), f_error and g2."""
-    x = _bin_inputs(device, bq, seed=seed)
+    x = _bin_inputs(device, bq, seed=seed, **geometry)
     rng = np.random.default_rng(seed + 100)
     n = x["plane"].shape[0]
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
@@ -116,14 +229,19 @@ def _packed_inputs(device, bq, int8_q, db=128, seed=0):
     return x
 
 
+@pytest.mark.parametrize("wide", [False, True])
 @pytest.mark.parametrize("compact", [False, True])
 @pytest.mark.parametrize("int8_q", [False, True])
 @pytest.mark.parametrize("bq", [32, 96])
-def test_packed_bin_scan_kernel_matches_plain(cuda, compact, int8_q, bq):
-    x = _packed_inputs(cuda, bq, int8_q)
+def test_packed_bin_scan_kernel_matches_plain(cuda, compact, int8_q, bq, wide):
+    # wide: the widest planes each query type serves, on a tile count that is
+    # no multiple of the 16 bin groups
+    n_tiles = 21 if wide else 24
+    db = (896 if int8_q else 384) if wide else 128
+    x = _packed_inputs(cuda, bq, int8_q, db=db, n_tiles=n_tiles)
     tiles = tcount = None
     if compact:
-        tiles, tcount = fs.compaction_lists(x["fa"], x["cl"], x["probe"], 32, 24)
+        tiles, tcount = fs.compaction_lists(x["fa"], x["cl"], x["probe"], 32, n_tiles)
     args = (x["plane"], x["q"], x["fa"], x["fr"], x["cl"], x["k1x"], x["g1"], x["c_blk"],
             tiles, tcount)
     kw = dict(f_error=x["fe"], g2=x["g2"], q_scale=x["q_scale"])
@@ -131,15 +249,18 @@ def test_packed_bin_scan_kernel_matches_plain(cuda, compact, int8_q, bq):
     before = fs.fused_bin_scan_packed_cuda.launches[key]
     kv, ki, ko = fs.fused_bin_scan(*args, **kw)
     assert fs.fused_bin_scan_packed_cuda.launches[key] == before + 1
-    pv, pi, po = fs.fused_bin_scan_plain(*args, **kw)
-    assert torch.equal(ko, po) and int(ko.sum()) > 0
-    filled = pv < fs.BIG / 2
-    assert torch.equal(kv < fs.BIG / 2, filled)
-    if int8_q:
-        torch.testing.assert_close(kv[filled], pv[filled], rtol=1e-6, atol=1e-6)
-    else:
-        torch.testing.assert_close(kv[filled], pv[filled], rtol=1e-5, atol=1e-3)
-    assert float((ki == pi).float().mean()) >= 0.999
+    _assert_bins_match((kv, ki, ko), fs.fused_bin_scan_plain(*args, **kw), exact_dot=int8_q)
+
+
+@pytest.mark.parametrize("int8_q", [False, True])
+def test_packed_bin_scan_kernel_skips_stray_list_slots(cuda, int8_q):
+    x = _packed_inputs(cuda, 64, int8_q, n_tiles=21)
+    tiles, tcount = _stray_lists(cuda, 2, 21)
+    args = (x["plane"], x["q"], x["fa"], x["fr"], x["cl"], x["k1x"], x["g1"], x["c_blk"],
+            tiles, tcount)
+    kw = dict(f_error=x["fe"], g2=x["g2"], q_scale=x["q_scale"])
+    _assert_bins_match(fs.fused_bin_scan(*args, **kw), fs.fused_bin_scan_plain(*args, **kw),
+                       exact_dot=int8_q)
 
 
 @pytest.mark.parametrize("b", [8, 300])
