@@ -5,12 +5,14 @@ Phases, one line each:
   1. device: the card's name, and nvidia-smi's name and power limit;
   2. build: compile every kernel from ``rabitq_tpu_torch/csrc`` with nvcc
      (one process per source, all at once), with each kernel's registers,
-     shared memory and spills as ptxas reports them; a spill in a bin-scan
-     kernel fails the phase;
+     shared memory and spills as ptxas reports them and the dynamic shared
+     memory of the tensor-core kernels and the FHT as their libraries say;
+     a spill in any kernel fails the phase;
   3. fht: the FHT kernel against its plain version on [256, 512],
-     [8192, 512] and [64, 16384] f32 (must be bitwise equal), with times and
-     bound, and beside it the one library call that computes the same
-     function ([8192, 512] times the 512 x 512 Sylvester matrix, torch.mm);
+     [8192, 512] and [64, 16384] f32 (must be bitwise equal), with device
+     times from a cold L2 and bound, and beside it the one library call
+     that computes the same function ([8192, 512] times the 512 x 512
+     Sylvester matrix, torch.mm);
   4. main path at full size: a seeded 1M x 960 dataset (the recipe of
      bench.py's make_workload, drawn on the card), IvfRabitqIndex.train
      (nlist 4096, 7 bits, FhtKac, faster config, fused8), then 2048 queries
@@ -33,9 +35,13 @@ Phases, one line each:
      permuted layout) and bf16 (a plain matrix product: the reference
      point), with recall@10 and QPS; launch counters zeroed before and read
      after; then each kernel against its plain version on the main path's
-     inputs for one 256-query block (the packed bin kernel with an int8
-     query and with a bf16 query, both walks), and a profile of a fused8 run
-     at nprobe 16, a fused run at nprobe 256 and a packed run at nprobe 256.
+     inputs for one 256-query block (the packed lower-bound kernel in both
+     epilogues: the masked plane the packed scan takes, and the TPU
+     contract on a g_comb built from the same inputs, with a bf16 torch.mm
+     of the unpacked planes beside it as the library time of the dot alone;
+     the packed bin kernel with an int8 query and with a bf16 query, both
+     walks), and a profile of a packed run at nprobe 256, a fused8 run at
+     nprobe 16 and a fused run at nprobe 256.
 Then one JSON line of kernel numbers, nvidia-smi's line again, and last
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
 
@@ -44,6 +50,7 @@ Usage: python3 chip_smoke.py (no arguments; one card).
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import subprocess
@@ -51,6 +58,7 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+L2_BYTES = 50e6  # H100 SXM
 F32_FLOPS = 67e12  # H100 SXM, CUDA cores (the FHT's adds)
 BF16_TENSOR_FLOPS = 989e12  # H100 SXM, dense bf16 tensor cores (the bin scan's dot)
 INT8_TENSOR_OPS = 1979e12  # H100 SXM, dense int8 tensor cores (the int8 bit-plane dot)
@@ -184,8 +192,18 @@ def check_fht():
         err = float((k_out - p_out).abs().max())
         if not torch.equal(k_out, p_out):
             raise AssertionError(f"fht [{rows}, {n}]: kernel != plain (max |err| {err})")
-        ms = cuda_ms(lambda: fht_kernel(x), 50)
-        plain_ms = cuda_ms(lambda: fht_plain(x), 20)
+        # device times of calls queued behind a long product (a call takes
+        # longer on the host than on the device), each call on another copy
+        # of the input from a pool four times the L2's size, so that every
+        # call reads its input from device memory, as the bound counts it
+        pool = [x.clone() for _ in range(math.ceil(4 * L2_BYTES / (rows * n * 4)))]
+        turn = itertools.count()
+
+        def cold():
+            return pool[next(turn) % len(pool)]
+
+        ms = queued_us(lambda: fht_kernel(cold()), 50) / 1e3
+        plain_ms = queued_us(lambda: fht_plain(cold()), 20) / 1e3
         n_bytes = 2 * rows * n * 4
         ops = rows * n * (n.bit_length() - 1)
         bound = max(n_bytes / HBM_BYTES_PER_S, ops / F32_FLOPS) * 1e3
@@ -199,12 +217,13 @@ def check_fht():
             torch.cuda.synchronize()
             if not torch.allclose(lib_out, p_out, rtol=1e-4, atol=1e-3):
                 raise AssertionError("fht: torch.mm with the Sylvester matrix disagrees")
-            library_ms = cuda_ms(lambda: torch.mm(x, h), 50)
+            library_ms = queued_us(lambda: torch.mm(cold(), h), 50) / 1e3
             library = f", library (torch.mm, f32) {library_ms:.4f} ms"
         log(f"fht [{rows}, {n}]: bitwise equal; kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {bound:.4f} ms (bytes){library}")
         rows_out[(rows, n)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, err=err,
                                    library_ms=library_ms)
+        del pool
     return rows_out
 
 
@@ -319,52 +338,95 @@ def check_bin_scan(index, queries_np, nprobe):
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, err=err)
 
 
+def plane_agreement(got, want, what):
+    """+-inf entries of a bf16 lower-bound plane equal, finite ones within one
+    bf16 ulp (a reordered f32 sum can cross a rounding boundary), >= 99%
+    bitwise equal. Returns (max |err| of the finite entries, share equal)."""
+    import torch
+
+    got, want = got.float(), want.float()
+    inf = torch.isinf(want)
+    if not (torch.equal(torch.isinf(got), inf) and torch.equal(got[inf], want[inf])):
+        raise AssertionError(f"{what}: the infinite entries differ")
+    fin = ~inf
+    diff = (got[fin] - want[fin]).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    if not bool((diff <= 2.0 ** -7 * want[fin].abs() + 1e-3).all()):
+        raise AssertionError(f"{what}: an entry is off by more than a bf16 ulp ({err})")
+    same = float((got == want).float().mean())
+    if same < 0.99:
+        raise AssertionError(f"{what}: only {same:.5f} of entries bitwise equal")
+    return err, same
+
+
 def check_packed_lb_scan(index, queries_np, nprobe):
-    """The packed lower-bound kernel vs its plain version on the inputs the
-    main path (scan_dtype "packed") hands it for one 256-query block."""
+    """The packed lower-bound kernel vs its plain versions on the inputs the
+    main path (scan_dtype "packed") hands it for one 256-query block: the
+    G_TABLE epilogue (the masked plane the path takes), then the G_PLANE
+    epilogue (the TPU contract) on a g_comb built from the same inputs. Beside
+    them the library time of the dot alone: a bf16 torch.mm of the query and
+    the bit planes unpacked ahead of time, with f32 output."""
     import torch
     from rabitq_tpu_torch import SearchParams
     from rabitq_tpu_torch.index import scan
     from rabitq_tpu_torch.ops import packed_scan
 
     captured = []
-    real = scan.packed_lb_scan
+    real = scan.packed_lb_plane
 
     def spy(*a):
         captured.append(a)
         return real(*a)
 
-    scan.packed_lb_scan = spy
+    scan.packed_lb_plane = spy
     try:
         index.batch_search_arrays(queries_np[:256], SearchParams(top_k=10, nprobe=nprobe))
     finally:
-        scan.packed_lb_scan = real
+        scan.packed_lb_plane = real
     args = captured[0]
-    packed, q_perm = args[0], args[1]
-    got = packed_scan.packed_lb_scan_cuda(*args).float()
-    want = packed_scan.packed_lb_scan_plain(*args).float()
-    torch.cuda.synchronize()
-    diff = (got - want).abs()
-    err = float(diff.max())
-    # one bf16 ulp: a reordered f32 sum can cross a rounding boundary
-    if not bool((diff <= 2.0 ** -7 * want.abs() + 1e-3).all()):
-        raise AssertionError(f"packed lb scan: an entry is off by more than a bf16 ulp ({err})")
-    same = float((got == want).float().mean())
-    if same < 0.99:
-        raise AssertionError(f"packed lb scan: only {same:.5f} of entries bitwise equal")
-    del got, want, diff
-    ms = cuda_ms(lambda: packed_scan.packed_lb_scan_cuda(*args), 5)
-    plain_ms = cuda_ms(lambda: packed_scan.packed_lb_scan_plain(*args), 2)
+    packed, q_perm, f_add, f_rescale, k1x, g_add, g_error, f_error, cluster_of = args[:9]
     n, db = packed.shape
-    bq = q_perm.shape[0]
-    n_bytes = n * db + n * 8 + q_perm.numel() * 2 + bq * 4 + 2 * bq * n * 2
+    bq, c = g_add.shape
     ops = 2 * bq * n * 8 * db
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / BF16_TENSOR_FLOPS
-    bound, bound_by = max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
-    log(f"packed lb scan (nprobe={nprobe}, q {tuple(q_perm.shape)}, packed {tuple(packed.shape)}): "
-        f"max |err| {err:.3g}, {same:.5f} bitwise equal; kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms, bound {bound:.3f} ms ({bound_by})")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, err=err)
+
+    def bound(n_bytes):
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / BF16_TENSOR_FLOPS
+        return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+    out = {}
+    err, same = plane_agreement(packed_scan.packed_lb_plane_cuda(*args),
+                                packed_scan.packed_lb_plane_plain(*args), "packed lb plane")
+    # inputs as the function takes them, each once, and the plane it writes
+    table_bytes = sum(t.numel() * t.element_size() for t in args[1:])
+    b, by = bound(n * db + table_bytes + bq * n * 2)
+    out["plane"] = dict(err=err, same=same, bound_ms=b, bound_by=by,
+                        ms=cuda_ms(lambda: packed_scan.packed_lb_plane_cuda(*args), 5),
+                        plain_ms=cuda_ms(lambda: packed_scan.packed_lb_plane_plain(*args), 2))
+    cl = cluster_of
+    g_comb = (g_add.to(torch.bfloat16)[:, cl] - f_error[None, :] * g_error.to(torch.bfloat16)[:, cl])
+    g_comb = g_comb.to(torch.bfloat16)
+    scan_args = (packed, q_perm, f_add, f_rescale, k1x, g_comb)
+    err, same = plane_agreement(packed_scan.packed_lb_scan_cuda(*scan_args),
+                                packed_scan.packed_lb_scan_plain(*scan_args), "packed lb scan")
+    b, by = bound(n * db + n * 8 + q_perm.numel() * 2 + bq * 4 + 2 * bq * n * 2)
+    out["scan"] = dict(err=err, same=same, bound_ms=b, bound_by=by,
+                       ms=cuda_ms(lambda: packed_scan.packed_lb_scan_cuda(*scan_args), 5),
+                       plain_ms=cuda_ms(lambda: packed_scan.packed_lb_scan_plain(*scan_args), 2))
+    del g_comb, scan_args
+    bits = packed_scan.unpack_bitplanes(packed).to(torch.bfloat16)
+    library_ms = cuda_ms(lambda: torch.mm(q_perm, bits.T, out_dtype=torch.float32), 5)
+    del bits
+    torch.cuda.empty_cache()
+    for key in ("plane", "scan"):
+        out[key]["library_ms"] = library_ms
+    for key, what in (("plane", "packed lb plane (G_TABLE)"), ("scan", "packed lb scan (G_PLANE)")):
+        r = out[key]
+        log(f"{what} (nprobe={nprobe}, q {tuple(q_perm.shape)}, packed {tuple(packed.shape)}, "
+            f"{c} clusters): max |err| {r['err']:.3g}, {r['same']:.5f} bitwise equal, "
+            f"infinities equal; kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
+            f"{r['bound_ms']:.3f} ms ({r['bound_by']}), library (torch.mm bf16 -> f32 of the "
+            f"unpacked planes, the dot alone) {library_ms:.3f} ms")
+    return out
 
 
 def profile_serving(index, queries_np, nprobe, label=""):
@@ -417,7 +479,7 @@ def main() -> int:
             fused_bin_scan_cuda,
             fused_bin_scan_packed_cuda,
         )
-        from rabitq_tpu_torch.ops.packed_scan import packed_lb_scan_cuda
+        from rabitq_tpu_torch.ops.packed_scan import packed_lb_plane_cuda, packed_lb_scan_cuda
     except ImportError as e:
         print(f"chip_smoke: the rabitq_tpu_torch package is missing ({e})", file=sys.stderr)
         return 2
@@ -430,20 +492,22 @@ def main() -> int:
     t0 = time.perf_counter()
     build_logs = _cuda.build_all()
     log(f"build: {time.perf_counter() - t0:.1f} s for {len(build_logs)} sources")
-    # bin-scan kernels and the arguments of their shared-memory getters
-    dynamic = {"fused_bin_scan": {"direct": ()},
-               "packed_bin_scan": {"bits_bf16": (0,), "bits_s8": (1,)}}
+    # the arguments of each library's shared-memory getter
+    dynamic = {"fht": {"rows of 512": (512,), "rows of 16384": (16384,),
+                       "rows of 32768 and more": (32768,)},
+               "fused_bin_scan": {"direct": ()},
+               "packed_bin_scan": {"bits_bf16": (0,), "bits_s8": (1,)},
+               "packed_lb_scan": {"both epilogues": ()}}
     for name, text in build_logs.items():
         for k in _cuda.ptxas_report(text):
             log(f"  {name}: {k['kernel']}: {k['registers']} registers, {k['smem']} bytes static "
                 f"shared memory, spills {k['spill_stores']} / {k['spill_loads']} bytes "
                 f"(stores / loads)")
-            if name in dynamic and (k["spill_stores"] or k["spill_loads"]):
-                raise AssertionError(f"{name}: a bin-scan kernel spills registers")
-        if name in dynamic:
-            sizes = ", ".join(f"{m} {_cuda.dynamic_shared_memory(name, *a)}"
-                              for m, a in dynamic[name].items())
-            log(f"  {name}: dynamic shared memory a block, bytes (as the library says): {sizes}")
+            if k["spill_stores"] or k["spill_loads"]:
+                raise AssertionError(f"{name}: kernel {k['kernel']} spills registers")
+        sizes = ", ".join(f"{m} {_cuda.dynamic_shared_memory(name, *a)}"
+                          for m, a in dynamic[name].items())
+        log(f"  {name}: dynamic shared memory a block, bytes (as the library says): {sizes}")
 
     fht_rows = check_fht()
 
@@ -527,6 +591,7 @@ def main() -> int:
     for key in packed_launches:
         packed_launches[key] = 0
     packed_lb_scan_cuda.launches = 0
+    packed_lb_plane_cuda.launches = 0
     t0 = time.perf_counter()
     index8 = IvfRabitqIndex.train(
         data, nlist=NLIST, total_bits=8, metric=Metric.L2,
@@ -568,16 +633,19 @@ def main() -> int:
             raise AssertionError(
                 f"{scan_dtype}: recall@10 {recall:.4f} < {RECALL_FLOOR} at nprobe=256")
     launches8 = {f"fused_bin_scan_packed_{k}": v for k, v in packed_launches.items()}
-    launches8["packed_lb_scan"] = packed_lb_scan_cuda.launches
+    launches8["packed_lb_plane"] = packed_lb_plane_cuda.launches
     launches8["fht"] = fht_kernel.launches - fht_before
-    log(f"launches on the two-stage and dense paths: {launches8}")
+    # the TPU contract's epilogue is on no main path (the sharded tier will call it)
+    g_plane_launches = packed_lb_scan_cuda.launches
+    log(f"launches on the two-stage and dense paths: {launches8}; packed_lb_scan (G_PLANE, "
+        f"on no main path): {g_plane_launches}")
     if min(launches8.values()) <= 0:
         raise AssertionError(f"a kernel of the two-stage or dense path never ran: {launches8}")
     log(f"phase seconds: total_bits=8 serving {time.perf_counter() - t0:.1f}")
 
     t0 = time.perf_counter()
     index8.scan_dtype = "packed"
-    lb_plane = check_packed_lb_scan(index8, queries_np, 256)
+    lb = check_packed_lb_scan(index8, queries_np, 256)
     profile_serving(index8, queries_np, 256, label="total_bits=8 packed ")
     index8.scan_dtype = "fused8"  # re-laid back to the cluster-sorted layout
     p_int8_compact = check_bin_scan(index8, queries_np, 16)
@@ -615,8 +683,10 @@ def main() -> int:
               launches8["fused_bin_scan_packed_bf16_compact"], p_bf16_compact),
         entry("fused_bin_scan_packed_bf16_dense", packed_src, scan_tpu,
               launches8["fused_bin_scan_packed_bf16_dense"], p_bf16_dense),
+        entry("packed_lb_plane", "rabitq_tpu_torch/csrc/packed_lb_scan.cu",
+              "rabitq_tpu/ops/pallas_scan.py:141", launches8["packed_lb_plane"], lb["plane"]),
         entry("packed_lb_scan", "rabitq_tpu_torch/csrc/packed_lb_scan.cu",
-              "rabitq_tpu/ops/pallas_scan.py:141", launches8["packed_lb_scan"], lb_plane),
+              "rabitq_tpu/ops/pallas_scan.py:141", g_plane_launches, lb["scan"]),
     ]
     for k in kernels:
         if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms")):

@@ -60,7 +60,6 @@ bin_scan_kernel(const int8_t* __restrict__ plane,    // [n_tiles * TN, d]
   // bins, indexed like the accumulators: [mt][4j + 2h + e]
   float bval[2][16];
   int bidx[2][16];
-  int cnt[2][8];  // offered counts of queries e = 0, 1 in the two halves of a word
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
@@ -68,9 +67,8 @@ bin_scan_kernel(const int8_t* __restrict__ plane,    // [n_tiles * TN, d]
       bval[mt][i] = BIG;
       bidx[mt][i] = -1;
     }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) cnt[mt][i] = 0;
   }
+  Offered off;
   float kx[4][2];
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
@@ -142,7 +140,7 @@ bin_scan_kernel(const int8_t* __restrict__ plane,    // [n_tiles * TN, d]
             const float g = inwin ? g1v[j][e] : 0.0f;
             const float lb = __fadd_rn(
                 __fadd_rn(fan[mt][h], __fmul_rn(frn[mt][h], __fadd_rn(acc[mt][i], kx[j][e]))), g);
-            cnt[mt][2 * j + h] += lb < 0.5f * BIG ? 1 << (16 * e) : 0;
+            off.add(mt, j, h, e, lb < 0.5f * BIG);
             if (lb < bval[mt][i]) {
               bval[mt][i] = lb;
               bidx[mt][i] = n;
@@ -151,8 +149,10 @@ bin_scan_kernel(const int8_t* __restrict__ plane,    // [n_tiles * TN, d]
         }
       }
     }
+    off.tile_done(offered, q0);
     walk.next();
   }
+  off.flush(offered, q0);
 
   const int l_bins = GROUPS * TN;
 #pragma unroll
@@ -168,8 +168,6 @@ bin_scan_kernel(const int8_t* __restrict__ plane,    // [n_tiles * TN, d]
           const int qq = q0 + frag_query(j, e);
           out_val[(int64_t)qq * l_bins + group * TN + u] = bval[mt][i];
           out_idx[(int64_t)qq * l_bins + group * TN + u] = bidx[mt][i];
-          const int seen = (cnt[mt][2 * j + h] >> (16 * e)) & 0xFFFF;
-          if (seen) atomicAdd(&offered[qq * 128 + (u & 127)], seen);
         }
       }
     }

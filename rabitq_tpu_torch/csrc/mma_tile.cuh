@@ -1,9 +1,11 @@
-// Tensor-core tile of the two bin scans: <codes, q> for a block of RU = 128
-// stored rows x QB = 32 queries, on Hopper's warpgroup matrix multiply
+// Tensor-core tile of the scans: <codes, q> for a block of RU = 128 stored
+// rows x QB = 32 queries, on Hopper's warpgroup matrix multiply
 // (wgmma.mma_async, sm_90a), shared by fused_bin_scan.cu (the int8 TOTAL plane
-// against an f32 query) and packed_bin_scan.cu (1-bit planes against a bf16
-// or an int8 query). It takes the place of the TPU kernels' MXU dots in
-// rabitq_tpu/ops/pallas_fused_scan.py (_tile_update).
+// against an f32 query), packed_bin_scan.cu (1-bit planes against a bf16 or an
+// int8 query) and packed_lb_scan.cu (1-bit planes against a bf16 query, no
+// bins). It takes the place of the TPU kernels' MXU dots in
+// rabitq_tpu/ops/pallas_fused_scan.py (_tile_update) and
+// rabitq_tpu/ops/pallas_scan.py (_lb_kernel).
 //
 // Bound on the H100: operations at the tensor rate; the CUDA-core register
 // tiles this replaces sat 30-50x above it. What holds this tile 3-9x above
@@ -223,18 +225,69 @@ __device__ __forceinline__ int frag_query(int j, int e) {
   return j * 8 + (threadIdx.x & 3) * 2 + e;
 }
 
+// ---------------------------------------------------------------- offered
+
+// The bin scans' offered counts: rows with a lower bound below BIG / 2, per
+// query and row slot u % 128 of the block's fragment. Two queries (e = 0, 1)
+// share a word, 16 bits each. A walk adds at most one a tile to each count,
+// so the counts go to `offered` (atomics) every FLUSH_TILES walked tiles,
+// before a half can pass 65535, and once when the walk ends.
+constexpr int FLUSH_TILES = 32768;
+
+struct Offered {
+  int cnt[2][8];  // [mt][2j + h]
+  int since;      // tiles walked since the last flush
+
+  __device__ __forceinline__ Offered() : since(0) {
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) cnt[mt][i] = 0;
+    }
+  }
+  __device__ __forceinline__ void add(int mt, int j, int h, int e, bool yes) {
+    cnt[mt][2 * j + h] += yes ? 1 << (16 * e) : 0;
+  }
+  // after each walked tile
+  __device__ __forceinline__ void tile_done(int* offered, int q0) {
+    if (++since == FLUSH_TILES) flush(offered, q0);
+  }
+  // offered: [bp, 128]; the block's row slots r0 + frag_row are 128-aligned
+  __device__ __forceinline__ void flush(int* offered, int q0) {
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int seen = (cnt[mt][2 * j + h] >> (16 * e)) & 0xFFFF;
+            if (seen) atomicAdd(&offered[(q0 + frag_query(j, e)) * 128 + frag_row(mt, h)], seen);
+          }
+          cnt[mt][2 * j + h] = 0;
+        }
+      }
+    }
+    since = 0;
+  }
+};
+
 // ---------------------------------------------------------------- the walk
 
-// A block's walk over its tiles and the dot of each tile. `codes` is
-// [n_tiles * TN, row_bytes] (int8 columns or packed bytes), `q_image` the
+// A block's walk over its tiles and the dot of each tile. A tile is
+// TILE_ROWS rows of `codes` ([n_tiles * TILE_ROWS, row_bytes], int8 columns or
+// packed bytes), of which the block takes rows r0 .. r0 + RU; `q_image` is the
 // query image of this block's QB queries: row_bytes / CODE_BYTES stages of
-// Q_BYTES each. Dense walk (list == nullptr): tiles group, group + GROUPS, ...
-// Compacted walk: the entries of `list` in order, those skipped that lie
-// outside [0, n_tiles) or in another group.
+// Q_BYTES each. Dense walk (list == nullptr): tiles group, group + STRIDE, ...
+// (the bin scans: one bin group of TN-row tiles; the lower-bound scan: a run
+// of consecutive RU-row tiles). Compacted walk (bin scans): the entries of
+// `list` in order, those skipped that lie outside [0, n_tiles) or in another
+// group.
 //
 //   Walk<MODE> w(...);              // starts the first loads
 //   while (w.valid()) { t = w.tile(); w.dot(acc); ...epilogue...; w.next(); }
-template <int MODE>
+template <int MODE, int TILE_ROWS = TN, int STRIDE = GROUPS>
 class Walk {
   using G = Geo<MODE>;
   using acc_t = typename Acc<MODE>::type;
@@ -331,7 +384,7 @@ class Walk {
 
  private:
   __device__ __forceinline__ int tile_at(int s) const {
-    if (list_ == nullptr) return group_ + s * GROUPS;
+    if (list_ == nullptr) return group_ + s * STRIDE;
     const int t = list_[s];  // uniform across the block
     return (t < 0 || t >= n_tiles_ || t % GROUPS != group_) ? -1 : t;
   }
@@ -366,7 +419,7 @@ class Walk {
         cp_async16(dst + id * 16, gq + id * 16);
       }
       constexpr int UNITS = G::CODE_BYTES / 16;  // 16-byte units a row
-      const uint8_t* gc = codes_ + ((int64_t)tile_at(p_s_) * TN + r0_) * row_bytes_ +
+      const uint8_t* gc = codes_ + ((int64_t)tile_at(p_s_) * TILE_ROWS + r0_) * row_bytes_ +
                           (int64_t)p_c_ * G::CODE_BYTES;
 #pragma unroll
       for (int l = 0; l < RU * UNITS / THREADS; ++l) {

@@ -69,7 +69,6 @@ packed_bin_scan_kernel(const uint8_t* __restrict__ packed,  // [n_tiles * TN, db
   // bins, indexed like the accumulators: [mt][4j + 2h + e]
   float bval[2][16];
   int bidx[2][16];
-  int cnt[2][8];  // offered counts of queries e = 0, 1 in the two halves of a word
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
@@ -77,9 +76,8 @@ packed_bin_scan_kernel(const uint8_t* __restrict__ packed,  // [n_tiles * TN, db
       bval[mt][i] = BIG;
       bidx[mt][i] = -1;
     }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) cnt[mt][i] = 0;
   }
+  Offered off;
   float kx[4][2];
   float qsc[4][2];
 #pragma unroll
@@ -166,7 +164,7 @@ packed_bin_scan_kernel(const uint8_t* __restrict__ packed,  // [n_tiles * TN, db
                 inwin ? __fadd_rn(g1v[j][e], __fmul_rn(nfe, g2v[j][e])) : 0.0f;
             const float lb = __fadd_rn(
                 __fadd_rn(fan[mt][h], __fmul_rn(frn[mt][h], __fadd_rn(dot, kx[j][e]))), g);
-            cnt[mt][2 * j + h] += lb < 0.5f * BIG ? 1 << (16 * e) : 0;
+            off.add(mt, j, h, e, lb < 0.5f * BIG);
             if (lb < bval[mt][i]) {
               bval[mt][i] = lb;
               bidx[mt][i] = n;
@@ -175,8 +173,10 @@ packed_bin_scan_kernel(const uint8_t* __restrict__ packed,  // [n_tiles * TN, db
         }
       }
     }
+    off.tile_done(offered, q0);
     walk.next();
   }
+  off.flush(offered, q0);
 
   const int l_bins = GROUPS * TN;
 #pragma unroll
@@ -192,8 +192,6 @@ packed_bin_scan_kernel(const uint8_t* __restrict__ packed,  // [n_tiles * TN, db
           const int qq = q0 + frag_query(j, e);
           out_val[(int64_t)qq * l_bins + group * TN + u] = bval[mt][i];
           out_idx[(int64_t)qq * l_bins + group * TN + u] = bidx[mt][i];
-          const int seen = (cnt[mt][2 * j + h] >> (16 * e)) & 0xFFFF;
-          if (seen) atomicAdd(&offered[qq * 128 + (u & 127)], seen);
         }
       }
     }

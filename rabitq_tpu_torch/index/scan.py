@@ -10,8 +10,9 @@ Per query block, :func:`scan_kernel` ranks the centroids, marks the first
   bin kernel reduces 1-bit lower bounds into bins, the best ``rerank`` bins
   are the survivors, and :func:`_stage2_rerank` re-scores them exactly;
 * dense (``scan_dtype`` "f32"/"bf16"/"int8"/"packed"): a ``[B, Np]`` plane
-  of 1-bit lower bounds (a matrix product, or the packed lower-bound kernel),
-  a top-``rerank`` survivor selection over it, then the same stage 2.
+  of 1-bit lower bounds (a matrix product and torch ops, or for "packed" the
+  packed lower-bound kernel with the g terms and masks in its epilogue), a
+  top-``rerank`` survivor selection over it, then the same stage 2.
 
 The products, gathers and selections outside the kernels are torch ops, as
 they are XLA ops in the reference.
@@ -24,7 +25,7 @@ import torch
 
 from ..ops import estimator as est_ops
 from ..ops.fused_scan import BIG, fused_select
-from ..ops.packed_scan import packed_lb_scan, permute_query
+from ..ops.packed_scan import packed_lb_plane, permute_query
 from ..types import Metric
 
 SCAN_DTYPES = ("f32", "bf16", "int8", "packed", "fused", "fused8")
@@ -278,35 +279,40 @@ def scan_kernel(
             return (*result, torch.stack([probed, torch.zeros_like(probed), probed], dim=1))
         return (*result, _diagnostics(probed, cand_ok, ex_bits, refine_ex))
 
-    # --- stage 1: dense 1-bit estimate for every row; the [B, Np] g planes
-    # are bf16 except on the f32 oracle path
-    g_dtype = torch.float32 if scan_dtype == "f32" else torch.bfloat16
-    g_add_rows = g_add.to(g_dtype).index_select(1, cluster_of)
-    g_err_rows = g_error.to(g_dtype).index_select(1, cluster_of)
-    allowed = probe_mask.index_select(1, cluster_of) & row_allowed[None, :]
+    # --- stage 1: dense 1-bit estimate for every row, as the [B, Np] plane of
+    # -lb the survivor selection takes: -inf where a row is not allowed, +inf
+    # where lb is not finite (non-finite lower bounds never prune,
+    # ivf.rs:2031-2042)
     if scan_dtype == "packed":
         if packed is None:
             raise ValueError("scan_dtype='packed' needs the packed plane")
-        g_comb = (g_add_rows - f_error[None, :] * g_err_rows).to(torch.bfloat16)
-        lb = packed_lb_scan(
+        # one kernel from the g terms and masks to the bf16 plane
+        neg_lb = packed_lb_plane(
             packed, permute_query(q_rot, q_rot.shape[1]).contiguous(), f_add, f_rescale,
-            qc.k1x_sum_q.contiguous(), g_comb,
-        ).to(torch.float32)
+            qc.k1x_sum_q.contiguous(), g_add, g_error, f_error, cluster_of, probe_mask,
+            row_allowed,
+        )
+        if not approx_topk:
+            neg_lb = neg_lb.to(torch.float32)
     else:
         if binary is None:
             raise ValueError("the dense scan needs the binary plane")
+        # the [B, Np] g planes are bf16 except on the f32 oracle path
+        g_dtype = torch.float32 if scan_dtype == "f32" else torch.bfloat16
+        g_add_rows = g_add.to(g_dtype).index_select(1, cluster_of)
+        g_err_rows = g_error.to(g_dtype).index_select(1, cluster_of)
+        allowed = probe_mask.index_select(1, cluster_of) & row_allowed[None, :]
         bdot = _stage1_dots(q_rot, binary, scan_dtype)
         est = est_ops.est_1bit(
             f_add[None, :], g_add_rows, f_rescale[None, :], bdot, qc.k1x_sum_q[:, None]
         )
         lb = est_ops.lower_bound(est, f_error[None, :], g_err_rows)
-    # non-finite lower bounds never prune (ivf.rs:2031-2042)
-    lb = torch.where(torch.isfinite(lb), lb, -float("inf"))
-    neg_lb = torch.where(allowed, -lb, -float("inf"))
+        lb = torch.where(torch.isfinite(lb), lb, -float("inf"))
+        neg_lb = torch.where(allowed, -lb, -float("inf"))
+        if approx_topk:
+            neg_lb = neg_lb.to(torch.bfloat16)
 
     # --- survivor selection: a fixed-size replacement of the heap prune
-    if approx_topk:
-        neg_lb = neg_lb.to(torch.bfloat16)
     top_neg, cand_idx = torch.topk(neg_lb, rerank, dim=1)
     cand_ok = top_neg.to(torch.float32) > -float("inf")
     cand_idx = cand_idx.to(torch.int32)
@@ -318,7 +324,13 @@ def scan_kernel(
     )
     if not with_diagnostics:
         return result
-    probed = allowed.sum(dim=1, dtype=torch.int32)
+    if scan_dtype == "packed":
+        # allowed rows per cluster, summed over each query's probed clusters
+        per_cluster = torch.zeros(n_clusters, dtype=torch.int64, device=q_rot.device)
+        per_cluster.index_add_(0, cluster_of.to(torch.int64), row_allowed.to(torch.int64))
+        probed = (probe_mask.to(torch.int64) * per_cluster[None, :]).sum(dim=1).to(torch.int32)
+    else:
+        probed = allowed.sum(dim=1, dtype=torch.int32)
     return (*result, _diagnostics(probed, cand_ok, ex_bits, refine_ex))
 
 

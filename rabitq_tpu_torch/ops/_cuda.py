@@ -1,6 +1,6 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each source ``csrc/<name>.cu`` exposes a plain C entry point. It is compiled
+Each source ``csrc/<name>.cu`` exposes plain C entry points. It is compiled
 at first use with ``nvcc`` for ``sm_90a`` into ``_build/lib<name>-<hash>.so``
 (the hash is of the source and the shared headers ``csrc/*.cuh``, so an
 edited kernel rebuilds) and loaded with ``ctypes``; no PyTorch headers are involved, so a build takes seconds.
@@ -29,18 +29,20 @@ SOURCES = ("fht", "fused_bin_scan", "packed_bin_scan", "packed_lb_scan")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# argtypes of each C entry point, in order
+_L = ctypes.c_longlong
+# entry point -> (source, C symbol, argtypes in order)
 _SIGNATURES = {
-    "fht": ("rabitq_fht", (_P, _P, _I, _I, _P)),
-    "fused_bin_scan": (
-        "rabitq_bin_scan",
-        (_P,) * 13 + (_I,) * 6 + (_P,),
-    ),
+    "fht": ("fht", "rabitq_fht", (_P, _P, _L, _I, _P)),
+    "fused_bin_scan": ("fused_bin_scan", "rabitq_bin_scan", (_P,) * 13 + (_I,) * 6 + (_P,)),
     "packed_bin_scan": (
-        "rabitq_packed_bin_scan",
-        (_P,) * 16 + (_I,) * 7 + (_P,),
+        "packed_bin_scan", "rabitq_packed_bin_scan", (_P,) * 16 + (_I,) * 7 + (_P,),
     ),
-    "packed_lb_scan": ("rabitq_packed_lb_scan", (_P,) * 7 + (_I,) * 3 + (_P,)),
+    "packed_lb_scan": (
+        "packed_lb_scan", "rabitq_packed_lb_scan", (_P,) * 7 + (_L, _I, _I, _P),
+    ),
+    "packed_lb_plane": (
+        "packed_lb_scan", "rabitq_packed_lb_plane", (_P,) * 11 + (_L, _I, _I, _I, _P),
+    ),
 }
 
 _entries: dict = {}  # kernel name -> (library, entry point)
@@ -132,14 +134,14 @@ def ptxas_report(log: str) -> list[dict]:
 
 
 def entry(name: str):
-    """The C entry point of kernel ``name`` (built first if needed), with
+    """The C entry point ``name`` (its source built first if needed), with
     its argtypes set."""
     with _lock:
         loaded = _entries.get(name)
         if loaded is None:
-            build_all((name,))
-            symbol, argtypes = _SIGNATURES[name]
-            lib = ctypes.CDLL(str(library_path(name)))
+            source, symbol, argtypes = _SIGNATURES[name]
+            build_all((source,))
+            lib = ctypes.CDLL(str(library_path(source)))
             fn = getattr(lib, symbol)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
@@ -148,14 +150,24 @@ def entry(name: str):
 
 
 def dynamic_shared_memory(name: str, *args: int) -> int:
-    """Dynamic shared memory (bytes) a block of bin-scan kernel ``name``
-    takes, as its library says (``<entry point>_smem_bytes``; ``args`` are
-    that getter's int arguments, e.g. whether the query is int8)."""
+    """Dynamic shared memory (bytes) a block of the tensor-core kernel behind
+    entry point ``name`` takes, as its library says (``<C symbol>_smem_bytes``;
+    ``args`` are that getter's int arguments, e.g. whether the query is int8)."""
     entry(name)
-    fn = getattr(_entries[name][0], _SIGNATURES[name][0] + "_smem_bytes")
+    fn = getattr(_entries[name][0], _SIGNATURES[name][1] + "_smem_bytes")
     fn.argtypes = [_I] * len(args)
     fn.restype = _I
     return fn(*args)
+
+
+def check_inputs(want, device, what: str) -> None:
+    """Raise unless every ``(tensor, dtype)`` of ``want`` is a contiguous
+    tensor of that dtype on CUDA device ``device``."""
+    for t, dtype in want:
+        if not t.is_cuda or t.device != device:
+            raise ValueError(f"{what} inputs must all lie on one CUDA device")
+        if t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{what} needs contiguous {dtype}, got {t.dtype}")
 
 
 def check_launch(err: int, what: str) -> None:

@@ -15,8 +15,6 @@ import torch
 
 from . import _cuda
 
-SEGMENT = 8192  # longest run the kernel stages in shared memory (kSegment in csrc/fht.cu)
-
 
 def _log2(n: int) -> int:
     if n <= 0 or n & (n - 1):
@@ -53,21 +51,21 @@ def fht_np(x: np.ndarray) -> np.ndarray:
 
 def fht_supported(n: int) -> bool:
     """Whether the kernel takes rows of length ``n``: any power of two (rows
-    longer than ``SEGMENT`` finish their last stages in device memory)."""
+    longer than 32768 finish their last stages in device memory)."""
     return n >= 1 and n & (n - 1) == 0
 
 
 def fht_kernel(x: torch.Tensor) -> torch.Tensor:
-    """The CUDA kernel on a contiguous f32 CUDA tensor ``[..., n]``.
-    ``fht_kernel.launches`` counts its launches."""
+    """The CUDA kernel on a contiguous f32 CUDA tensor ``[..., n]`` of any
+    size. ``fht_kernel.launches`` counts its launches."""
     n = x.shape[-1]
     if not x.is_cuda:
         raise ValueError("fht_kernel needs a CUDA tensor")
     if x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError("fht_kernel needs a contiguous float32 tensor")
     _log2(n)
-    if x.numel() >= 1 << 31:
-        raise ValueError("fht_kernel takes fewer than 2**31 elements a call")
+    if x.data_ptr() % 16:
+        x = x.clone()  # the kernel reads rows as 16-byte vectors
     out = torch.empty_like(x)
     rows = x.numel() // n
     if rows:

@@ -416,21 +416,10 @@ def query_image(q: torch.Tensor, mode: str, width: int) -> torch.Tensor:
     return torch.index_select(slab, 1, idx)
 
 
-def _check_cuda_inputs(want, device) -> None:
-    for t, dtype in want:
-        if not t.is_cuda or t.device != device:
-            raise ValueError("bin scan inputs must all lie on one CUDA device")
-        if t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(f"bin scan needs contiguous {dtype}, got {t.dtype}")
-
-
-def _check_cuda_batch(bq: int, tiles, n_tiles: int) -> int:
-    """The kernels' batch and walk-length rules; returns the queries per
-    tile list."""
-    # a block counts the rows it offers per (row slot, query) in 16 bits
-    walk = tiles.shape[1] if tiles is not None else -(-n_tiles // GROUPS)
-    if walk > 0xFFFF:
-        raise ValueError(f"bin scan walks at most 65535 tiles a block, got {walk}")
+def _check_cuda_batch(bq: int, tiles) -> int:
+    """The kernels' batch rules; returns the queries per tile list. (A walk
+    of any length is served: a block flushes its 16-bit offered counters
+    before they can overflow.)"""
     if bq % _KERNEL_QB:
         raise ValueError(f"bin scan needs a batch that is a multiple of {_KERNEL_QB}")
     tb = bq // tiles.shape[0] if tiles is not None else bq
@@ -455,10 +444,10 @@ def fused_bin_scan_cuda(
     )
     if tiles is not None:
         want += ((tiles, torch.int32), (tcount, torch.int32))
-    _check_cuda_inputs(want, plane.device)
+    _cuda.check_inputs(want, plane.device, "bin scan")
     if d % 64 or plane.data_ptr() % 16 or q.data_ptr() % 16:
         raise ValueError("bin scan needs D % 64 == 0 and 16-byte aligned planes")
-    tb = _check_cuda_batch(bq, tiles, n // TN)
+    tb = _check_cuda_batch(bq, tiles)
     val = torch.empty((bq, n_bins()), dtype=torch.float32, device=q.device)
     idx = torch.empty((bq, n_bins()), dtype=torch.int32, device=q.device)
     offered = torch.zeros((bq, 128), dtype=torch.int32, device=q.device)
@@ -506,10 +495,10 @@ def fused_bin_scan_packed_cuda(
         want += ((q_scale, torch.float32),)
     if tiles is not None:
         want += ((tiles, torch.int32), (tcount, torch.int32))
-    _check_cuda_inputs(want, plane.device)
+    _cuda.check_inputs(want, plane.device, "bin scan")
     if db % 128 or q.shape[1] != 8 * db or plane.data_ptr() % 16 or q.data_ptr() % 16:
         raise ValueError("packed bin scan needs Db % 128 == 0, q 8 * Db wide, 16-byte aligned")
-    tb = _check_cuda_batch(bq, tiles, n // TN)
+    tb = _check_cuda_batch(bq, tiles)
     val = torch.empty((bq, n_bins()), dtype=torch.float32, device=q.device)
     idx = torch.empty((bq, n_bins()), dtype=torch.int32, device=q.device)
     offered = torch.zeros((bq, 128), dtype=torch.int32, device=q.device)

@@ -227,12 +227,16 @@ def test_ptxas_report_reads_registers_and_spills():
 
 
 def test_kernel_limits_are_checked_before_a_launch():
-    """The kernels count offered rows in 16 bits per walk."""
-    assert tfs._check_cuda_batch(64, None, 65535 * tfs.GROUPS) == 64
+    """The kernels take a walk of any length (a block flushes its 16-bit
+    offered counters before they can overflow) but need whole 32-query
+    blocks, also per tile list."""
+    assert tfs._check_cuda_batch(64, None) == 64
     with pytest.raises(ValueError):
-        tfs._check_cuda_batch(64, None, 65535 * tfs.GROUPS + 1)
+        tfs._check_cuda_batch(48, None)
     with pytest.raises(ValueError):
-        tfs._check_cuda_batch(48, None, 16)
+        tfs._check_cuda_batch(96, torch.zeros((2, 16), dtype=torch.int32))  # 48-query lists
+
+
+def test_check_cuda_batch_takes_lists_longer_than_16_bits():
     tiles = torch.zeros((2, 70000), dtype=torch.int32)
-    with pytest.raises(ValueError):
-        tfs._check_cuda_batch(64, tiles, 100)
+    assert tfs._check_cuda_batch(64, tiles) == 32

@@ -11,9 +11,9 @@ Tolerances: the FHT is bitwise equal; ``offered`` equal; ``bins_idx``
 another order, and its terms (~1e3 here, scaled by f_rescale) leave ~1e-4
 absolute noise on distances that cancel to near zero. The packed bin scan
 with an int8 query has an exact dot: values rtol 1e-6. The packed
-lower-bound plane is bf16: every entry within one bf16 ulp of the plain
-version's (a reordered f32 sum can move a value across a rounding
-boundary) and >= 99% bitwise equal.
+lower-bound planes are bf16: +-inf entries equal, every finite entry within
+one bf16 ulp of the plain version's (a reordered f32 sum can move a value
+across a rounding boundary) and >= 99% bitwise equal.
 """
 
 from __future__ import annotations
@@ -55,6 +55,31 @@ def test_fht_kernel_limits(cuda):
         fht_kernel(torch.zeros((2, 96), device=cuda))
     with pytest.raises(ValueError):
         fht_kernel(torch.zeros((4, 256), device=cuda)[:, :128])  # not contiguous
+
+
+@pytest.mark.parametrize("log_n", range(18))
+def test_fht_kernel_bitwise_every_length(cuda, log_n):
+    n = 1 << log_n
+    rows = 3 if n > 8192 else 37
+    x = torch.randn((rows, n), device=cuda, generator=torch.Generator(device=cuda).manual_seed(n))
+    assert torch.equal(fht_kernel(x), fht_plain(x))
+
+
+def test_fht_kernel_takes_more_than_2_31_elements(cuda):
+    """8 GiB in and 8 GiB out in one call; checked against the plain version
+    a slice at a time."""
+    n = 512
+    rows = (1 << 31) // n + 8
+    x = torch.empty((rows, n), device=cuda)
+    step = 1 << 20
+    g = torch.Generator(device=cuda).manual_seed(3)
+    for s in range(0, rows, step):
+        x[s : s + step].normal_(generator=g)
+    y = fht_kernel(x)
+    for s in range(0, rows, step):
+        assert torch.equal(y[s : s + step], fht_plain(x[s : s + step]))
+    del x, y
+    torch.cuda.empty_cache()
 
 
 def _bin_inputs(device, bq, n_tiles=24, d=256, c=300, seed=0):
@@ -208,6 +233,27 @@ def test_bin_scan_kernels_first_row_wins_a_tie(cuda, compact, mode):
     torch.testing.assert_close(kv[filled], pv[filled], rtol=1e-5, atol=1e-3)
 
 
+@pytest.mark.parametrize("mode", ["direct", "int8"])
+def test_bin_scan_offered_counts_past_16_bits(cuda, mode):
+    """A compacted list of 70000 slots that all name tile 0: the blocks of
+    its bin group walk the tile 70000 times, so each offered count passes
+    65535. The kernels flush their 16-bit counters inside the walk; the plain
+    version walks every slot too."""
+    n_tiles, bq, slots = 16, 32, 70000
+    x = _bin_inputs(cuda, bq, n_tiles=n_tiles, c=1) if mode == "direct" else _packed_inputs(
+        cuda, bq, True, n_tiles=n_tiles, c=1)
+    x["g1"][:, 0] = 25.0  # every query probes the one cluster
+    tiles = torch.zeros((1, slots), dtype=torch.int32, device=cuda)
+    tcount = torch.tensor([slots], dtype=torch.int32, device=cuda)
+    args = (x["plane"], x["q"], x["fa"], x["fr"], x["cl"], x["k1x"], x["g1"], x["c_blk"],
+            tiles, tcount)
+    kw = {} if mode == "direct" else dict(f_error=x["fe"], g2=x["g2"], q_scale=x["q_scale"])
+    kv, ki, ko = fs.fused_bin_scan(*args, **kw)
+    pv, pi, po = fs.fused_bin_scan_plain(*args, **kw)
+    assert int(ko.max()) > 0xFFFF
+    _assert_bins_match((kv, ki, ko), (pv, pi, po), exact_dot=mode == "int8")
+
+
 def _packed_inputs(device, bq, int8_q, db=128, seed=0, **geometry):
     """Packed-mode inputs over the geometry of ``_bin_inputs``: bit planes,
     a bit-plane-ordered query (bf16, or int8 with its scale), f_error and g2."""
@@ -285,6 +331,71 @@ def test_packed_lb_scan_kernel_matches_plain(cuda, b):
     assert float((gotf == want).float().mean()) >= 0.99
 
 
+def _lb_plane_inputs(device, n, b, c=300, seed=0):
+    """Stage-1 inputs of the "packed" scan in the permuted layout (rows of
+    random clusters), with filtered rows, unprobed clusters and non-finite g
+    terms in probed clusters."""
+    rng = np.random.default_rng(seed)
+    db = 128
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    q = rng.normal(size=(b, 8 * db)).astype(np.float32)
+    g_add = (rng.normal(size=(b, c)) * 30).astype(np.float32)
+    g_err = (np.abs(rng.normal(size=(b, c))) * 4).astype(np.float32)
+    probe = rng.random((b, c)) < 0.3
+    g_add[b // 2, 7] = np.inf
+    g_err[b - 1, 11] = np.nan
+    probe[b // 2, 7] = probe[b - 1, 11] = True
+    cl = rng.integers(0, c, n).astype(np.int32)
+    cl[:64] = 7  # rows of the clusters with non-finite terms
+    cl[64:128] = 11
+    return (
+        t(rng.integers(0, 256, (n, db)).astype(np.uint8)), t(q).to(torch.bfloat16),
+        t(rng.normal(size=n).astype(np.float32) * 10),
+        t(rng.normal(size=n).astype(np.float32) * 0.05), t(-0.5 * q.sum(1)), t(g_add), t(g_err),
+        t(np.abs(rng.normal(size=n)).astype(np.float32) * 0.4), t(cl), t(probe),
+        t(rng.random(n) > 0.1),
+    )
+
+
+def _assert_plane_matches(got, want):
+    """+-inf entries equal, finite ones within one bf16 ulp, >= 99% equal."""
+    got, want = got.float(), want.float()
+    inf = torch.isinf(want)
+    assert torch.equal(torch.isinf(got), inf) and torch.equal(got[inf], want[inf])
+    fin = ~inf
+    assert bool(((got[fin] - want[fin]).abs() <= 2.0 ** -7 * want[fin].abs() + 1e-3).all())
+    assert float((got[fin] == want[fin]).float().mean()) >= 0.99
+
+
+@pytest.mark.parametrize("n", [128, 4096 + 128, 65536 + 384])
+@pytest.mark.parametrize("b", [8, 40, 300])
+def test_packed_lb_plane_kernel_matches_plain(cuda, n, b):
+    args = _lb_plane_inputs(cuda, n, b, seed=n + b)
+    before = ps.packed_lb_plane_cuda.launches
+    got = ps.packed_lb_plane(*args)
+    assert ps.packed_lb_plane_cuda.launches == before + 1
+    assert got.shape == (b, n) and got.dtype == torch.bfloat16
+    want = ps.packed_lb_plane_plain(*args)
+    assert bool((want == float("inf")).any()) and bool((want == -float("inf")).any())
+    _assert_plane_matches(got, want)
+
+
+@pytest.mark.parametrize("n", [128, 65536 + 384])
+@pytest.mark.parametrize("b", [32, 96])
+def test_packed_lb_scan_kernel_special_values(cuda, n, b):
+    """G_PLANE on a g_comb built as the "packed" scan builds it, with its
+    non-finite entries: the TPU contract passes them through unmasked."""
+    packed, q, fa, fr, k1x, g_add, g_err, fe, cl, _, _ = _lb_plane_inputs(cuda, n, b, seed=n)
+    g_comb = (g_add.to(torch.bfloat16)[:, cl] - fe[None, :] * g_err.to(torch.bfloat16)[:, cl])
+    g_comb = g_comb.to(torch.bfloat16)
+    got = ps.packed_lb_scan(packed, q, fa, fr, k1x, g_comb)
+    want = ps.packed_lb_scan_plain(packed, q, fa, fr, k1x, g_comb)
+    assert bool(torch.isnan(want.float()).any()) and bool(torch.isinf(want.float()).any())
+    nan = torch.isnan(want.float())
+    assert torch.equal(torch.isnan(got.float()), nan)
+    _assert_plane_matches(torch.where(nan, 0.0, got.float()), torch.where(nan, 0.0, want.float()))
+
+
 def test_index_on_the_card_matches_the_cpu(cuda):
     rng = np.random.default_rng(1)
     data = rng.standard_normal((4000, 200)).astype(np.float32)
@@ -305,7 +416,8 @@ def test_index_on_the_card_matches_the_cpu(cuda):
 @pytest.mark.parametrize("scan_dtype", ["fused8", "fused", "packed", "bf16", "int8", "f32"])
 def test_8bit_index_on_the_card_matches_the_cpu(cuda, scan_dtype):
     """total_bits=8 keeps raw ex codes, so the fused scans run two-stage
-    (the packed bin kernel) and "packed" runs the lower-bound kernel."""
+    (the packed bin kernel) and "packed" runs the lower-bound kernel (its
+    G_TABLE epilogue)."""
     rng = np.random.default_rng(2)
     data = rng.standard_normal((4000, 200)).astype(np.float32)
     cents = data[:40].copy()
@@ -315,7 +427,7 @@ def test_8bit_index_on_the_card_matches_the_cpu(cuda, scan_dtype):
     cpu = IvfRabitqIndex.train_with_clusters(data, cents, assign, 8, device="cpu", **kw)
     assert not gpu._fused_exact_ok()
     counters = fs.fused_bin_scan_packed_cuda.launches
-    before = sum(counters.values()) + ps.packed_lb_scan_cuda.launches
+    before = sum(counters.values()) + ps.packed_lb_plane_cuda.launches
     for nprobe in (2, 40):
         params = SearchParams(top_k=10, nprobe=nprobe)
         g_ids, g_d = gpu.batch_search_arrays_pipelined(data[:64], params, batch_size=32)
@@ -323,7 +435,7 @@ def test_8bit_index_on_the_card_matches_the_cpu(cuda, scan_dtype):
         overlap = np.mean([len(set(g_ids[i]) & set(c_ids[i])) / 10 for i in range(64)])
         assert overlap >= 0.98
         assert np.all(g_ids[:, 0] == np.arange(64))
-    after = sum(counters.values()) + ps.packed_lb_scan_cuda.launches
+    after = sum(counters.values()) + ps.packed_lb_plane_cuda.launches
     assert (after > before) == (scan_dtype in ("fused8", "fused", "packed"))
     if scan_dtype == "fused8":
         gpu.scan_dtype = "packed"  # re-laid on the card from the sorted layout

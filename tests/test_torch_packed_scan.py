@@ -95,3 +95,105 @@ def test_est_1bit_and_lower_bound_match_jax():
     j_lb = jest.lower_bound(j_est, jnp.asarray(f_err), jnp.asarray(g_err))
     t_lb = t_est_ops.lower_bound(t_est, torch.from_numpy(f_err), torch.from_numpy(g_err))
     np.testing.assert_allclose(t_lb.numpy(), np.asarray(j_lb), rtol=1e-6, atol=1e-5)
+
+
+def _plane_inputs(seed, n, d, b, c=12):
+    """Inputs of the "packed" scan's stage 1 in the permuted layout: rows of
+    random clusters, some rows filtered out, some clusters not probed, and
+    non-finite g terms (an inf g_add, a NaN g_error) in probed clusters."""
+    x = _inputs(seed, n, d, b)
+    rng = np.random.default_rng(seed + 1)
+    x["cluster_of"] = rng.integers(0, c, n).astype(np.int32)
+    x["row_allowed"] = rng.random(n) > 0.1
+    x["probe_mask"] = rng.random((b, c)) < 0.4
+    x["g_add"] = (rng.standard_normal((b, c)) * 30).astype(np.float32)
+    x["g_error"] = (np.abs(rng.standard_normal((b, c))) * 4).astype(np.float32)
+    x["f_error"] = (np.abs(rng.standard_normal(n)) * 0.5).astype(np.float32)
+    x["g_add"][3, 5] = np.inf
+    x["g_error"][b - 1, 2] = np.nan
+    x["probe_mask"][3, 5] = x["probe_mask"][b - 1, 2] = True
+    return x
+
+
+def _plane_args(x, d):
+    t = torch.from_numpy
+    return (
+        tps.pack_bitplanes(t(x["binary"]), d), tps.permute_query(t(x["q"]), d), t(x["f_add"]),
+        t(x["f_rescale"]), t(x["k1x"]), t(x["g_add"]), t(x["g_error"]), t(x["f_error"]),
+        t(x["cluster_of"]), t(x["probe_mask"]), t(x["row_allowed"]),
+    )
+
+
+# batches of 40 and 8 are no multiple of the kernel's 32-query block
+@pytest.mark.parametrize("n,d,b", [(384, 256, 40), (256, 960, 8)])
+def test_packed_lb_plane_matches_jax_caller(n, d, b):
+    """The port's stage-1 plane against the JAX package's packed_lb_scan
+    (interpret mode) and its caller's glue (rabitq_tpu/index/scan.py, the
+    "packed" branch): the port returns -masked_lb. +-inf entries exactly
+    equal, finite ones within one bf16 ulp and >= 99% equal."""
+    x = _plane_inputs(n + b, n, d, b)
+    j = {k: jnp.asarray(v) for k, v in x.items()}
+    g_add_rows = jnp.take(j["g_add"].astype(jnp.bfloat16), j["cluster_of"], axis=1)
+    g_err_rows = jnp.take(j["g_error"].astype(jnp.bfloat16), j["cluster_of"], axis=1)
+    allowed = jnp.take(j["probe_mask"], j["cluster_of"], axis=1) & j["row_allowed"][None, :]
+    g_comb = (g_add_rows - j["f_error"][None, :] * g_err_rows).astype(jnp.bfloat16)
+    lb16 = jps.packed_lb_scan(
+        jps.pack_bitplanes(j["binary"], d), jps.permute_query(j["q"], d), j["f_add"],
+        j["f_rescale"], j["k1x"], g_comb,
+    )
+    lb_f = lb16.astype(jnp.float32)
+    lb_f = jnp.where(jnp.isfinite(lb_f), lb_f, -jnp.inf)
+    want = -np.asarray(jnp.where(allowed, lb_f, jnp.inf))
+    got_bf16 = tps.packed_lb_plane(*_plane_args(x, d))
+    assert got_bf16.shape == (b, n) and got_bf16.dtype == torch.bfloat16
+    got = got_bf16.float().numpy()
+    inf = np.isinf(want)
+    assert np.array_equal(np.isinf(got), inf) and np.array_equal(got[inf], want[inf])
+    assert (want == np.inf).any() and (want == -np.inf).any() and (~inf).any()
+    fin = ~inf
+    assert np.all(np.abs(got[fin] - want[fin]) <= 2.0 ** -7 * np.abs(want[fin]) + 1e-3)
+    assert np.mean(got[fin] == want[fin]) >= 0.99
+
+
+def test_packed_lb_plane_plain_is_the_chain_of_ops():
+    """packed_lb_plane_plain is bitwise the chain of eager ops the port's
+    "packed" branch ran around packed_lb_scan, in any row chunking."""
+    n, d, b = 384, 128, 40
+    x = _plane_inputs(9, n, d, b)
+    args = _plane_args(x, d)
+    packed, q_perm, f_add, f_rescale, k1x, g_add, g_error, f_error, cl, probe, row_ok = args
+    g_add_rows = g_add.to(torch.bfloat16).index_select(1, cl)
+    g_err_rows = g_error.to(torch.bfloat16).index_select(1, cl)
+    allowed = probe.index_select(1, cl) & row_ok[None, :]
+    g_comb = (g_add_rows - f_error[None, :] * g_err_rows).to(torch.bfloat16)
+    lb = tps.packed_lb_scan(packed, q_perm, f_add, f_rescale, k1x, g_comb).to(torch.float32)
+    lb = torch.where(torch.isfinite(lb), lb, -float("inf"))
+    chain = torch.where(allowed, -lb, -float("inf"))
+    for row_chunk in (1 << 16, 128):
+        plain = tps.packed_lb_plane_plain(*args, row_chunk=row_chunk)
+        assert plain.dtype == torch.bfloat16
+        assert torch.equal(plain.float(), chain)  # -lb of a bf16 lb is exact in bf16
+    assert torch.equal(tps.packed_lb_plane(*args), tps.packed_lb_plane_plain(*args))
+
+
+def test_packed_lb_plane_kernel_tables():
+    """The G_TABLE kernel's operand layouts, built by the wrapper: one word
+    per (query, cluster) with bf16 g_add low and bf16 g_error high, and one
+    probe word per (32-query block, cluster) with bit i for query 32k + i."""
+    rng = np.random.default_rng(2)
+    g_add = torch.from_numpy((rng.standard_normal((64, 7)) * 50).astype(np.float32))
+    g_err = torch.from_numpy(rng.random((64, 7)).astype(np.float32))
+    words = tps.g_table(g_add, g_err)
+    assert words.shape == (64, 7) and words.dtype == torch.int32
+    w = words.numpy().view(np.uint32)
+    lo = torch.from_numpy((w & 0xFFFF).astype(np.int16)).view(torch.bfloat16)
+    hi = torch.from_numpy((w >> 16).astype(np.uint16).view(np.int16)).view(torch.bfloat16)
+    assert torch.equal(lo, g_add.to(torch.bfloat16))
+    assert torch.equal(hi, g_err.to(torch.bfloat16))
+    probe = torch.from_numpy(rng.random((64, 7)) < 0.5)
+    probe[31, 0] = True  # the sign bit of a word
+    bits = tps.probe_words(probe)
+    assert bits.shape == (2, 7) and bits.dtype == torch.int32
+    u = bits.numpy().view(np.uint32).astype(np.int64)
+    back = (u[:, None, :] >> np.arange(32)[None, :, None]) & 1
+    assert np.array_equal(back.reshape(64, 7).astype(bool), probe.numpy())
