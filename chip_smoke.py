@@ -42,6 +42,23 @@ Phases, one line each:
      the packed bin kernel with an int8 query and with a bf16 query, both
      walks), and a profile of a packed run at nprobe 256, a fused8 run at
      nprobe 16 and a fused run at nprobe 256.
+Between 6 and 7, on the 7-bit index and the same data:
+  persistence: save to RBQ1 (twice; the two files byte-identical), load_index
+     with scan_dtype fused8, serve nprobe 64 with ids and distances equal to
+     the index's before the save, fetch_embedding of four ids against their
+     raw rows (files in a temporary directory of the checkout, deleted);
+  resident queries: upload_queries + batch_search_resident at nprobe 64,
+     ids equal to batch_search_arrays', QPS beside the pipelined path's;
+  gather scan: RABITQ_GATHER=1 in this process at nprobe 16, with
+     RABITQ_GATHER_MAX raised to its budget (both unset after), the budget, the device time of one 256-query dispatch, QPS and recall@10
+     beside the EXACT scan's (no more than 0.005 below it);
+  brute force: BruteForceRabitqIndex.train (7 bits, faster config) on the
+     1M rows, served through "packed" (the packed lower-bound kernel at one
+     cluster) and "bf16" with recall@10 (floor 0.90) and QPS, the kernel
+     against its plain version on the packed path's inputs, a profile of a
+     packed run, and an RBF1 round trip with equal ids.
+Each of these paths zeroes the launch counters just before it and reads
+them just after; every kernel it runs must have launched.
 Then one JSON line of kernel numbers, nvidia-smi's line again, and last
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
 
@@ -53,10 +70,13 @@ from __future__ import annotations
 import itertools
 import json
 import math
+import os
 import subprocess
 import sys
 import time
+from pathlib import Path
 
+ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 L2_BYTES = 50e6  # H100 SXM
 F32_FLOPS = 67e12  # H100 SXM, CUDA cores (the FHT's adds)
@@ -359,17 +379,17 @@ def plane_agreement(got, want, what):
     return err, same
 
 
-def check_packed_lb_scan(index, queries_np, nprobe):
-    """The packed lower-bound kernel vs its plain versions on the inputs the
-    main path (scan_dtype "packed") hands it for one 256-query block: the
-    G_TABLE epilogue (the masked plane the path takes), then the G_PLANE
-    epilogue (the TPU contract) on a g_comb built from the same inputs. Beside
-    them the library time of the dot alone: a bf16 torch.mm of the query and
-    the bit planes unpacked ahead of time, with f32 output."""
-    import torch
-    from rabitq_tpu_torch import SearchParams
+def packed_lb_bound(n_bytes, bq, n, db):
+    """Least time for a packed lower-bound plane: ``n_bytes`` moved, or
+    2 * 8 * Db bf16 tensor operations per (query, row) pair."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, 2 * bq * n * 8 * db / BF16_TENSOR_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def capture_packed_lb_plane(run):
+    """The arguments of the first ``packed_lb_plane`` call that ``run()``
+    makes (the dense "packed" scan's stage 1)."""
     from rabitq_tpu_torch.index import scan
-    from rabitq_tpu_torch.ops import packed_scan
 
     captured = []
     real = scan.packed_lb_plane
@@ -380,69 +400,98 @@ def check_packed_lb_scan(index, queries_np, nprobe):
 
     scan.packed_lb_plane = spy
     try:
-        index.batch_search_arrays(queries_np[:256], SearchParams(top_k=10, nprobe=nprobe))
+        run()
     finally:
         scan.packed_lb_plane = real
-    args = captured[0]
-    packed, q_perm, f_add, f_rescale, k1x, g_add, g_error, f_error, cluster_of = args[:9]
+    return captured[0]
+
+
+def check_lb_plane(args, what):
+    """The packed lower-bound kernel's G_TABLE epilogue (the masked plane the
+    "packed" scan takes) vs its plain version on a main path's own inputs,
+    with times and bound, and beside them the library time of the dot alone:
+    a bf16 torch.mm of the query and the bit planes unpacked ahead of time,
+    with f32 output."""
+    import torch
+    from rabitq_tpu_torch.ops import packed_scan
+
+    packed, q_perm = args[:2]
     n, db = packed.shape
-    bq, c = g_add.shape
-    ops = 2 * bq * n * 8 * db
-
-    def bound(n_bytes):
-        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / BF16_TENSOR_FLOPS
-        return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
-
-    out = {}
+    bq, c = args[5].shape
     err, same = plane_agreement(packed_scan.packed_lb_plane_cuda(*args),
-                                packed_scan.packed_lb_plane_plain(*args), "packed lb plane")
+                                packed_scan.packed_lb_plane_plain(*args), what)
     # inputs as the function takes them, each once, and the plane it writes
     table_bytes = sum(t.numel() * t.element_size() for t in args[1:])
-    b, by = bound(n * db + table_bytes + bq * n * 2)
-    out["plane"] = dict(err=err, same=same, bound_ms=b, bound_by=by,
-                        ms=cuda_ms(lambda: packed_scan.packed_lb_plane_cuda(*args), 5),
-                        plain_ms=cuda_ms(lambda: packed_scan.packed_lb_plane_plain(*args), 2))
+    b, by = packed_lb_bound(n * db + table_bytes + bq * n * 2, bq, n, db)
+    out = dict(err=err, same=same, bound_ms=b, bound_by=by,
+               ms=cuda_ms(lambda: packed_scan.packed_lb_plane_cuda(*args), 5),
+               plain_ms=cuda_ms(lambda: packed_scan.packed_lb_plane_plain(*args), 2))
+    bits = packed_scan.unpack_bitplanes(packed).to(torch.bfloat16)
+    out["library_ms"] = cuda_ms(lambda: torch.mm(q_perm, bits.T, out_dtype=torch.float32), 5)
+    del bits
+    torch.cuda.empty_cache()
+    log(f"{what} (q {tuple(q_perm.shape)}, packed {tuple(packed.shape)}, {c} clusters): max "
+        f"|err| {err:.3g}, {same:.5f} bitwise equal, infinities equal; kernel {out['ms']:.3f} ms, "
+        f"plain {out['plain_ms']:.3f} ms, bound {b:.3f} ms ({by}), library (torch.mm bf16 -> "
+        f"f32 of the unpacked planes, the dot alone) {out['library_ms']:.3f} ms")
+    return out
+
+
+def check_packed_lb_scan(index, queries_np, nprobe):
+    """The packed lower-bound kernel vs its plain versions on the inputs the
+    main path (scan_dtype "packed") hands it for one 256-query block: the
+    G_TABLE epilogue, then the G_PLANE epilogue (the TPU contract) on a
+    g_comb built from the same inputs."""
+    import torch
+    from rabitq_tpu_torch import SearchParams
+    from rabitq_tpu_torch.ops import packed_scan
+
+    args = capture_packed_lb_plane(lambda: index.batch_search_arrays(
+        queries_np[:256], SearchParams(top_k=10, nprobe=nprobe)))
+    packed, q_perm, f_add, f_rescale, k1x, g_add, g_error, f_error, cluster_of = args[:9]
+    n, db = packed.shape
+    bq = g_add.shape[0]
+    out = {"plane": check_lb_plane(args, f"packed lb plane (G_TABLE, nprobe={nprobe})")}
     cl = cluster_of
     g_comb = (g_add.to(torch.bfloat16)[:, cl] - f_error[None, :] * g_error.to(torch.bfloat16)[:, cl])
     g_comb = g_comb.to(torch.bfloat16)
     scan_args = (packed, q_perm, f_add, f_rescale, k1x, g_comb)
     err, same = plane_agreement(packed_scan.packed_lb_scan_cuda(*scan_args),
                                 packed_scan.packed_lb_scan_plain(*scan_args), "packed lb scan")
-    b, by = bound(n * db + n * 8 + q_perm.numel() * 2 + bq * 4 + 2 * bq * n * 2)
-    out["scan"] = dict(err=err, same=same, bound_ms=b, bound_by=by,
-                       ms=cuda_ms(lambda: packed_scan.packed_lb_scan_cuda(*scan_args), 5),
-                       plain_ms=cuda_ms(lambda: packed_scan.packed_lb_scan_plain(*scan_args), 2))
-    del g_comb, scan_args
-    bits = packed_scan.unpack_bitplanes(packed).to(torch.bfloat16)
-    library_ms = cuda_ms(lambda: torch.mm(q_perm, bits.T, out_dtype=torch.float32), 5)
-    del bits
-    torch.cuda.empty_cache()
-    for key in ("plane", "scan"):
-        out[key]["library_ms"] = library_ms
-    for key, what in (("plane", "packed lb plane (G_TABLE)"), ("scan", "packed lb scan (G_PLANE)")):
-        r = out[key]
-        log(f"{what} (nprobe={nprobe}, q {tuple(q_perm.shape)}, packed {tuple(packed.shape)}, "
-            f"{c} clusters): max |err| {r['err']:.3g}, {r['same']:.5f} bitwise equal, "
-            f"infinities equal; kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
-            f"{r['bound_ms']:.3f} ms ({r['bound_by']}), library (torch.mm bf16 -> f32 of the "
-            f"unpacked planes, the dot alone) {library_ms:.3f} ms")
+    b, by = packed_lb_bound(n * db + n * 8 + q_perm.numel() * 2 + bq * 4 + 2 * bq * n * 2,
+                            bq, n, db)
+    r = out["scan"] = dict(
+        err=err, same=same, bound_ms=b, bound_by=by,
+        library_ms=out["plane"]["library_ms"],
+        ms=cuda_ms(lambda: packed_scan.packed_lb_scan_cuda(*scan_args), 5),
+        plain_ms=cuda_ms(lambda: packed_scan.packed_lb_scan_plain(*scan_args), 2))
+    log(f"packed lb scan (G_PLANE, nprobe={nprobe}): max |err| {r['err']:.3g}, {r['same']:.5f} "
+        f"bitwise equal, infinities equal; kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} "
+        f"ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
     return out
 
 
 def profile_serving(index, queries_np, nprobe, label=""):
-    """Device time by kernel over one pipelined serving run, and the share
-    of the run's wall time the device was busy (torch.profiler)."""
+    """:func:`profile_run` over one pipelined serving run of the queries."""
+    from rabitq_tpu_torch import SearchParams
+
+    params = SearchParams(top_k=10, nprobe=nprobe)
+    profile_run(lambda: index.batch_search_arrays_pipelined(
+        queries_np, params, batch_size=256, upload_block=1024), f"{label}nprobe={nprobe}")
+
+
+def profile_run(run, label):
+    """Device time by kernel over one ``run()``, and the share of its wall
+    time the device was busy (torch.profiler); returns the device's busy
+    milliseconds."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from rabitq_tpu_torch import SearchParams
-
-    params = SearchParams(top_k=10, nprobe=nprobe)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        index.batch_search_arrays_pipelined(queries_np, params, batch_size=256, upload_block=1024)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -460,8 +509,267 @@ def profile_serving(index, queries_np, nprobe, label=""):
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     top = "; ".join(f"{name[:48]} x{n} {ms:.2f} ms" for ms, name, n in rows[:8])
-    log(f"profile {label}nprobe={nprobe}: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
+    log(f"profile {label}: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
         f"({100 * busy / wall_ms:.0f}%); top: {top}")
+    return busy
+
+
+def file_digest(path) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 24), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+def serve(index, queries_np, nprobe):
+    """The serving call of every IVF phase: pipelined, batch 256, upload
+    block 1024."""
+    from rabitq_tpu_torch import SearchParams
+
+    return index.batch_search_arrays_pipelined(
+        queries_np, SearchParams(top_k=10, nprobe=nprobe), batch_size=256, upload_block=1024)
+
+
+def zero_launches():
+    """Set every kernel's launch counter to 0."""
+    from rabitq_tpu_torch.ops.fht import fht_kernel
+    from rabitq_tpu_torch.ops.fused_scan import fused_bin_scan_cuda, fused_bin_scan_packed_cuda
+    from rabitq_tpu_torch.ops.packed_scan import packed_lb_plane_cuda, packed_lb_scan_cuda
+
+    fht_kernel.launches = 0
+    fused_bin_scan_cuda.dense_launches = fused_bin_scan_cuda.compact_launches = 0
+    for key in fused_bin_scan_packed_cuda.launches:
+        fused_bin_scan_packed_cuda.launches[key] = 0
+    packed_lb_scan_cuda.launches = packed_lb_plane_cuda.launches = 0
+
+
+def read_launches(path, needed):
+    """The launch counters after a path's run; fails if a kernel in
+    ``needed`` never ran on it."""
+    from rabitq_tpu_torch.ops.fht import fht_kernel
+    from rabitq_tpu_torch.ops.fused_scan import fused_bin_scan_cuda
+    from rabitq_tpu_torch.ops.packed_scan import packed_lb_plane_cuda
+
+    counts = {"fht": fht_kernel.launches,
+              "fused_bin_scan_dense": fused_bin_scan_cuda.dense_launches,
+              "fused_bin_scan_compact": fused_bin_scan_cuda.compact_launches,
+              "packed_lb_plane": packed_lb_plane_cuda.launches}
+    counts = {k: counts[k] for k in needed}
+    log(f"launches on the {path} path: {counts}")
+    if min(counts.values()) <= 0:
+        raise AssertionError(f"a kernel of the {path} path never ran: {counts}")
+    return counts
+
+
+def check_persistence(index, queries_np, data):
+    """RBQ1 round trip of the 7-bit index: save (twice, byte-identical),
+    load_index with scan_dtype fused8, serve at nprobe 64 through the EXACT
+    scan with ids and distances equal to the index's before the save, and
+    fetch_embedding of a few ids against the raw rows. The files go to a
+    temporary directory inside the checkout and are deleted."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from rabitq_tpu_torch import load_index
+
+    want_ids, want_d = serve(index, queries_np, 64)
+    t0 = time.perf_counter()
+    index.host  # noqa: B018  (the host copy, downloaded from the card once)
+    host_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        path, again = os.path.join(tmp, "index.rbq"), os.path.join(tmp, "again.rbq")
+        t0 = time.perf_counter()
+        index.save_to_path(path)
+        save_s = time.perf_counter() - t0
+        index.save_to_path(again)
+        identical = file_digest(path) == file_digest(again)
+        size = os.path.getsize(path)
+        os.remove(again)
+        t0 = time.perf_counter()
+        loaded = load_index(path, scan_dtype="fused8", device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    if not (loaded.is_ivf and identical):
+        raise AssertionError(f"RBQ1: loaded as {loaded.kind}, second save identical {identical}")
+    loaded = loaded.as_ivf()
+    loaded.upload_dtype = index.upload_dtype
+    zero_launches()
+    ids, dists = serve(loaded, queries_np, 64)
+    launches = read_launches("RBQ1 reload", ("fht", "fused_bin_scan_dense"))
+    if not (np.array_equal(ids, want_ids) and np.array_equal(dists, want_d)):
+        raise AssertionError(
+            f"RBQ1 reload: ids equal {np.mean(ids == want_ids):.5f}, dists equal "
+            f"{np.mean(dists == want_d):.5f} of entries")
+    rows = [0, 1, ROWS // 2, ROWS - 1]
+    errs = []
+    for i in rows:
+        x = data[i].cpu().numpy()
+        errs.append(float(np.linalg.norm(loaded.fetch_embedding(i) - x) / np.linalg.norm(x)))
+    log(f"RBQ1: {size} bytes; host copy {host_s:.2f} s, save {save_s:.2f} s, second save "
+        f"byte-identical (sha256), load_index {load_s:.2f} s; reload serves nprobe=64 with ids "
+        f"and distances equal; fetch_embedding of ids {rows}: L2 error / row norm "
+        f"{', '.join(f'{e:.4f}' for e in errs)}")
+    if max(errs) > 0.05:
+        raise AssertionError(f"fetch_embedding off by {max(errs):.4f} of the row's norm")
+    return launches
+
+
+def check_resident(index, queries_np):
+    """upload_queries + batch_search_resident at nprobe 64: ids equal to
+    batch_search_arrays on the same uploads, QPS beside the pipelined
+    path's."""
+    import numpy as np
+    from rabitq_tpu_torch import SearchParams
+
+    params = SearchParams(top_k=10, nprobe=64)
+    want_ids, _ = index.batch_search_arrays(queries_np, params)
+    zero_launches()
+    handle = index.upload_queries(queries_np)
+    ids, _ = index.batch_search_resident(handle, params, batch_size=256)
+    launches = read_launches("resident", ("fht", "fused_bin_scan_dense"))
+    if not np.array_equal(ids, want_ids):
+        raise AssertionError(f"resident ids equal on {np.mean(ids == want_ids):.5f} of entries")
+    qps = {"resident": [], "pipelined": []}
+    for _ in range(QPS_RUNS):
+        t0 = time.perf_counter()
+        index.batch_search_resident(handle, params, batch_size=256)
+        qps["resident"].append(len(queries_np) / (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        serve(index, queries_np, 64)
+        qps["pipelined"].append(len(queries_np) / (time.perf_counter() - t0))
+    log(f"resident queries ({index.upload_dtype} uploads, nprobe=64): ids equal to "
+        f"batch_search_arrays; QPS over {QPS_RUNS} runs (median [min, max]): " + ", ".join(
+            f"{k} {np.median(v):.0f} [{min(v):.0f}, {max(v):.0f}]" for k, v in qps.items()))
+    return launches
+
+
+def check_gather(index, queries_np, gt):
+    """The gather scan (RABITQ_GATHER=1, set in this process and unset after)
+    at nprobe 16 beside the EXACT scan: budget, device ms of one 256-query
+    dispatch, QPS and recall@10; fails more than 0.005 below the EXACT
+    scan's recall. The 16 largest clusters of this k-means hold more than
+    the default RABITQ_GATHER_MAX (16384) rows, so the limit is raised to
+    the budget for the run (and unset after)."""
+    import numpy as np
+    from rabitq_tpu_torch import SearchParams
+    from rabitq_tpu_torch.index.scan import gather_budget_bucket
+
+    nprobe = 16
+    params = SearchParams(top_k=10, nprobe=nprobe)
+    handle = index.upload_queries(queries_np[:256])
+    row_allowed = index._scan_inputs(None)
+
+    def one_dispatch():
+        return index._dispatch_scan(handle[0], handle[1], params, row_allowed)
+
+    def measure(name):
+        qps = []
+        for _ in range(QPS_RUNS):
+            t0 = time.perf_counter()
+            ids, _ = serve(index, queries_np, nprobe)
+            qps.append(len(queries_np) / (time.perf_counter() - t0))
+        one_dispatch()
+        ms = profile_run(one_dispatch, f"one 256-query dispatch, {name} scan nprobe={nprobe}")
+        return recall_at(ids, gt, 10), qps, ms
+
+    exact = measure("EXACT")
+    os.environ["RABITQ_GATHER"] = "1"
+    os.environ["RABITQ_GATHER_MAX"] = str(gather_budget_bucket(np.diff(index._offsets), nprobe))
+    try:
+        budget = index._gather_budget(nprobe)
+        if budget is None:
+            raise AssertionError("the gather scan's gate declined at nprobe 16")
+        zero_launches()
+        serve(index, queries_np, nprobe)
+        launches = read_launches("gather", ("fht",))
+        gather = measure("gather")
+    finally:
+        del os.environ["RABITQ_GATHER"], os.environ["RABITQ_GATHER_MAX"]
+    for name, (recall, qps, ms) in (("EXACT", exact), ("gather", gather)):
+        log(f"{name} scan nprobe={nprobe}: recall@10 {recall:.4f}; device busy {ms:.3f} ms "
+            f"a 256-query dispatch; pipelined QPS over {QPS_RUNS} runs (median [min, max]) "
+            f"{np.median(qps):.0f} [{min(qps):.0f}, {max(qps):.0f}]")
+    log(f"gather scan: budget R = {budget} rows a query (a [256, {budget}, "
+        f"{index.layout.ex.shape[1]}] code gather a dispatch)")
+    if gather[0] < exact[0] - 0.005:
+        raise AssertionError(f"gather recall {gather[0]:.4f} < EXACT {exact[0]:.4f} - 0.005")
+    return launches
+
+
+def bf_ids(index, queries_np, params):
+    """Brute-force search of the queries in blocks of 256 (one dispatch
+    each) as an ids array."""
+    import numpy as np
+
+    out = np.full((len(queries_np), params.top_k), -1, np.int64)
+    for s in range(0, len(queries_np), 256):
+        for i, hits in enumerate(index.batch_search(queries_np[s : s + 256], params)):
+            out[s + i, : len(hits)] = [h.id for h in hits]
+    return out
+
+
+def check_brute_force(data, queries_np, gt):
+    """BruteForceRabitqIndex at full size: train (7 bits, faster config),
+    serve through "packed" (the FHT and the packed lower-bound kernel at
+    C = 1) and "bf16" with recall@10 and QPS, hold the kernel against its
+    plain version on the packed path's own inputs, profile one packed run,
+    and round-trip the index through RBF1 with equal ids."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from rabitq_tpu_torch import BruteForceRabitqIndex, BruteForceSearchParams, Metric, load_index
+
+    params = BruteForceSearchParams(top_k=10)
+    zero_launches()
+    t0 = time.perf_counter()
+    index = BruteForceRabitqIndex.train(
+        data, total_bits=7, metric=Metric.L2, seed=42, use_faster_config=True,
+        scan_dtype="packed", device="cuda")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    log(f"brute force train: {train_s:.2f} s ({len(index)} rows, 7 bits, faster config)")
+    ids_of = {}
+    for scan_dtype in ("packed", "bf16"):
+        index.scan_dtype = scan_dtype
+        bf_ids(index, queries_np, params)
+        qps = []
+        for _ in range(QPS_RUNS_8BIT):
+            t0 = time.perf_counter()
+            ids = bf_ids(index, queries_np, params)
+            qps.append(len(queries_np) / (time.perf_counter() - t0))
+        ids_of[scan_dtype] = ids
+        recall = recall_at(ids, gt, 10)
+        log(f"brute force {scan_dtype}: recall@10 {recall:.4f}; QPS over {QPS_RUNS_8BIT} runs "
+            f"of 8 dispatches of 256 (median [min, max]) {np.median(qps):.0f} "
+            f"[{min(qps):.0f}, {max(qps):.0f}]")
+        if recall < RECALL_FLOOR:
+            raise AssertionError(f"brute force {scan_dtype}: recall@10 {recall:.4f} < "
+                                 f"{RECALL_FLOOR}")
+    launches = read_launches("brute-force", ("fht", "packed_lb_plane"))
+    index.scan_dtype = "packed"
+    args = capture_packed_lb_plane(lambda: index.batch_search(queries_np[:256], params))
+    k4 = check_lb_plane(args, "packed lb plane (G_TABLE, brute force, C = 1)")
+    profile_run(lambda: bf_ids(index, queries_np, params), "brute force packed")
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        path = os.path.join(tmp, "index.rbf")
+        t0 = time.perf_counter()
+        index.save_to_path(path)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        loaded = load_index(path, scan_dtype="packed", device="cuda")
+        ids = bf_ids(loaded, queries_np, params)
+        load_s = time.perf_counter() - t0
+    if not (loaded.is_brute_force and np.array_equal(ids, ids_of["packed"])):
+        raise AssertionError(f"RBF1 reload: ids equal on {np.mean(ids == ids_of['packed']):.5f}")
+    log(f"RBF1: {size} bytes; save {save_s:.2f} s (host copy included), load_index and one "
+        f"packed serving run {load_s:.2f} s; ids equal after the reload")
+    return launches, k4
 
 
 def main() -> int:
@@ -521,9 +829,7 @@ def main() -> int:
     gt = ground_truth(data, queries, 10)
     queries_np = queries.cpu().numpy()
 
-    fht_kernel.launches = 0
-    fused_bin_scan_cuda.dense_launches = 0
-    fused_bin_scan_cuda.compact_launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     index = IvfRabitqIndex.train(
         data, nlist=NLIST, total_bits=7, metric=Metric.L2,
@@ -540,13 +846,11 @@ def main() -> int:
     t0_serve = time.perf_counter()
     for nprobe in (16, 64, 256):
         params = SearchParams(top_k=10, nprobe=nprobe)
-        index.batch_search_arrays_pipelined(queries_np, params, batch_size=256, upload_block=1024)
+        serve(index, queries_np, nprobe)
         qps = []
         for _ in range(QPS_RUNS):
             t0 = time.perf_counter()
-            ids, dists = index.batch_search_arrays_pipelined(
-                queries_np, params, batch_size=256, upload_block=1024
-            )
+            ids, dists = serve(index, queries_np, nprobe)
             qps.append(len(queries_np) / (time.perf_counter() - t0))
         if ids.shape != (len(queries_np), 10) or (ids < 0).any() or not np.isfinite(dists).all():
             raise AssertionError(f"nprobe={nprobe}: malformed results {ids.shape}")
@@ -582,16 +886,25 @@ def main() -> int:
         profile_serving(index, queries_np, nprobe)
     log(f"phase seconds: 7-bit checks and profiles {time.perf_counter() - t0:.1f}")
 
-    # ---- two-stage and dense paths: total_bits=8 keeps raw ex codes, so the
-    # fused scans run two-stage through the packed bin kernel
+    # ---- the same 7-bit index saved and loaded, served from resident
+    # queries and through the gather scan; then the brute-force index
+    t0 = time.perf_counter()
+    persist = check_persistence(index, queries_np, data)
+    log(f"phase seconds: RBQ1 round trip {time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    resident = check_resident(index, queries_np)
+    gather = check_gather(index, queries_np, gt)
+    log(f"phase seconds: resident queries and gather scan {time.perf_counter() - t0:.1f}")
     del index
     torch.cuda.empty_cache()
-    fht_before = fht_kernel.launches
-    packed_launches = fused_bin_scan_packed_cuda.launches
-    for key in packed_launches:
-        packed_launches[key] = 0
-    packed_lb_scan_cuda.launches = 0
-    packed_lb_plane_cuda.launches = 0
+    t0 = time.perf_counter()
+    brute, k4_bf = check_brute_force(data, queries_np, gt)
+    torch.cuda.empty_cache()
+    log(f"phase seconds: brute force {time.perf_counter() - t0:.1f}")
+
+    # ---- two-stage and dense paths: total_bits=8 keeps raw ex codes, so the
+    # fused scans run two-stage through the packed bin kernel
+    zero_launches()
     t0 = time.perf_counter()
     index8 = IvfRabitqIndex.train(
         data, nlist=NLIST, total_bits=8, metric=Metric.L2,
@@ -610,14 +923,11 @@ def main() -> int:
     for scan_dtype, nprobe in (("fused8", 16), ("fused8", 256), ("fused", 16), ("fused", 256),
                                ("packed", 256), ("bf16", 256)):
         index8.scan_dtype = scan_dtype  # "packed" re-lays the index to the permuted layout
-        params = SearchParams(top_k=10, nprobe=nprobe)
-        index8.batch_search_arrays_pipelined(queries_np, params, batch_size=256, upload_block=1024)
+        serve(index8, queries_np, nprobe)
         qps = []
         for _ in range(QPS_RUNS_8BIT):
             t1 = time.perf_counter()
-            ids, dists = index8.batch_search_arrays_pipelined(
-                queries_np, params, batch_size=256, upload_block=1024
-            )
+            ids, dists = serve(index8, queries_np, nprobe)
             qps.append(len(queries_np) / (time.perf_counter() - t1))
         if index8.scan_dtype != scan_dtype:
             raise AssertionError(f"{scan_dtype} was downgraded to {index8.scan_dtype}")
@@ -632,9 +942,10 @@ def main() -> int:
         if nprobe == 256 and recall < RECALL_FLOOR:
             raise AssertionError(
                 f"{scan_dtype}: recall@10 {recall:.4f} < {RECALL_FLOOR} at nprobe=256")
-    launches8 = {f"fused_bin_scan_packed_{k}": v for k, v in packed_launches.items()}
+    launches8 = {f"fused_bin_scan_packed_{k}": v
+                 for k, v in fused_bin_scan_packed_cuda.launches.items()}
     launches8["packed_lb_plane"] = packed_lb_plane_cuda.launches
-    launches8["fht"] = fht_kernel.launches - fht_before
+    launches8["fht"] = fht_kernel.launches
     # the TPU contract's epilogue is on no main path (the sharded tier will call it)
     g_plane_launches = packed_lb_scan_cuda.launches
     log(f"launches on the two-stage and dense paths: {launches8}; packed_lb_scan (G_PLANE, "
@@ -668,13 +979,14 @@ def main() -> int:
     scan_src = "rabitq_tpu_torch/csrc/fused_bin_scan.cu"
     scan_tpu = "rabitq_tpu/ops/pallas_fused_scan.py:497"
     packed_src = "rabitq_tpu_torch/csrc/packed_bin_scan.cu"
+    paths = (launches, launches8, persist, resident, gather, brute)
     kernels = [
         entry("fht", "rabitq_tpu_torch/csrc/fht.cu", "rabitq_tpu/ops/pallas_fht.py:49",
-              launches["fht"] + launches8["fht"], fht_rows[(8192, 512)]),
+              sum(p["fht"] for p in paths), fht_rows[(8192, 512)]),
         entry("fused_bin_scan_compact", scan_src, scan_tpu,
               launches["fused_bin_scan_compact"], compact),
         entry("fused_bin_scan_dense", scan_src, scan_tpu,
-              launches["fused_bin_scan_dense"], dense),
+              sum(p.get("fused_bin_scan_dense", 0) for p in (launches, persist, resident)), dense),
         entry("fused_bin_scan_packed_int8_compact", packed_src, scan_tpu,
               launches8["fused_bin_scan_packed_int8_compact"], p_int8_compact),
         entry("fused_bin_scan_packed_int8_dense", packed_src, scan_tpu,
@@ -687,6 +999,8 @@ def main() -> int:
               "rabitq_tpu/ops/pallas_scan.py:141", launches8["packed_lb_plane"], lb["plane"]),
         entry("packed_lb_scan", "rabitq_tpu_torch/csrc/packed_lb_scan.cu",
               "rabitq_tpu/ops/pallas_scan.py:141", g_plane_launches, lb["scan"]),
+        entry("packed_lb_plane_brute_force", "rabitq_tpu_torch/csrc/packed_lb_scan.cu",
+              "rabitq_tpu/ops/pallas_scan.py:141", brute["packed_lb_plane"], k4_bf),
     ]
     for k in kernels:
         if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms")):

@@ -1,11 +1,13 @@
 """rabitq_tpu_torch -- the PyTorch/CUDA port of rabitq_tpu for NVIDIA Hopper.
 
 A second package beside the JAX one, held against it by the tests. It
-trains an IVF-RaBitQ index and serves batched searches through the fused
-EXACT scan, the two-stage fused scan and the dense scans; the FHT inside
-every rotation, the two bin scans and the packed lower-bound scan are
-hand-written CUDA kernels (``csrc/``), built with ``nvcc`` at first use.
-Entry points run on the card unless the caller passes ``device="cpu"``.
+trains IVF-RaBitQ and brute-force indexes, saves and loads them in the
+reference's RBQ1/RBF1 files, and serves batched searches through the fused
+EXACT scan, the two-stage fused scan, the gather scan and the dense scans;
+the FHT inside every rotation, the two bin scans and the packed lower-bound
+scan are hand-written CUDA kernels (``csrc/``), built with ``nvcc`` at first
+use. Entry points run on the card unless the caller passes
+``device="cpu"``.
 """
 
 from .errors import (
@@ -17,7 +19,9 @@ from .errors import (
     RabitqError,
 )
 from .types import Metric, RotatorType, SearchDiagnostics, SearchParams, SearchResult
+from .index.brute_force import BruteForceRabitqIndex, BruteForceSearchParams
 from .index.ivf import IvfRabitqIndex
+from .index.loader import RabitqIndex, load_index
 
 __version__ = "0.1.0"
 
@@ -28,6 +32,10 @@ __all__ = [
     "SearchResult",
     "SearchDiagnostics",
     "IvfRabitqIndex",
+    "BruteForceRabitqIndex",
+    "BruteForceSearchParams",
+    "RabitqIndex",
+    "load_index",
     "RabitqError",
     "DimensionMismatch",
     "InvalidConfig",

@@ -13,11 +13,21 @@ two-stage fused scan otherwise (through 3072 columns with bf16 queries,
 where a row tile would span more than 128 clusters. "f32", "bf16", "int8"
 and "packed" are the dense scans. Assigning ``scan_dtype`` after
 construction re-lays the index on the device at the next search.
+
+The JAX package's experiment switches are read from the environment at each
+call, with its defaults: ``RABITQ_FUSED_EXACT=0`` (two-stage scan instead of
+the EXACT one), ``RABITQ_FUSED_COMPACT`` ("0": dense tile walk, "force":
+full-length tile lists), ``RABITQ_LOCALITY`` (locality-sort depth) and
+``RABITQ_GATHER=1`` / ``RABITQ_GATHER_MAX`` (the gather scan, opt-in).
+
+Persistence is the byte-compatible RBQ1 v3 format (``io/persistence.py``).
 """
 
 from __future__ import annotations
 
+import os
 import time
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -42,11 +52,18 @@ from ..types import Metric, RotatorType, SearchDiagnostics, SearchParams, Search
 from ..utils.device import resolve_device, synchronize
 from ..utils.logging import get_logger, timed
 from .build import build_codes_device, exact_t_rows
-from .layout import DeviceLayout, assemble_device_layout, cluster_of_rows, pad_rows
+from .layout import (
+    DeviceLayout,
+    assemble_device_layout,
+    cluster_of_rows,
+    host_order_planes,
+    pad_rows,
+)
 from .scan import (
     SCAN_DTYPES,
     decode_queries,
     ex_plane_is_total,
+    gather_budget_bucket,
     is_fused,
     pack_int4_queries,
     probe_k_bucket,
@@ -73,6 +90,24 @@ def allowed_id_table(filter_ids: np.ndarray, max_id: int) -> np.ndarray:
     in_range = filter_ids[(filter_ids >= 0) & (filter_ids <= max_id)]
     table[in_range.astype(np.int64)] = True
     return table
+
+
+@dataclass
+class HostCodes:
+    """Host copy of an index's codes, in cluster-sorted row order."""
+
+    binary_bits: np.ndarray  # [N, Dpad] uint8 {0,1}
+    ex_codes: np.ndarray  # [N, Dpad] uint16
+    f_add: np.ndarray  # [N] f32
+    f_rescale: np.ndarray
+    f_error: np.ndarray
+    f_add_ex: np.ndarray
+    f_rescale_ex: np.ndarray
+    delta: np.ndarray
+    vl: np.ndarray
+    ids: np.ndarray  # [N] int64 original vector ids
+    cluster_offsets: np.ndarray  # [C+1] int64 row ranges per cluster
+    centroids: np.ndarray  # [C, Dpad] f32 (rotated space)
 
 
 class IvfRabitqIndex:
@@ -110,6 +145,8 @@ class IvfRabitqIndex:
         self._c_blk: torch.Tensor | None = None
         self._geometry_ok: bool | None = None  # fused_geometry_ok of the clusters
         self._max_tiles_cache: dict = {}
+        self._cl_ranges: tuple[torch.Tensor, torch.Tensor] | None = None
+        self._host: HostCodes | None = None  # see host
 
     # ------------------------------------------------------------------
     # construction
@@ -305,6 +342,15 @@ class IvfRabitqIndex:
             ex=ex_codes, f_add=f_add, f_rescale=f_rescale, f_error=f_error,
             f_add_ex=f_add_ex, f_rescale_ex=f_rescale_ex, delta=delta, vl=vl,
         )
+        index._host = HostCodes(
+            binary_bits=np.asarray(binary_bits, np.uint8), ex_codes=np.asarray(ex_codes, np.uint16),
+            f_add=np.asarray(f_add, np.float32), f_rescale=np.asarray(f_rescale, np.float32),
+            f_error=np.asarray(f_error, np.float32), f_add_ex=np.asarray(f_add_ex, np.float32),
+            f_rescale_ex=np.asarray(f_rescale_ex, np.float32),
+            delta=np.asarray(delta, np.float32), vl=np.asarray(vl, np.float32),
+            ids=index._ids, cluster_offsets=offsets,
+            centroids=np.asarray(centroids, np.float32),
+        )
         return index
 
     def _set_layout(self, *, ids, offsets, centroids, **planes) -> None:
@@ -323,6 +369,7 @@ class IvfRabitqIndex:
         self._packed = None
         self._c_blk = None
         self._max_tiles_cache = {}
+        self._cl_ranges = None
 
     def _layout_mode(self) -> str:
         """'sorted' (cluster-contiguous, TN-padded: the fused scans) or
@@ -337,35 +384,30 @@ class IvfRabitqIndex:
 
     def _relayout(self) -> None:
         """Rebuild the device layout for the other layout mode, on the
-        device, from the current one: undo the row permutation, recover the
-        raw planes (``binary = total >> ex_bits`` where the binary plane was
-        dropped) and assemble again."""
-        old = self._layout
-        n = len(self)
-        pos_of_row = np.empty_like(old.perm)
-        pos_of_row[old.perm] = np.arange(old.perm.shape[0])
-        take = torch.from_numpy(pos_of_row[:n]).to(self.device)
+        device, from the raw planes of the current one."""
+        planes = host_order_planes(self._layout, len(self), self.padded_dim, self.ex_bits)
+        centroids = self._layout.centroids
+        self._layout = None
+        self._set_layout(ids=self._ids, offsets=self._offsets, centroids=centroids, **planes)
 
-        def rows(x):
-            return x.index_select(0, take)
-
-        ex = rows(old.ex)[:, : self.padded_dim]  # drop the fused width pad
-        if old.binary is not None:
-            binary = rows(old.binary)
-        else:
-            binary = (ex >> self.ex_bits).to(torch.int8)
-        if ex_plane_is_total(self.ex_bits):
-            ex = ex - (binary << self.ex_bits)  # the plane held TOTAL codes
-        planes = {
-            name: rows(getattr(old, name))
-            for name in ("f_add", "f_rescale", "f_error", "f_add_ex", "f_rescale_ex", "delta", "vl")
-        }
-        centroids = old.centroids
-        self._layout = old = None
-        self._set_layout(
-            ids=self._ids, offsets=self._offsets, centroids=centroids,
-            binary=binary, ex=ex, **planes,
-        )
+    @property
+    def host(self) -> HostCodes:
+        """The codes as host arrays in cluster-sorted order: those the index
+        was made from (``from_host_arrays``, a loaded file), or downloaded
+        from the device layout once, at first use."""
+        if self._host is None:
+            if self._layout is None:
+                raise EmptyIndex()
+            with timed(f"download host codes n={len(self)}", _log):
+                planes = host_order_planes(self._layout, len(self), self.padded_dim, self.ex_bits)
+                self._host = HostCodes(
+                    binary_bits=planes.pop("binary").cpu().numpy().astype(np.uint8),
+                    ex_codes=planes.pop("ex").cpu().numpy().astype(np.uint16),
+                    ids=self._ids, cluster_offsets=self._offsets,
+                    centroids=self._layout.centroids.cpu().numpy(),
+                    **{name: x.cpu().numpy() for name, x in planes.items()},
+                )
+        return self._host
 
     # ------------------------------------------------------------------
     # accessors
@@ -488,9 +530,46 @@ class IvfRabitqIndex:
                     q[off : off + bs], None if qscale is None else qscale[off : off + bs],
                     params, row_allowed,
                 ))
-        ids = torch.cat([p[0] for p in pending]).cpu().numpy()[:b_total]
-        dists = torch.cat([p[1] for p in pending]).cpu().numpy()[:b_total]
-        return ids, dists
+        return _fetch(pending, b_total)
+
+    def upload_queries(self, queries: np.ndarray):
+        """Encode the queries once with the current ``upload_dtype`` and keep
+        them on the device: ``batch_search_resident`` then searches them
+        again (a parameter sweep, say) with no query byte crossing the host
+        link. Returns an opaque handle."""
+        queries = self._check_queries(queries)
+        q, qscale = self._pad_queries(queries, _pad_pow2(queries.shape[0]))
+        return (q.to(self.device), None if qscale is None else qscale.to(self.device),
+                queries.shape[0])
+
+    def batch_search_resident(
+        self,
+        qcache,
+        params: SearchParams,
+        batch_size: int = 256,
+        filter_ids: np.ndarray | None = None,
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """``batch_search_arrays`` over an ``upload_queries`` handle: each
+        dispatch scans a ``batch_size`` slice of the resident block. Results
+        equal the upload paths' on the same ``upload_dtype``."""
+        if self.is_empty:
+            raise EmptyIndex()
+        q, qscale, b_total = qcache
+        if params.top_k <= 0:
+            return (
+                np.full((b_total, 0), -1, np.int32),
+                np.full((b_total, 0), np.inf, np.float32),
+            )
+        row_allowed = self._scan_inputs(filter_ids)
+        bs = _pad_pow2(min(batch_size, q.shape[0]))
+        pending = [
+            self._dispatch_scan(
+                q[off : off + bs], None if qscale is None else qscale[off : off + bs],
+                params, row_allowed,
+            )
+            for off in range(0, b_total, bs)
+        ]
+        return _fetch(pending, b_total)
 
     def _maybe_downgrade_fused(self) -> None:
         """The fused kernels need cluster-sorted tiles spanning <= 128
@@ -513,8 +592,11 @@ class IvfRabitqIndex:
 
     def _fused_exact_ok(self) -> bool:
         """Whether the fused scan runs in EXACT mode: it needs the TOTAL
-        refine plane and a plane within ``EXACT_MAX_WIDTH``; otherwise the
-        two-stage scan serves the index."""
+        refine plane and a plane within ``EXACT_MAX_WIDTH``; otherwise, or
+        with env ``RABITQ_FUSED_EXACT=0``, the two-stage scan serves the
+        index."""
+        if os.environ.get("RABITQ_FUSED_EXACT", "1") == "0":
+            return False
         plane_w = self.padded_dim + (-self.padded_dim) % 128
         return (
             is_fused(self.scan_dtype)
@@ -561,9 +643,14 @@ class IvfRabitqIndex:
         """Probed-tile budget of the kernel's compacted walk, or None for
         the dense walk: compaction is on when the EXPECTED per-block tile
         count is under 0.6 of all tiles, sized by the SAFE bound (so no
-        probed tile is dropped), bucketed to a power of two."""
-        if not is_fused(self.scan_dtype):
+        probed tile is dropped), bucketed to a power of two. Env
+        ``RABITQ_FUSED_COMPACT=0`` turns compaction off, ``=force`` lists
+        every tile whatever the expected count."""
+        compact_env = os.environ.get("RABITQ_FUSED_COMPACT", "1")
+        if not is_fused(self.scan_dtype) or compact_env == "0":
             return None
+        if compact_env == "force":
+            return pad_rows(len(self), TN) // TN
         bt = TB if batch is None else min(TB, ((int(batch) + 31) // 32) * 32)
         key = (int(nprobe), bt)
         if key not in self._max_tiles_cache:
@@ -575,6 +662,31 @@ class IvfRabitqIndex:
                 bound = probed_tile_bound(sizes, int(nprobe), batch_tile=bt)
                 self._max_tiles_cache[key] = min(1 << (bound - 1).bit_length(), n_tiles)
         return self._max_tiles_cache[key]
+
+    def _gather_budget(self, nprobe) -> int | None:
+        """Per-query row budget of the gather scan, or None for the bin
+        scans. Opt-in by env ``RABITQ_GATHER=1``: the gather scan scores
+        every probed row exactly (``index/scan.py``), and needs the
+        cluster-sorted layout ("fused"/"fused8") and the TOTAL refine plane.
+        The budget is the sum of the ``nprobe`` largest clusters rounded up
+        to a power of two (no probed row is ever dropped); it is declined
+        above env ``RABITQ_GATHER_MAX`` (16384) or at half the rows."""
+        if os.environ.get("RABITQ_GATHER", "0") != "1":
+            return None
+        if not is_fused(self.scan_dtype) or not ex_plane_is_total(self.ex_bits):
+            return None
+        bucket = gather_budget_bucket(np.diff(self._offsets), nprobe)
+        limit = int(os.environ.get("RABITQ_GATHER_MAX", "16384"))
+        if bucket is None or bucket > limit or 2 * bucket >= len(self):
+            return None
+        return bucket
+
+    def _cluster_ranges(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """Device [C] first rows and sizes of the clusters (gather scan)."""
+        if self._cl_ranges is None:
+            offsets = torch.from_numpy(self._offsets).to(self.device)
+            self._cl_ranges = (offsets[:-1], offsets[1:] - offsets[:-1])
+        return self._cl_ranges
 
     def _pad_queries(self, queries: np.ndarray, b_pad: int):
         """Host (q, qscale | None) tensors in the upload encoding."""
@@ -596,10 +708,20 @@ class IvfRabitqIndex:
 
     def _dispatch_scan(self, q, qscale, params: SearchParams, row_allowed, **scan_kw):
         """Queue decode + rotation + scan of one padded query block on the
-        device; returns device tensors (callers fetch)."""
+        device; returns device tensors (callers fetch). The gather scan
+        serves the block where ``_gather_budget`` allows it."""
         lay = self.layout
         fused = is_fused(self.scan_dtype)
         scan_kw.setdefault("fused_exact", self._fused_exact_ok())
+        scan_kw.setdefault("locality_depth", int(os.environ.get("RABITQ_LOCALITY", "1")))
+        if "gather_rows" not in scan_kw:
+            scan_kw["gather_rows"] = self._gather_budget(params.nprobe)
+        gather_rows = scan_kw.pop("gather_rows")
+        cl_starts = cl_sizes = max_tiles = None
+        if gather_rows is not None:
+            cl_starts, cl_sizes = self._cluster_ranges()
+        else:
+            max_tiles = self._fused_max_tiles(params.nprobe, batch=q.shape[0])
         q_rot = self.rotator.rotate(decode_queries(q, qscale, self.dim))
         return scan_kernel(
             q_rot, lay.centroids, lay.binary, lay.ex, lay.f_add, lay.f_rescale,
@@ -608,9 +730,10 @@ class IvfRabitqIndex:
             nprobe=params.nprobe,
             packed=self._packed if (fused or self.scan_dtype == "packed") else None,
             fused_cblk=self._c_blk if fused else None,
+            cl_starts=cl_starts, cl_sizes=cl_sizes, gather_rows=gather_rows,
             top_k=params.top_k, rerank=params.resolved_rerank(), metric=self.metric,
             ex_bits=self.ex_bits, scan_dtype=self.scan_dtype, approx_topk=self.approx_topk,
-            max_tiles=self._fused_max_tiles(params.nprobe, batch=q.shape[0]),
+            max_tiles=max_tiles,
             probe_k=probe_k_bucket(params.nprobe, self.cluster_count(), self.scan_dtype),
             **scan_kw,
         )
@@ -627,7 +750,7 @@ class IvfRabitqIndex:
         row_allowed = self._scan_inputs(None)
         ids, dists, diag = self._dispatch_scan(
             torch.from_numpy(query).to(self.device), None, params, row_allowed,
-            with_diagnostics=True, fused_exact=False,
+            with_diagnostics=True, fused_exact=False, gather_rows=None,
         )
         results = []
         for i, dd in zip(ids[0].tolist(), dists[0].tolist()):
@@ -638,6 +761,51 @@ class IvfRabitqIndex:
         return results, SearchDiagnostics(
             estimated=d[0], skipped_by_lower_bound=d[1], extended_evaluations=d[2]
         )
+
+    # ------------------------------------------------------------------
+    # embedding reconstruction (ivf.rs:1247-1307) and persistence
+    # ------------------------------------------------------------------
+
+    def fetch_embedding(self, vector_id: int) -> np.ndarray | None:
+        """The stored vector ``vector_id`` rebuilt from its codes,
+        ``centroid + delta * total_code + vl`` rotated back (the FHT kernel
+        on the card); None for an unknown id."""
+        h = self.host
+        rows = np.flatnonzero(h.ids == vector_id)
+        if rows.size == 0:
+            return None
+        row = int(rows[0])
+        cluster = int(np.searchsorted(h.cluster_offsets, row, side="right") - 1)
+        total_code = h.ex_codes[row].astype(np.float32) + h.binary_bits[row].astype(
+            np.float32
+        ) * float(1 << self.ex_bits)
+        rec = h.centroids[cluster] + h.delta[row] * total_code + h.vl[row]
+        out = self.rotator.inverse_rotate(torch.from_numpy(rec[None, :]).to(self.device))
+        return out[0].cpu().numpy()
+
+    def save_to_path(self, path) -> None:
+        """Write the index as an RBQ1 v3 file (``io/persistence.py``)."""
+        from ..io import persistence
+
+        persistence.save_ivf(self, path)
+
+    @classmethod
+    def load_from_path(
+        cls, path, scan_dtype: str = "bf16", device: "str | torch.device | None" = None
+    ) -> "IvfRabitqIndex":
+        """Read an RBQ1 v3 file; the index lays itself out on ``device``
+        (None: the card) as a trained one does."""
+        from ..io import persistence
+
+        return persistence.load_ivf(path, scan_dtype=scan_dtype, device=device)
+
+
+def _fetch(pending, b_total: int) -> tuple[np.ndarray, np.ndarray]:
+    """Host (ids, dists) of queued per-block results, trimmed to the
+    queries asked for."""
+    ids = torch.cat([p[0] for p in pending]).cpu().numpy()[:b_total]
+    dists = torch.cat([p[1] for p in pending]).cpu().numpy()[:b_total]
+    return ids, dists
 
 
 def _check_scan_dtype(scan_dtype: str) -> None:

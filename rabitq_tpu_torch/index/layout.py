@@ -63,12 +63,35 @@ class DeviceLayout:
     packed: torch.Tensor | None = None  # [Np, Db] uint8 bit planes (fused layouts)
 
 
+def host_order_planes(lay: DeviceLayout, n: int, padded_dim: int, ex_bits: int) -> dict:
+    """The first ``n`` rows of a layout in cluster-sorted (host) order, on
+    the layout's device, as the raw planes :func:`assemble_device_layout`
+    takes: the row permutation undone, the refine plane's width pad dropped,
+    ``binary = total >> ex_bits`` where a fused layout dropped the binary
+    plane, and ``ex = total - (binary << ex_bits)`` where the refine plane
+    holds TOTAL codes."""
+    pos_of_row = np.empty_like(lay.perm)
+    pos_of_row[lay.perm] = np.arange(lay.perm.shape[0])
+    take = torch.from_numpy(pos_of_row[:n]).to(lay.ex.device)
+
+    def rows(x):
+        return x.index_select(0, take)
+
+    ex = rows(lay.ex)[:, :padded_dim]
+    binary = rows(lay.binary) if lay.binary is not None else (ex >> ex_bits).to(torch.int8)
+    if ex_plane_is_total(ex_bits):
+        ex = ex - (binary << ex_bits)
+    names = ("f_add", "f_rescale", "f_error", "f_add_ex", "f_rescale_ex", "delta", "vl")
+    return {"binary": binary, "ex": ex, **{name: rows(getattr(lay, name)) for name in names}}
+
+
 def _tensor(x, device) -> torch.Tensor:
     """A tensor on ``device`` from a tensor or a host array (unsigned
-    16-bit codes widen to int32)."""
+    16-bit codes widen to int32 on the device)."""
     if isinstance(x, np.ndarray):
         # a copy: host arrays may be read-only views
-        return torch.from_numpy(x.astype(np.int32 if x.dtype == np.uint16 else x.dtype)).to(device)
+        t = torch.from_numpy(x.copy()).to(device)
+        return t.to(torch.int32) if t.dtype == torch.uint16 else t
     return torch.as_tensor(x).to(device)
 
 

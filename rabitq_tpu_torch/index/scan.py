@@ -12,7 +12,10 @@ Per query block, :func:`scan_kernel` ranks the centroids, marks the first
 * dense (``scan_dtype`` "f32"/"bf16"/"int8"/"packed"): a ``[B, Np]`` plane
   of 1-bit lower bounds (a matrix product and torch ops, or for "packed" the
   packed lower-bound kernel with the g terms and masks in its epilogue), a
-  top-``rerank`` survivor selection over it, then the same stage 2.
+  top-``rerank`` survivor selection over it, then the same stage 2;
+* gather (``gather_rows``, opt-in on cluster-sorted layouts): the probed
+  clusters' rows of each query gathered and scored exactly, no bins and no
+  survivor cut (:func:`_gather_scan`).
 
 The products, gathers and selections outside the kernels are torch ops, as
 they are XLA ops in the reference.
@@ -109,7 +112,27 @@ def decode_queries(q: torch.Tensor, qscale: torch.Tensor | None, dim: int) -> to
     return q
 
 
+def gather_rows_bound(cluster_sizes, nprobe: int) -> int:
+    """Safe per-query bound on probed rows: the sum of the ``nprobe``
+    largest cluster sizes (a query probes ``nprobe`` clusters; pruning and
+    filters only shrink the set)."""
+    sizes = np.sort(np.asarray(cluster_sizes, np.int64))[::-1]
+    return int(sizes[: max(int(nprobe), 1)].sum())
+
+
+def gather_budget_bucket(cluster_sizes, nprobe) -> int | None:
+    """:func:`gather_rows_bound` rounded up to a power of two, or None when
+    the gather scan does not apply (no integer nprobe, no rows)."""
+    if not isinstance(nprobe, (int, np.integer)):
+        return None
+    bound = gather_rows_bound(cluster_sizes, int(nprobe))
+    if bound <= 0:
+        return None
+    return 1 << (bound - 1).bit_length()
+
+
 _DOT_ROWS = 1 << 17  # code rows converted per product of _stage1_dots
+_GATHER_BYTES = 1 << 30  # f32 code rows one query sub-block of the gather scan holds
 
 
 def _stage1_dots(q_rot: torch.Tensor, codes: torch.Tensor, scan_dtype: str) -> torch.Tensor:
@@ -160,6 +183,8 @@ def scan_kernel(
     prune_epsilon: float = 0.0,
     packed: torch.Tensor | None = None,  # [Np, Db] uint8 bit planes ("packed"/fused)
     fused_cblk: torch.Tensor | None = None,  # [N_tiles] int32 (fused windows)
+    cl_starts: torch.Tensor | None = None,  # [C] first row of each cluster (gather)
+    cl_sizes: torch.Tensor | None = None,  # [C] rows of each cluster (gather)
     *,
     top_k: int,
     rerank: int,
@@ -174,6 +199,7 @@ def scan_kernel(
     with_diagnostics: bool = False,
     max_tiles: int | None = None,
     probe_k: int | None = None,
+    gather_rows: int | None = None,
     fused_exact: bool = False,
     fused_exact_sort: bool = True,
     locality_depth: int = 1,
@@ -190,7 +216,10 @@ def scan_kernel(
     ``approx_topk`` selects survivors from the bf16 plane as the reference
     does; the selection itself is an exact ``torch.topk`` (the reference's
     approximate op has no counterpart, and an exact selection is one of its
-    legal outcomes)."""
+    legal outcomes).
+
+    With ``gather_rows`` (a static per-query row budget, cluster-sorted rows
+    and the TOTAL refine plane) the gather scan serves the block instead."""
     b = q_rot.shape[0]
     n_rows = ids.shape[0]
     n_clusters = centroids.shape[0]
@@ -212,6 +241,17 @@ def scan_kernel(
         # MSTG dynamic pruning (mstg/index.rs:349-362) on squared distances
         ranked_sq = -ranked_sel
         within = within & (ranked_sq <= ranked_sq[:, :1] * (1.0 + prune_epsilon) ** 2)
+
+    if gather_rows is not None:
+        if cl_starts is None or cl_sizes is None:
+            raise ValueError("the gather scan needs the cluster row ranges")
+        if not (ex_bits > 0 and refine_ex and ex_plane_is_total(ex_bits)):
+            raise ValueError("the gather scan needs the TOTAL refine plane (ex_bits 1..6)")
+        return _gather_scan(
+            q_rot, qc, g_add, ranked, within, cl_starts, cl_sizes, ex, f_add_ex,
+            f_rescale_ex, row_allowed, ids, top_k=top_k, metric=metric, scan_dtype=scan_dtype,
+            clamp_l2=clamp_l2, gather_rows=gather_rows, with_diagnostics=with_diagnostics,
+        )
     probe_mask = torch.zeros((b, n_clusters), dtype=torch.bool, device=q_rot.device)
     probe_mask.scatter_(1, ranked, within)
 
@@ -332,6 +372,62 @@ def scan_kernel(
     else:
         probed = allowed.sum(dim=1, dtype=torch.int32)
     return (*result, _diagnostics(probed, cand_ok, ex_bits, refine_ex))
+
+
+def _gather_scan(
+    q_rot, qc, g_add, ranked, within, cl_starts, cl_sizes, ex_total, f_add_ex, f_rescale_ex,
+    row_allowed, ids, *, top_k, metric, scan_dtype, clamp_l2, gather_rows, with_diagnostics,
+):
+    """Exact scoring of every probed row by a per-query row gather
+    (reference ``rabitq_tpu/index/scan.py:_gather_scan``).
+
+    Each query's probed clusters (``ranked`` best-first, ``within`` the
+    probed mask) are flattened into a ``[B, R]`` matrix of rows (R =
+    ``gather_rows``; slots past a query's probed rows are masked), their
+    TOTAL codes gathered and dotted with the query, scored with the extended
+    estimator (``ivf.rs:2086-2099``), and the best ``top_k`` kept. The
+    gather runs over sub-blocks of queries so that the f32 codes of one
+    sub-block stay within ``_GATHER_BYTES``; outside the f32 oracle
+    configuration the query is rounded to bf16 (the codes are exact in
+    bf16, the sums f32)."""
+    b = q_rot.shape[0]
+    r_idx = torch.arange(gather_rows, device=q_rot.device)
+    seg_len = torch.where(within, cl_sizes[ranked], 0)  # [B, k_sel]
+    cum = torch.cumsum(seg_len, dim=1)
+    # segment of each slot: the first cumulative size strictly above it
+    seg = torch.searchsorted(cum, r_idx.expand(b, -1).contiguous(), right=True)
+    seg = torch.clamp_max(seg, cum.shape[1] - 1)
+    cluster = torch.gather(ranked, 1, seg)  # [B, R]
+    prev = torch.where(seg > 0, torch.gather(cum, 1, torch.clamp_min(seg - 1, 0)), 0)
+    valid = r_idx[None, :] < cum[:, -1:]
+    row = torch.where(valid, cl_starts[cluster] + (r_idx[None, :] - prev), 0)
+
+    q_op = q_rot if scan_dtype == "f32" else q_rot.to(torch.bfloat16).to(torch.float32)
+    if ex_total.shape[1] != q_op.shape[1]:  # width-padded refine plane
+        q_op = torch.nn.functional.pad(q_op, (0, ex_total.shape[1] - q_op.shape[1]))
+    tdot = torch.empty((b, gather_rows), dtype=torch.float32, device=q_rot.device)
+    step = max(1, _GATHER_BYTES // (gather_rows * ex_total.shape[1] * 4))
+    for s in range(0, b, step):
+        codes = ex_total[row[s : s + step]].to(torch.float32)  # [b_s, R, D]
+        tdot[s : s + step] = torch.bmm(codes, q_op[s : s + step, :, None])[:, :, 0]
+    dist = f_add_ex[row] + torch.gather(g_add, 1, cluster) + f_rescale_ex[row] * (
+        tdot + qc.kbx_sum_q[:, None]
+    )
+    ok = valid & row_allowed[row]
+    dist = torch.where(ok & torch.isfinite(dist), dist, float("inf"))
+
+    # final top-k: stable, ties to the earlier slot as lax.top_k breaks them
+    k = min(top_k, gather_rows)
+    result_dist, pos = torch.sort(dist, dim=1, stable=True)
+    result_dist = _clamp_l2(result_dist[:, :k], metric, clamp_l2)
+    result_rows = torch.gather(row, 1, pos[:, :k])
+    result_ids = torch.where(torch.isfinite(result_dist), ids[result_rows], -1)
+    result = _pad_results(result_ids, result_dist, top_k)
+    if not with_diagnostics:
+        return result
+    # every offered row is scored exactly: none is cut by a lower bound
+    estimated = ok.sum(dim=1, dtype=torch.int32)
+    return (*result, torch.stack([estimated, torch.zeros_like(estimated), estimated], dim=1))
 
 
 def _diagnostics(probed, cand_ok, ex_bits: int, refine_ex: bool) -> torch.Tensor:

@@ -269,7 +269,11 @@ def probe_words(probe_mask: torch.Tensor) -> torch.Tensor:
     shifts = torch.arange(8, dtype=torch.int32, device=probe_mask.device)[:, None]
     bits = probe_mask.reshape(b // 32, 4, 8, c).to(torch.int32) << shifts
     octets = bits.sum(dim=2).to(torch.uint8)  # [B // 32, 4, C]: byte k of each word
-    return octets.permute(0, 2, 1).contiguous().view(torch.int32)[..., 0]
+    # a fresh tensor has the canonical strides the int32 view needs, also
+    # where a dimension is 1 (one block of 32 queries, or one cluster)
+    words = torch.empty((b // 32, c, 4), dtype=torch.uint8, device=probe_mask.device)
+    words.copy_(octets.permute(0, 2, 1))
+    return words.view(torch.int32)[..., 0]
 
 
 def packed_lb_plane_cuda(

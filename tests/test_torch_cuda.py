@@ -442,3 +442,88 @@ def test_8bit_index_on_the_card_matches_the_cpu(cuda, scan_dtype):
         g_ids, _ = gpu.batch_search_arrays(data[:64], SearchParams(top_k=10, nprobe=40))
         assert np.all(g_ids[:, 0] == np.arange(64))
         assert gpu.layout.packed is None and gpu._packed is not None
+
+
+@pytest.mark.parametrize("n", [4096 + 128, 65536 + 384])
+@pytest.mark.parametrize("b", [8, 300])
+def test_packed_lb_plane_one_cluster_matches_plain(cuda, n, b):
+    """G_TABLE as the brute-force index runs it: one cluster (a [B, 1] g
+    table, every row in cluster 0, every query probing it) and a filter
+    that masks some rows."""
+    args = list(_lb_plane_inputs(cuda, n, b, seed=n + b))
+    args[5], args[6] = args[5][:, :1].clone(), args[6][:, :1].clone()  # g terms of cluster 0
+    args[5][b // 3, 0] = float("inf")  # a query whose lower bounds are not finite
+    args[8] = torch.zeros(n, dtype=torch.int32, device=cuda)
+    args[9] = torch.ones((b, 1), dtype=torch.bool, device=cuda)
+    before = ps.packed_lb_plane_cuda.launches
+    got = ps.packed_lb_plane(*args)
+    assert ps.packed_lb_plane_cuda.launches == before + 1
+    want = ps.packed_lb_plane_plain(*args)
+    assert bool((want == -float("inf")).any()) and bool((want == float("inf")).any())
+    _assert_plane_matches(got, want)
+
+
+def _cpu_and_card_indexes(cuda, total_bits=7, scan_dtype="fused8"):
+    """An index built on the CPU and the same codes carried to the card."""
+    rng = np.random.default_rng(4)
+    cents = (rng.standard_normal((80, 200)) * 2).astype(np.float32)  # 80 blobs of 50 rows
+    data = (cents[np.arange(4000) % 80] + rng.standard_normal((4000, 200))).astype(np.float32)
+    assign = ((data[:, None, :] - cents[None]) ** 2).sum(-1).argmin(1)
+    cpu = IvfRabitqIndex.train_with_clusters(
+        data, cents, assign, total_bits, seed=3, scan_dtype=scan_dtype, device="cpu")
+    h = cpu.host
+    card = IvfRabitqIndex.from_host_arrays(
+        dim=cpu.dim, padded_dim=cpu.padded_dim, metric=cpu.metric, ex_bits=cpu.ex_bits,
+        rotator_type=cpu.rotator.rotator_type, rotator_bytes=cpu.rotator.serialize(),
+        binary_bits=h.binary_bits, ex_codes=h.ex_codes, f_add=h.f_add, f_rescale=h.f_rescale,
+        f_error=h.f_error, f_add_ex=h.f_add_ex, f_rescale_ex=h.f_rescale_ex, delta=h.delta,
+        vl=h.vl, ids=h.ids, cluster_offsets=h.cluster_offsets, centroids=h.centroids,
+        scan_dtype=scan_dtype, device=cuda,
+    )
+    return data, cpu, card
+
+
+def test_gather_scan_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    """The gather scan (torch ops and the FHT kernel) on the card against the
+    same scan on the CPU over the same codes: top-10 lists agree on >= 99%
+    of ids (sums in another order may swap near ties), common distances to
+    rtol 1e-4 or 1e-2 absolute (a query's distance to itself is ~0, the
+    difference of terms of ~4e2: 2.5e-5 of them)."""
+    from rabitq_tpu_torch.index import scan
+
+    monkeypatch.setenv("RABITQ_GATHER", "1")
+    data, cpu, card = _cpu_and_card_indexes(cuda)
+    calls = []
+    real = scan._gather_scan
+    monkeypatch.setattr(scan, "_gather_scan", lambda *a, **k: calls.append(1) or real(*a, **k))
+    params = SearchParams(top_k=10, nprobe=4)
+    assert card._gather_budget(4) == cpu._gather_budget(4) is not None
+    g_ids, g_d = card.batch_search_arrays(data[:64], params)
+    c_ids, c_d = cpu.batch_search_arrays(data[:64], params)
+    assert len(calls) == 2
+    assert np.mean([len(set(g_ids[i]) & set(c_ids[i])) / 10 for i in range(64)]) >= 0.99
+    assert np.all(g_ids[:, 0] == np.arange(64))
+    for i in range(64):
+        want = dict(zip(c_ids[i].tolist(), c_d[i].tolist()))
+        for rid, d in zip(g_ids[i].tolist(), g_d[i].tolist()):
+            if rid in want:
+                assert d == pytest.approx(want[rid], rel=1e-4, abs=1e-2)
+
+
+def test_rbq1_from_the_card_loads_on_the_cpu(cuda, tmp_path):
+    """An index trained on the card, saved (its host copy downloaded from the
+    card's layout), loads on the CPU with the same codes and answers with
+    the same ids."""
+    rng = np.random.default_rng(6)
+    data = rng.standard_normal((4000, 200)).astype(np.float32)
+    card = IvfRabitqIndex.train(data, nlist=40, total_bits=7, seed=3, scan_dtype="fused8",
+                                device=cuda)
+    card.save_to_path(tmp_path / "card.rbq")
+    cpu = IvfRabitqIndex.load_from_path(tmp_path / "card.rbq", scan_dtype="fused8", device="cpu")
+    np.testing.assert_array_equal(cpu.host.ex_codes, card.host.ex_codes)
+    np.testing.assert_array_equal(cpu.host.ids, card.host.ids)
+    params = SearchParams(top_k=10, nprobe=8)
+    g_ids, _ = card.batch_search_arrays(data[:64], params)
+    c_ids, _ = cpu.batch_search_arrays(data[:64], params)
+    assert np.mean([len(set(g_ids[i]) & set(c_ids[i])) / 10 for i in range(64)]) >= 0.99
+    assert np.all(c_ids[:, 0] == np.arange(64)) and np.all(g_ids[:, 0] == np.arange(64))

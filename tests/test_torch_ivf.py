@@ -232,3 +232,28 @@ def test_clamp_l2_clamps_after_ranking(pair):
     assert torch.equal(ids, c_ids)
     want = torch.clamp_min(d, 0.0) if tidx.metric.value == "l2" else d
     assert torch.equal(c_d, want)
+
+
+@pytest.mark.parametrize("upload", ["f32", "bf16", "int8", "int4"])
+def test_resident_queries(pair, upload):
+    """upload_queries + batch_search_resident equal batch_search_arrays on
+    the same upload_dtype (ids equal, distances to rtol 1e-6), and with f32
+    uploads agree with the JAX package's resident path."""
+    data, jidx, tidx = pair
+    queries = data[200:237]
+    tidx.upload_dtype = upload
+    try:
+        handle = tidx.upload_queries(queries)
+        r_ids, r_d = tidx.batch_search_resident(handle, tr.SearchParams(*PARAMS), batch_size=16)
+        a_ids, a_d = tidx.batch_search_arrays(queries, tr.SearchParams(*PARAMS))
+        empty = tidx.batch_search_resident(handle, tr.SearchParams(0, 4))
+    finally:
+        tidx.upload_dtype = "f32"
+    assert r_ids.shape == (37, 10) and empty[0].shape == (37, 0)
+    np.testing.assert_array_equal(r_ids, a_ids)
+    np.testing.assert_allclose(r_d, a_d, rtol=1e-6)
+    if upload == "f32":
+        j_ids, j_d = jidx.batch_search_resident(
+            jidx.upload_queries(queries), jr.SearchParams(*PARAMS), batch_size=16
+        )
+        _agree(j_ids, j_d, r_ids, r_d)

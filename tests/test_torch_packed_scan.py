@@ -197,3 +197,24 @@ def test_packed_lb_plane_kernel_tables():
     u = bits.numpy().view(np.uint32).astype(np.int64)
     back = (u[:, None, :] >> np.arange(32)[None, :, None]) & 1
     assert np.array_equal(back.reshape(64, 7).astype(bool), probe.numpy())
+
+
+def test_packed_lb_plane_kernel_tables_one_cluster():
+    """The same tables at C = 1, the brute-force index's one cluster, and
+    for a single block of 32 queries: size-1 dimensions must not break the
+    words' byte view."""
+    probe = torch.zeros((96, 1), dtype=torch.bool)
+    probe[[0, 31, 40, 95]] = True
+    bits = tps.probe_words(probe)
+    assert bits.shape == (3, 1) and bits.dtype == torch.int32
+    assert bits.numpy().view(np.uint32)[:, 0].tolist() == [1 | 1 << 31, 1 << 8, 1 << 31]
+    words = tps.g_table(torch.full((96, 1), 2.0), torch.full((96, 1), -1.0))
+    assert words.shape == (96, 1)
+    assert set(words.numpy().view(np.uint32)[:, 0].tolist()) == {0xBF80_4000}
+    assert torch.equal(tps.probe_words(probe.expand(96, 3)), bits.expand(3, 3))
+    # one block of 32 queries, with one cluster and with many
+    for c in (1, 300):
+        one = torch.zeros((32, c), dtype=torch.bool)
+        one[5, c - 1] = True
+        got = tps.probe_words(one)
+        assert got.shape == (1, c) and got[0, c - 1] == 1 << 5 and int(got.sum()) == 1 << 5
