@@ -56,7 +56,21 @@ Between 6 and 7, on the 7-bit index and the same data:
      1M rows, served through "packed" (the packed lower-bound kernel at one
      cluster) and "bf16" with recall@10 (floor 0.90) and QPS, the kernel
      against its plain version on the packed path's inputs, a profile of a
-     packed run, and an RBF1 round trip with equal ids.
+     packed run, and an RBF1 round trip with equal ids;
+  MSTG: MstgIndex.build on the 1M rows with bench.py's configuration
+     (max_posting_size rows/500, faster config, FhtKac rotator, 7 bits,
+     fused8, seed 42), its phases, list sizes and replication, then 2048
+     queries served through batch_search_arrays_pipelined (int8 uploads,
+     batch 256, upload block 1024) at ef_search 8 and 64, epsilon 0.6, with
+     the fused EXACT gate's walk, QPS and recall@10 (floor 0.90 at ef 64),
+     after each ef's serving the direct bin kernel against its plain
+     version on that path's inputs, and a profile of one run at ef 8; then
+     bench.py's replicated variant (10% of the rows and half the queries at
+     midpoints of pairs of blob centres, closure_epsilon 0.9; at 262144
+     rows if the first build took over 60 s), served and checked the same
+     way, replication above 1 and no id twice in a result row, and at each
+     ef the device dedup against the host dedup on the same candidates and
+     recall beside the gather scan's (no bins) on the same index.
 Each of these paths zeroes the launch counters just before it and reads
 them just after; every kernel it runs must have launched.
 Then one JSON line of kernel numbers, nvidia-smi's line again, and last
@@ -86,6 +100,10 @@ ROWS, DIM, N_QUERIES, NLIST = 1_000_000, 960, 2048, 4096  # bench.py's headline
 RECALL_FLOOR = 0.90  # recall@10 at nprobe=256
 QPS_RUNS = 5  # timed serving runs per nprobe (after one warm-up)
 QPS_RUNS_8BIT = 3  # the same on the total_bits=8 index
+MSTG_EFS = (8, 64)  # ef_search served on the MSTG indexes (bench.py's sweep starts at 8)
+MSTG_EPS = 0.6  # pruning epsilon (bench.py's)
+MSTG_BUILD_CUT_S = 60.0  # a slower headline MSTG build cuts the replicated variant ...
+MSTG_CUT_ROWS = 262_144  # ... to this many rows
 
 
 def log(msg: str) -> None:
@@ -161,7 +179,8 @@ def queued_us(fn, reps: int) -> float:
 
 def make_workload(rows, n_queries, dim, n_centers, seed, device):
     """bench.py's make_workload drawn on the card: overlapping Gaussian
-    blobs, queries from the same mixture, sigma = 1.5 * (dim / 128)^0.25."""
+    blobs, queries from the same mixture, sigma = 1.5 * (dim / 128)^0.25.
+    Returns (data, queries, the blob centres)."""
     import torch
 
     g = torch.Generator(device=device)
@@ -177,7 +196,7 @@ def make_workload(rows, n_queries, dim, n_centers, seed, device):
             out[s:e] = centers[a] + sigma * torch.randn((e - s, dim), generator=g, device=device)
         return out
 
-    return draw(rows), draw(n_queries)
+    return draw(rows), draw(n_queries), centers
 
 
 def ground_truth(data, queries, k):
@@ -291,8 +310,17 @@ def check_bin_scan(index, queries_np, nprobe):
     """Kernel vs plain on the exact inputs the main path hands the bin
     kernel for one 256-query block at this nprobe, in the mode the index's
     scan_dtype takes (direct, or packed with a bf16 or int8 query)."""
-    import torch
     from rabitq_tpu_torch import SearchParams
+
+    return check_bin_scan_run(
+        lambda: index.batch_search_arrays(queries_np[:256], SearchParams(top_k=10, nprobe=nprobe)),
+        f"nprobe={nprobe}")
+
+
+def check_bin_scan_run(run, label):
+    """:func:`check_bin_scan` on the first bin-kernel call that ``run()``
+    makes (one 256-query block of a path's search)."""
+    import torch
     from rabitq_tpu_torch.ops import fused_scan
 
     captured = []
@@ -304,7 +332,7 @@ def check_bin_scan(index, queries_np, nprobe):
 
     fused_scan.fused_bin_scan = spy
     try:
-        index.batch_search_arrays(queries_np[:256], SearchParams(top_k=10, nprobe=nprobe))
+        run()
     finally:
         fused_scan.fused_bin_scan = real
     args, kw = captured[0]
@@ -350,7 +378,7 @@ def check_bin_scan(index, queries_np, nprobe):
         cnt = args[9].clamp(max=args[8].shape[1])
         extra = (f", lists of {args[8].shape[1]} slots, {int(cnt.sum())} tiles listed over "
                  f"{cnt.numel()} blocks of {args[1].shape[0] // cnt.numel()} queries")
-    log(f"{what} (nprobe={nprobe}, q {tuple(args[1].shape)}, plane "
+    log(f"{what} ({label}, q {tuple(args[1].shape)}, plane "
         f"{tuple(args[0].shape)}{extra}): offered equal, max |err| {err:.3g}, idx agree "
         f"{agree:.5f}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound:.3f} ms "
         f"({bound_by}); query image {image_host:.0f} us on the host, {image_dev:.1f} us on "
@@ -556,6 +584,8 @@ def read_launches(path, needed):
     counts = {"fht": fht_kernel.launches,
               "fused_bin_scan_dense": fused_bin_scan_cuda.dense_launches,
               "fused_bin_scan_compact": fused_bin_scan_cuda.compact_launches,
+              "fused_bin_scan": fused_bin_scan_cuda.dense_launches
+              + fused_bin_scan_cuda.compact_launches,
               "packed_lb_plane": packed_lb_plane_cuda.launches}
     counts = {k: counts[k] for k in needed}
     log(f"launches on the {path} path: {counts}")
@@ -772,6 +802,221 @@ def check_brute_force(data, queries_np, gt):
     return launches, k4
 
 
+def bridged_workload(data, queries, centers, seed=99):
+    """bench.py's replicated MSTG variant drawn on the card: the last 10% of
+    the rows replaced by midpoints of pairs of the workload's blob centres
+    plus 0.3 x N(0, 1) (rows between two centroids with small residuals,
+    which the closure rule replicates), and the second half of the queries
+    drawn at midpoints of the same pairs, so that both home lists of a
+    bridge are probed together and the dedup runs."""
+    import torch
+
+    g = torch.Generator(device=data.device)
+    g.manual_seed(seed)
+    rows, dim = data.shape
+    m = rows // 10
+    n_c = centers.shape[0]
+    pa = torch.randint(0, n_c, (m,), generator=g, device=data.device)
+    pb = (pa + 1 + torch.randint(0, n_c - 1, (m,), generator=g, device=data.device)) % n_c
+    bridges = 0.5 * (centers[pa] + centers[pb]) + 0.3 * torch.randn(
+        (m, dim), generator=g, device=data.device)
+    qm = queries.shape[0] // 2
+    qsel = torch.randint(0, m, (queries.shape[0] - qm,), generator=g, device=data.device)
+    queries_v = queries.clone()
+    queries_v[qm:] = 0.5 * (centers[pa[qsel]] + centers[pb[qsel]]) + 0.3 * torch.randn(
+        (queries.shape[0] - qm, dim), generator=g, device=data.device)
+    return torch.cat([data[: rows - m], bridges]), queries_v
+
+
+def serve_mstg(index, queries_np, ef):
+    """The MSTG serving call: pipelined, batch 256, upload block 1024, top-10,
+    pruning epsilon 0.6 (bench.py's)."""
+    from rabitq_tpu_torch import MstgSearchParams
+
+    return index.batch_search_arrays_pipelined(
+        queries_np, MstgSearchParams(top_k=10, ef_search=ef, pruning_epsilon=MSTG_EPS),
+        batch_size=256, upload_block=1024)
+
+
+def mstg_variant(name, data, queries, closure_epsilon=None):
+    """Build one MSTG variant with bench.py's configuration (rows/500 list
+    cap, faster config, FhtKac rotator, 7 bits, fused8, seed 42) and serve
+    its queries at each ef: build phases, list sizes and replication, the
+    K1 gate's walk and budget, QPS (median [min, max] of 5 runs) and
+    recall@10 against an exact brute force on the card (floor 0.90 at the
+    largest ef); no result row may hold an id twice. The build and each
+    ef's serving are paths of their own: the launch counters are zeroed
+    just before and read just after. After each ef's serving, K1 is held
+    against its plain version on that path's inputs (one 256-query block).
+    Returns (index, {"build" | ef: launches}, {ef: K1 check}, build
+    seconds, ground truth)."""
+    import numpy as np
+    import torch
+    from rabitq_tpu_torch import MstgConfig, MstgIndex, MstgSearchParams
+    from rabitq_tpu_torch.index.layout import pad_rows
+    from rabitq_tpu_torch.ops.fused_scan import TN
+
+    rows = data.shape[0]
+    kw = {} if closure_epsilon is None else {"closure_epsilon": closure_epsilon}
+    cfg = MstgConfig(max_posting_size=max(rows // 500, 64), faster_config=True,
+                     use_rotator=True, rabitq_bits=7, **kw)
+    zero_launches()
+    t0 = time.perf_counter()
+    index = MstgIndex.build(data, cfg, seed=42, scan_dtype="fused8", device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    launches = {"build": read_launches(f"MSTG {name} build", ("fht",))}
+    r = index.build_report
+    sizes = np.diff(index._offsets)
+    c = r["clustering"]
+    log(f"MSTG {name} build: {build_s:.2f} s (clustering {r['clustering_s']} s: "
+        f"{c['splits']} splits over levels of {c['levels_s']} s, polish and means "
+        f"{c['polish_s']} s; closure "
+        f"{r['closure_s']} s, quantize {r['quantize_s']} s, upload {r['upload_s']} s); "
+        f"{rows} rows, {index.posting_list_count()} posting lists (max_posting_size "
+        f"{cfg.max_posting_size}, closure_epsilon {cfg.closure_epsilon}), list size p50 "
+        f"{np.percentile(sizes, 50):.0f} / p95 {np.percentile(sizes, 95):.0f} / max "
+        f"{sizes.max()}; {index.total_rows} rows in the lists, replication "
+        f"{index.replication_factor():.4f}")
+    gt = ground_truth(data, queries, 10)
+    queries_np = queries.cpu().numpy()
+    index.upload_dtype = "int8"
+    recalls, k1 = {}, {}
+    n_tiles = pad_rows(index.total_rows, TN) // TN
+    for ef in MSTG_EFS:
+        zero_launches()
+        serve_mstg(index, queries_np, ef)
+        tiles = index._fused_max_tiles(ef, batch=256)
+        walk = "dense walk" if tiles is None else f"compacted walk, budget {tiles} tiles"
+        qps = []
+        for _ in range(QPS_RUNS):
+            t0 = time.perf_counter()
+            ids, dists = serve_mstg(index, queries_np, ef)
+            qps.append(len(queries_np) / (time.perf_counter() - t0))
+        launches[ef] = read_launches(f"MSTG {name} ef={ef}", ("fht", "fused_bin_scan"))
+        if index.scan_dtype != "fused8":
+            raise AssertionError(f"MSTG {name}: fused8 was downgraded to {index.scan_dtype}")
+        if ids.shape != (len(queries_np), 10) or (ids < 0).any() or not np.isfinite(dists).all():
+            raise AssertionError(f"MSTG {name} ef={ef}: malformed results {ids.shape}")
+        if (np.diff(dists, axis=1) < 0).any():
+            raise AssertionError(f"MSTG {name} ef={ef}: result rows not sorted by distance")
+        srt = np.sort(ids, axis=1)
+        dup_rows = int(((srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0)).any(axis=1).sum())
+        if dup_rows:
+            raise AssertionError(f"MSTG {name} ef={ef}: {dup_rows} result rows hold an id twice")
+        recalls[ef] = recall_at(ids, gt, 10)
+        log(f"serve MSTG {name} ef={ef} eps={MSTG_EPS}: recall@10 {recalls[ef]:.4f}; K1 gate: "
+            f"EXACT {index._fused_exact_ok()}, {walk} of {n_tiles}; dedup "
+            f"{index._has_replicas()}, no id twice in a row; pipelined int8 QPS over "
+            f"{QPS_RUNS} runs (median [min, max]) {np.median(qps):.0f} "
+            f"[{min(qps):.0f}, {max(qps):.0f}]")
+        params = MstgSearchParams(top_k=10, ef_search=ef, pruning_epsilon=MSTG_EPS)
+        k1[ef] = check_bin_scan_run(lambda: index.batch_search(queries_np[:256], params),
+                                    f"MSTG {name} ef={ef}")
+    ef = max(MSTG_EFS)
+    if recalls[ef] < RECALL_FLOOR:
+        raise AssertionError(f"MSTG {name}: recall@10 {recalls[ef]:.4f} < {RECALL_FLOOR} at ef={ef}")
+    return index, launches, k1, build_s, gt
+
+
+def mstg_recall_witness(index, queries_np, gt):
+    """Where the replicated variant's recall goes as ef grows. At each ef,
+    on the K1 path: the raw candidates the scan hands the device dedup
+    (``rerank`` a query, best first), how many of them are second copies of
+    an id, and the device dedup's ids against the host dedup's
+    (``_dedup_results``) on the same candidates (must be equal). Then the
+    same index and queries through the gather scan (RABITQ_GATHER=1, its
+    row limit raised to the budget, both unset after): every row of the
+    probed lists scored exactly, no bins, the same dedup. Recall@10 of
+    both, over all queries and over the blob and the bridge halves."""
+    import numpy as np
+    import torch
+    from rabitq_tpu_torch.index.scan import gather_budget_bucket
+
+    b = len(queries_np)
+    half = b // 2
+
+    def split(ids):
+        return (recall_at(ids, gt, 10), recall_at(ids[:half], gt[:half], 10),
+                recall_at(ids[half:], gt[half:], 10))
+
+    for ef in MSTG_EFS:
+        raw = []
+        real = index._dedup_topk_device
+
+        def spy(ids, dists, *, top_k):
+            raw.append((ids, dists))
+            return real(ids, dists, top_k=top_k)
+
+        index._dedup_topk_device = spy
+        try:
+            ids, _ = serve_mstg(index, queries_np, ef)
+        finally:
+            del index._dedup_topk_device
+        raw_ids = torch.cat([r[0] for r in raw]).cpu().numpy()[:b]
+        raw_d = torch.cat([r[1] for r in raw]).cpu().numpy()[:b]
+        host = index._dedup_results(raw_ids, raw_d, 10)
+        for qi, row in enumerate(host):
+            if sorted(r.id for r in row) != sorted(int(i) for i in ids[qi] if i >= 0):
+                raise AssertionError(f"MSTG dedup ef={ef}: query {qi}: device ids "
+                                     f"{sorted(ids[qi])} != host {sorted(r.id for r in row)}")
+        valid = (raw_ids >= 0) & np.isfinite(raw_d)
+        distinct = np.array([np.unique(r[v]).size for r, v in zip(raw_ids, valid)])
+        copies = valid.sum(axis=1) - distinct
+        k1_recall = split(ids)
+        os.environ["RABITQ_GATHER"] = "1"
+        os.environ["RABITQ_GATHER_MAX"] = str(gather_budget_bucket(np.diff(index._offsets), ef))
+        try:
+            budget = index._gather_budget(ef)
+            if budget is None:
+                raise AssertionError(f"the gather scan's gate declined at ef {ef}")
+            g_ids, _ = serve_mstg(index, queries_np, ef)
+        finally:
+            del os.environ["RABITQ_GATHER"], os.environ["RABITQ_GATHER_MAX"]
+        g_recall = split(g_ids)
+        log(f"MSTG replicated ef={ef} witness: {raw_ids.shape[1]} candidates a query into the "
+            f"dedup, second copies of an id among them mean {copies.mean():.1f} (blob queries "
+            f"{copies[:half].mean():.1f}, bridge {copies[half:].mean():.1f}), device dedup ids "
+            f"equal to the host dedup's for all {b} queries; recall@10 (all / blob / bridge "
+            f"queries): K1 {k1_recall[0]:.4f} / {k1_recall[1]:.4f} / {k1_recall[2]:.4f}, gather "
+            f"scan (no bins, R = {budget} rows a query) {g_recall[0]:.4f} / {g_recall[1]:.4f} / "
+            f"{g_recall[2]:.4f}")
+
+
+def check_mstg(data, queries, centers):
+    """The MSTG phase: the headline variant on the 1M rows and a profile of
+    one serving run, then the replicated variant (at MSTG_CUT_ROWS rows if
+    the headline build took over MSTG_BUILD_CUT_S) and its recall witness.
+    Returns ({(variant, "build" | ef): launches}, {(variant, ef): K1
+    check})."""
+    import torch
+
+    index, head, k1_head, build_s, _ = mstg_variant("headline", data, queries)
+    queries_np = queries.cpu().numpy()
+    ef = min(MSTG_EFS)
+    profile_run(lambda: serve_mstg(index, queries_np, ef), f"MSTG headline ef={ef}")
+    del index
+    torch.cuda.empty_cache()
+    rows = data.shape[0]
+    if build_s > MSTG_BUILD_CUT_S:
+        rows = MSTG_CUT_ROWS
+        log(f"MSTG replicated variant cut to {rows} rows: the headline build took "
+            f"{build_s:.1f} s > {MSTG_BUILD_CUT_S:.0f} s")
+    data_v, queries_v = bridged_workload(data[:rows], queries, centers)
+    index, repl, k1_repl, _, gt = mstg_variant(
+        "replicated", data_v, queries_v, closure_epsilon=0.9)
+    if index.replication_factor() <= 1.0:
+        raise AssertionError("MSTG replicated: the closure rule replicated no row")
+    mstg_recall_witness(index, queries_v.cpu().numpy(), gt)
+    del index, data_v
+    torch.cuda.empty_cache()
+    launches = {("headline", k): v for k, v in head.items()}
+    launches.update({("replicated", k): v for k, v in repl.items()})
+    k1 = {("headline", k): v for k, v in k1_head.items()}
+    k1.update({("replicated", k): v for k, v in k1_repl.items()})
+    return launches, k1
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -822,7 +1067,7 @@ def main() -> int:
     # ---- main path ----
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    data, queries = make_workload(ROWS, N_QUERIES, DIM, NLIST // 2, 7, dev)
+    data, queries, centers = make_workload(ROWS, N_QUERIES, DIM, NLIST // 2, 7, dev)
     torch.cuda.synchronize()
     log(f"workload: {ROWS} x {DIM} + {N_QUERIES} queries drawn in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -901,6 +1146,9 @@ def main() -> int:
     brute, k4_bf = check_brute_force(data, queries_np, gt)
     torch.cuda.empty_cache()
     log(f"phase seconds: brute force {time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    mstg, k1_mstg = check_mstg(data, queries, centers)
+    log(f"phase seconds: MSTG {time.perf_counter() - t0:.1f}")
 
     # ---- two-stage and dense paths: total_bits=8 keeps raw ex codes, so the
     # fused scans run two-stage through the packed bin kernel
@@ -979,7 +1227,7 @@ def main() -> int:
     scan_src = "rabitq_tpu_torch/csrc/fused_bin_scan.cu"
     scan_tpu = "rabitq_tpu/ops/pallas_fused_scan.py:497"
     packed_src = "rabitq_tpu_torch/csrc/packed_bin_scan.cu"
-    paths = (launches, launches8, persist, resident, gather, brute)
+    paths = (launches, launches8, persist, resident, gather, brute) + tuple(mstg.values())
     kernels = [
         entry("fht", "rabitq_tpu_torch/csrc/fht.cu", "rabitq_tpu/ops/pallas_fht.py:49",
               sum(p["fht"] for p in paths), fht_rows[(8192, 512)]),
@@ -1001,6 +1249,11 @@ def main() -> int:
               "rabitq_tpu/ops/pallas_scan.py:141", g_plane_launches, lb["scan"]),
         entry("packed_lb_plane_brute_force", "rabitq_tpu_torch/csrc/packed_lb_scan.cu",
               "rabitq_tpu/ops/pallas_scan.py:141", brute["packed_lb_plane"], k4_bf),
+    ]
+    kernels += [
+        entry(f"fused_bin_scan_mstg_{variant}_ef{ef}", scan_src, scan_tpu,
+              mstg[(variant, ef)]["fused_bin_scan"], r)
+        for (variant, ef), r in k1_mstg.items()
     ]
     for k in kernels:
         if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms")):

@@ -1,8 +1,9 @@
 """rabitq_tpu_torch -- the PyTorch/CUDA port of rabitq_tpu for NVIDIA Hopper.
 
 A second package beside the JAX one, held against it by the tests. It
-trains IVF-RaBitQ and brute-force indexes, saves and loads them in the
-reference's RBQ1/RBF1 files, and serves batched searches through the fused
+trains IVF-RaBitQ and brute-force indexes and builds MSTG ones, saves and
+loads them in the reference's RBQ1/RBF1 files and the MSTG native and
+reference formats, and serves batched searches through the fused
 EXACT scan, the two-stage fused scan, the gather scan and the dense scans;
 the FHT inside every rotation, the two bin scans and the packed lower-bound
 scan are hand-written CUDA kernels (``csrc/``), built with ``nvcc`` at first
@@ -22,6 +23,7 @@ from .types import Metric, RotatorType, SearchDiagnostics, SearchParams, SearchR
 from .index.brute_force import BruteForceRabitqIndex, BruteForceSearchParams
 from .index.ivf import IvfRabitqIndex
 from .index.loader import RabitqIndex, load_index
+from .index.mstg import MstgConfig, MstgIndex, MstgSearchParams, ScalarPrecision
 
 __version__ = "0.1.0"
 
@@ -34,6 +36,10 @@ __all__ = [
     "IvfRabitqIndex",
     "BruteForceRabitqIndex",
     "BruteForceSearchParams",
+    "MstgConfig",
+    "MstgIndex",
+    "MstgSearchParams",
+    "ScalarPrecision",
     "RabitqIndex",
     "load_index",
     "RabitqError",

@@ -25,9 +25,8 @@ from ..ops.rotation import Rotator, make_rotator
 from ..types import Metric, RotatorType, SearchResult
 from ..utils.device import resolve_device
 from .build import build_codes_device, exact_t_rows
-from .ivf import _pad_pow2
 from .layout import DeviceLayout, assemble_device_layout, host_order_planes
-from .scan import scan_kernel
+from .scan import _pad_pow2, scan_kernel
 
 
 @dataclass(frozen=True)

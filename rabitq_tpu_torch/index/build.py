@@ -36,11 +36,17 @@ def exact_t_rows(
     rotator: Rotator | None,
     ex_bits: int,
     chunk: int = 32768,
+    centroids_rotated: np.ndarray | None = None,  # [C, Dq] ROTATED-space base
 ) -> np.ndarray:
     """Per-output-row exact rescale t on the host: rotation is linear, so the
     rotated residual is ``rotate_np(row - raw_centroid)``, swept by
     :func:`best_rescale_factor_exact` (the reference's default,
-    ``quantizer.rs:332``)."""
+    ``quantizer.rs:332``). ``centroids_rotated`` subtracts the base after the
+    rotation instead, for centroids rounded in rotated space (MSTG's
+    ``centroid_precision`` with ``use_rotator``): rounding does not commute
+    with rotation."""
+    if centroids is not None and centroids_rotated is not None:
+        raise ValueError("pass centroids or centroids_rotated, not both")
     m = assign.shape[0]
     out = np.empty(m, np.float32)
     for s in range(0, m, chunk):
@@ -51,6 +57,8 @@ def exact_t_rows(
             resid = resid - centroids[assign[s:e]]
         if rotator is not None:
             resid = rotator.rotate_np(resid)
+        if centroids_rotated is not None:
+            resid = resid - centroids_rotated[assign[s:e]]
         o = np.abs(resid)
         norm = np.linalg.norm(o, axis=-1, keepdims=True)
         o = o / np.maximum(norm, np.finfo(np.float32).eps)

@@ -51,6 +51,7 @@ from ..ops.rotation import Rotator, deserialize_rotator, make_rotator
 from ..types import Metric, RotatorType, SearchDiagnostics, SearchParams, SearchResult
 from ..utils.device import resolve_device, synchronize
 from ..utils.logging import get_logger, timed
+from ..utils.transfer import upload_dataset
 from .build import build_codes_device, exact_t_rows
 from .layout import (
     DeviceLayout,
@@ -60,24 +61,19 @@ from .layout import (
     pad_rows,
 )
 from .scan import (
-    SCAN_DTYPES,
+    _fetch,
+    _pad_pow2,
     decode_queries,
+    encode_queries,
     ex_plane_is_total,
     gather_budget_bucket,
     is_fused,
-    pack_int4_queries,
     probe_k_bucket,
     scan_kernel,
+    serve_pipelined,
 )
 
 _log = get_logger("ivf")
-
-
-def _pad_pow2(b: int) -> int:
-    p = 1
-    while p < b:
-        p *= 2
-    return p
 
 
 def allowed_id_table(filter_ids: np.ndarray, max_id: int) -> np.ndarray:
@@ -122,7 +118,6 @@ class IvfRabitqIndex:
         scan_dtype: str = "bf16",
         approx_topk: bool | None = None,
     ):
-        _check_scan_dtype(scan_dtype)
         self.dim = dim
         self.padded_dim = padded_dim
         self.metric = metric
@@ -164,14 +159,17 @@ class IvfRabitqIndex:
         use_faster_config: bool = False,
         kmeans_iters: int = 30,
         scan_dtype: str = "bf16",
+        data_upload: str = "auto",
         kmeans_dtype: str = "auto",
         kmeans_tol: float = 1e-3,
         device: "str | torch.device | None" = None,
     ) -> "IvfRabitqIndex":
         """Train from scratch (``ivf.rs:950-1021``): k-means on the raw
         rows, rotate, quantize residuals per cluster. ``data`` is a host
-        array or a tensor (already on ``device`` saves the upload).
-        ``device=None`` means the card."""
+        array or a tensor (a tensor already on ``device`` is used as is).
+        ``data_upload`` is the host rows' upload encoding
+        (``utils/transfer.upload_dataset``: "auto" sends more than 512 MB as
+        bf16). ``device=None`` means the card."""
         dev = resolve_device(device)
         n, dim = data.shape
         if n == 0:
@@ -182,10 +180,8 @@ class IvfRabitqIndex:
             raise InvalidConfig("total_bits must be between 1 and 16")
         if nlist > n:
             raise InvalidConfig("nlist cannot exceed number of vectors")
-        _check_scan_dtype(scan_dtype)
         t0 = time.perf_counter()
-        data_dev = torch.as_tensor(data, dtype=torch.float32).to(dev)
-        synchronize(dev)
+        data_dev, upload_report = upload_dataset(data, data_upload, dev)
         t_upload = time.perf_counter()
         if kmeans_dtype == "auto":
             kmeans_dtype = kmeans_ops.auto_assign_dtype(n, dim)
@@ -202,6 +198,7 @@ class IvfRabitqIndex:
         synchronize(dev)
         t_end = time.perf_counter()
         index.build_report = {
+            "upload": upload_report,
             "upload_s": round(t_upload - t0, 2),
             "kmeans_s": round(t_kmeans - t_upload, 2),
             "kmeans": {**(km.report or {}), "iters": km.iters},
@@ -243,7 +240,6 @@ class IvfRabitqIndex:
             raise InvalidConfig("nlist cannot exceed number of vectors")
         if assignments.min(initial=0) < 0 or assignments.max(initial=0) >= centroids.shape[0]:
             raise InvalidConfig("assignments reference invalid cluster ids")
-        _check_scan_dtype(scan_dtype)
         return cls._build(
             data, torch.from_numpy(data).to(dev), torch.from_numpy(centroids).to(dev),
             assignments, total_bits, metric, rotator_type, seed, use_faster_config,
@@ -515,29 +511,20 @@ class IvfRabitqIndex:
                 np.full((b_total, 0), np.inf, np.float32),
             )
         row_allowed = self._scan_inputs(filter_ids)
-        bs = _pad_pow2(min(batch_size, _pad_pow2(b_total)))
-        ub = bs if upload_block is None else _pad_pow2(min(max(upload_block, bs), _pad_pow2(b_total)))
-        pending = []
-        staged = []  # pinned host blocks stay alive until the final fetch
-        for s in range(0, b_total, ub):
-            host = self._pad_queries(queries[s : s + ub], ub)
-            if self.device.type == "cuda":
-                host = tuple(None if h is None else h.pin_memory() for h in host)
-                staged.append(host)
-            q, qscale = (None if h is None else h.to(self.device, non_blocking=True) for h in host)
-            for off in range(0, min(ub, b_total - s), bs):
-                pending.append(self._dispatch_scan(
-                    q[off : off + bs], None if qscale is None else qscale[off : off + bs],
-                    params, row_allowed,
-                ))
-        return _fetch(pending, b_total)
+        return serve_pipelined(
+            queries, batch_size, upload_block, self._pad_queries, self.device,
+            lambda q, qscale: self._dispatch_scan(q, qscale, params, row_allowed),
+        )
 
     def upload_queries(self, queries: np.ndarray):
         """Encode the queries once with the current ``upload_dtype`` and keep
         them on the device: ``batch_search_resident`` then searches them
         again (a parameter sweep, say) with no query byte crossing the host
-        link. Returns an opaque handle."""
-        queries = self._check_queries(queries)
+        link. Returns an opaque handle. Like the reference, this checks the
+        queries' width only; an empty index refuses at the search."""
+        queries = np.atleast_2d(np.asarray(queries, np.float32))
+        if queries.shape[1] != self.dim:
+            raise DimensionMismatch(self.dim, queries.shape[1])
         q, qscale = self._pad_queries(queries, _pad_pow2(queries.shape[0]))
         return (q.to(self.device), None if qscale is None else qscale.to(self.device),
                 queries.shape[0])
@@ -690,21 +677,7 @@ class IvfRabitqIndex:
 
     def _pad_queries(self, queries: np.ndarray, b_pad: int):
         """Host (q, qscale | None) tensors in the upload encoding."""
-        q = np.zeros((b_pad, self.dim), np.float32)
-        q[: queries.shape[0]] = queries
-        if self.upload_dtype == "bf16":
-            return torch.from_numpy(q).to(torch.bfloat16), None
-        if self.upload_dtype == "int8":
-            # symmetric per-query quantization: a quarter of the bytes
-            scale = np.maximum(np.abs(q).max(axis=1), 1e-30) / 127.0
-            q_i8 = np.clip(np.rint(q / scale[:, None]), -127, 127).astype(np.int8)
-            return torch.from_numpy(q_i8), torch.from_numpy(scale.astype(np.float32))
-        if self.upload_dtype == "int4":
-            packed, scale = pack_int4_queries(q)
-            return torch.from_numpy(packed), torch.from_numpy(scale)
-        if self.upload_dtype != "f32":
-            raise InvalidConfig(f"unknown upload_dtype {self.upload_dtype!r}")
-        return torch.from_numpy(q), None
+        return encode_queries(queries, b_pad, self.dim, self.upload_dtype)
 
     def _dispatch_scan(self, q, qscale, params: SearchParams, row_allowed, **scan_kw):
         """Queue decode + rotation + scan of one padded query block on the
@@ -798,16 +771,3 @@ class IvfRabitqIndex:
         from ..io import persistence
 
         return persistence.load_ivf(path, scan_dtype=scan_dtype, device=device)
-
-
-def _fetch(pending, b_total: int) -> tuple[np.ndarray, np.ndarray]:
-    """Host (ids, dists) of queued per-block results, trimmed to the
-    queries asked for."""
-    ids = torch.cat([p[0] for p in pending]).cpu().numpy()[:b_total]
-    dists = torch.cat([p[1] for p in pending]).cpu().numpy()[:b_total]
-    return ids, dists
-
-
-def _check_scan_dtype(scan_dtype: str) -> None:
-    if scan_dtype not in SCAN_DTYPES:
-        raise InvalidConfig(f"unknown scan_dtype {scan_dtype!r}; one of {SCAN_DTYPES}")

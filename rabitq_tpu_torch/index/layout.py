@@ -69,7 +69,8 @@ def host_order_planes(lay: DeviceLayout, n: int, padded_dim: int, ex_bits: int) 
     takes: the row permutation undone, the refine plane's width pad dropped,
     ``binary = total >> ex_bits`` where a fused layout dropped the binary
     plane, and ``ex = total - (binary << ex_bits)`` where the refine plane
-    holds TOTAL codes."""
+    holds TOTAL codes. ``delta`` and ``vl`` are left out where the layout
+    holds none."""
     pos_of_row = np.empty_like(lay.perm)
     pos_of_row[lay.perm] = np.arange(lay.perm.shape[0])
     take = torch.from_numpy(pos_of_row[:n]).to(lay.ex.device)
@@ -82,7 +83,8 @@ def host_order_planes(lay: DeviceLayout, n: int, padded_dim: int, ex_bits: int) 
     if ex_plane_is_total(ex_bits):
         ex = ex - (binary << ex_bits)
     names = ("f_add", "f_rescale", "f_error", "f_add_ex", "f_rescale_ex", "delta", "vl")
-    return {"binary": binary, "ex": ex, **{name: rows(getattr(lay, name)) for name in names}}
+    planes = {name: rows(getattr(lay, name)) for name in names if getattr(lay, name) is not None}
+    return {"binary": binary, "ex": ex, **planes}
 
 
 def _tensor(x, device) -> torch.Tensor:

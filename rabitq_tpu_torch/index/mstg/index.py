@@ -1,0 +1,934 @@
+"""MSTG (Multi-Scale Tree Graph) index on the card (port of
+``rabitq_tpu/index/mstg/index.py``).
+
+SPANN-style, after the reference ``MstgIndex`` (lqhl/rabitq-rs
+``src/mstg/``): hierarchical balanced clustering (``clustering.py``) ->
+closure multi-assignment (``closure.py``) -> per-posting-list RaBitQ
+quantization (``index/build.py``; in the original space, or rotated by an
+FhtKac rotator with ``config.use_rotator``) -> centroid navigation -> dynamic
+pruning -> the scan of the selected posting lists.
+
+As in the JAX package:
+
+* navigation is an exact top-``ef_search`` centroid ranking by L2 (an HNSW
+  graph is built only for the reference-format files, ``ref_io.py``);
+* posting lists are one flat row space served by ``index/scan.scan_kernel``
+  with ``use_prune_epsilon``, ``clamp_l2`` and ``centroid_select_l2`` and a
+  layout whose ``f_error`` is zero, as the reference's scan zeroes it
+  (``mstg/index.rs:285-299``). ``scan_dtype`` picks the scan and the layout
+  as for ``IvfRabitqIndex``; the fused scans reach the bin-scan kernels, the
+  rotator the FHT kernel;
+* closure replication puts a vector in several lists, so a scan returns a
+  replication-sized candidate set and the device keeps the first (best)
+  occurrence of each id (``_dedup_topk_device``); an index without replicas
+  skips both;
+* with ``config.refine_ex`` (default) survivors are re-scored with the
+  extended codes.
+
+``len(index)`` is the largest id + 1; ``total_rows`` counts the replicas,
+and the scans' tile and gather budgets count rows. The host copy of a built
+index is downloaded from the device layout at first use
+(``layout.host_order_planes``). Files: the native single-file format v1003
+(v1001/v1002 read), byte-identical to the JAX package's, and the reference's
+bincode v1 set (``ref_io.py``).
+"""
+
+from __future__ import annotations
+
+import os
+import struct
+import time
+import zlib
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ...errors import DimensionMismatch, EmptyIndex, InvalidConfig, InvalidPersistence
+from ...ops import packing
+from ...ops.fused_scan import (
+    EXACT_MAX_WIDTH,
+    TB,
+    TN,
+    TWO_STAGE_MAX_WIDTH,
+    TWO_STAGE_MAX_WIDTH_INT8,
+    expected_tile_cost,
+    fused_geometry_ok,
+    probed_tile_bound,
+    tile_cluster_blocks,
+)
+from ...ops.kmeans import auto_assign_dtype
+from ...ops.packed_scan import pack_bitplanes
+from ...ops.quantize import compute_const_scaling_factor
+from ...ops.rotation import FhtKacRotator, make_rotator
+from ...types import Metric, RotatorType, SearchDiagnostics, SearchResult
+from ...utils.device import resolve_device, synchronize
+from ...utils.logging import get_logger, timed
+from ...utils.transfer import upload_dataset
+from ..build import build_codes_device, exact_t_rows
+from ..layout import assemble_device_layout, cluster_of_rows, host_order_planes, pad_rows
+from ..scan import (
+    _fetch,
+    _pad_pow2,
+    decode_queries,
+    encode_queries,
+    ex_plane_is_total,
+    gather_budget_bucket,
+    is_fused,
+    probe_k_bucket,
+    scan_kernel,
+    serve_pipelined,
+    sort_result_rows,
+)
+from .clustering import hierarchical_cluster
+from .closure import closure_assign
+from .config import MstgConfig, MstgSearchParams, ScalarPrecision
+from .metadata import PostingListDirectory
+from .scalar_quant import apply_centroid_precision, dequantize_centroids, quantize_centroids
+
+_log = get_logger("mstg")
+
+_MAGIC = b"MSTG"
+# native single-file format (distinct from the reference's bincode-v1
+# multi-file format); v1003 stores centroids in their configured scalar
+# precision (bf16 bits / fp16 halves / int8+scale) instead of always f32
+_VERSION = 1003
+_HEADER = "<IBBBBffIIfIB"
+_PLANE_FIELDS = ("binary", "ex", "f_add", "f_rescale", "f_add_ex", "f_rescale_ex")
+_SMALL_FIELDS = (
+    "f_add", "f_rescale", "f_error", "f_add_ex", "f_rescale_ex", "delta", "vl", "residual_norm",
+)
+
+
+@dataclass
+class MstgHost:
+    binary_bits: np.ndarray  # [R, dim] uint8 (R = total rows incl. replicas)
+    ex_codes: np.ndarray  # [R, dim] uint16
+    f_add: np.ndarray
+    f_rescale: np.ndarray
+    f_add_ex: np.ndarray
+    f_rescale_ex: np.ndarray
+    delta: np.ndarray
+    vl: np.ndarray
+    ids: np.ndarray  # [R] int64 original vector id per row
+    list_offsets: np.ndarray  # [C+1] row ranges per posting list
+    centroids: np.ndarray  # [C, dim] f32
+    # MSTG's own scan zeroes f_error (mstg/index.rs:285), but the reference
+    # serializes both per vector (quantizer.rs:82-86) — kept for the
+    # reference-format writer (None on v1001/v1002 loads -> written as zeros)
+    f_error: np.ndarray | None = None
+    residual_norm: np.ndarray | None = None
+
+
+class MstgIndex:
+    def __init__(
+        self,
+        config: MstgConfig,
+        dim: int,
+        host: MstgHost | None,
+        scan_dtype: str = "bf16",
+        approx_topk: bool | None = None,
+        rotator: FhtKacRotator | None = None,
+        *,
+        device: "str | torch.device | None" = None,
+        _meta: dict | None = None,
+        _codes_dev: dict | None = None,
+    ):
+        self.config = config
+        self.dim = dim  # original (query) dimension
+        self.rotator = rotator  # optional FhtKac (config.use_rotator)
+        # quantization-space dimension: padded when rotating
+        self.quant_dim = rotator.padded_dim if rotator is not None else dim
+        self.device = resolve_device(device)
+        # A built index keeps its code planes on the device (``_codes_dev``,
+        # then the layout); the host copy is downloaded at first use
+        self._host = host
+        if host is not None:
+            self._ids = host.ids
+            self._offsets = host.list_offsets
+            self._centroids_np = host.centroids
+            self._small = None
+        else:
+            if _meta is None or _codes_dev is None:
+                raise ValueError("an index without host arrays needs _meta and _codes_dev")
+            self._ids = _meta["ids"]
+            self._offsets = _meta["list_offsets"]
+            self._centroids_np = _meta["centroids"]
+            self._small = _meta["small"]  # [R] per-row fields for MstgHost
+        self._codes_dev = _codes_dev
+        # distinct vectors: the largest id + 1 (read at every dispatch)
+        self._n_vectors = int(self._ids.max()) + 1 if self._ids.size else 0
+        self.scan_dtype = scan_dtype
+        self.approx_topk = approx_topk if approx_topk is not None else scan_dtype != "f32"
+        # query upload encoding for serving, as IvfRabitqIndex.upload_dtype
+        self.upload_dtype: str = "f32"
+        self.build_report: dict | None = None
+        self._layout = None
+        self._layout_mode_built: str | None = None
+        self._packed: torch.Tensor | None = None
+        self._c_blk: torch.Tensor | None = None
+        self._geometry_ok: bool | None = None
+        self._max_tiles_cache: dict = {}
+        self._cl_ranges: tuple[torch.Tensor, torch.Tensor] | None = None
+        self._has_repl: bool | None = None
+        # disk-tier scaffolding (mstg/metadata.rs parity); all lists resident
+        row_bytes = self.quant_dim * 2 if self._ids.size else 0
+        self.directory = PostingListDirectory.from_offsets(self._offsets, row_bytes)
+
+    @property
+    def host(self) -> MstgHost:
+        """Host code arrays; a built index downloads them from its device
+        layout on first access."""
+        if self._host is None:
+            self._host = self._download_host()
+        return self._host
+
+    def _download_host(self) -> MstgHost:
+        """MstgHost from the device layout: the big code planes through the
+        layout's inverse, the [R] per-row fields kept on the host at build."""
+        with timed(f"download host codes rows={self.total_rows}", _log):
+            planes = host_order_planes(
+                self.layout, self.total_rows, self.quant_dim, self.config.rabitq_bits - 1
+            )
+            s = self._small
+            return MstgHost(
+                binary_bits=planes["binary"].cpu().numpy().astype(np.uint8),
+                ex_codes=planes["ex"].cpu().numpy().astype(np.uint16),
+                f_add=s["f_add"], f_rescale=s["f_rescale"], f_add_ex=s["f_add_ex"],
+                f_rescale_ex=s["f_rescale_ex"], delta=s["delta"], vl=s["vl"],
+                ids=self._ids, list_offsets=self._offsets, centroids=self._centroids_np,
+                f_error=s["f_error"], residual_norm=s["residual_norm"],
+            )
+
+    # ------------------------------------------------------------------
+    # construction
+    # ------------------------------------------------------------------
+
+    @classmethod
+    def build(
+        cls,
+        data,
+        config: MstgConfig | None = None,
+        seed: int = 42,
+        scan_dtype: str = "bf16",
+        device: "str | torch.device | None" = None,
+    ) -> "MstgIndex":
+        """Build from rows (``mstg/index.rs:16-140``): ``data`` is a host
+        array or a tensor (one already on ``device`` is used as is; host rows
+        cross with ``config.data_upload``). ``device=None`` means the card.
+        ``build_report`` holds the seconds of each phase."""
+        config = config or MstgConfig()
+        dev = resolve_device(device)
+        if len(data.shape) != 2 or data.shape[0] == 0 or data.shape[1] == 0:
+            raise InvalidConfig("cannot build index from empty data")
+        n, orig_dim = data.shape
+        t0 = time.perf_counter()
+        data_dev, upload_report = upload_dataset(data, config.data_upload, dev)
+        t_upload = time.perf_counter()
+        rotator = None
+        if config.use_rotator:
+            # clustering and closure run on the original rows (the rotation
+            # is an isometry); the codes and the stored centroids are rotated
+            rotator = make_rotator(orig_dim, RotatorType.FhtKacRotator, seed)
+        dim = rotator.padded_dim if rotator is not None else orig_dim
+
+        # step 1: hierarchical balanced clustering
+        with timed(f"hierarchical clustering n={n}", _log):
+            clusters = hierarchical_cluster(
+                data_dev, max_cluster_size=config.max_posting_size,
+                branching_factor=config.branching_factor,
+                balance_weight=config.balance_weight, seed=seed,
+                refine_iters=config.refine_iters, assign_dtype=auto_assign_dtype(n, orig_dim),
+            )
+        t_cluster = time.perf_counter()
+
+        # step 2: closure assignment with the RNG rule
+        with timed(f"closure assignment C={len(clusters.centroids)}", _log):
+            members = closure_assign(
+                data_dev, clusters.centroids, config.closure_epsilon, config.max_replicas
+            )
+        t_closure = time.perf_counter()
+
+        # the STORED centroids rounded through the configured precision: the
+        # residual base, the centroid scoring operands and the file bytes
+        centroids = clusters.centroids
+        if rotator is not None:
+            centroids = rotator.rotate(torch.from_numpy(centroids).to(dev)).cpu().numpy()
+        centroids = apply_centroid_precision(centroids, config.centroid_precision)
+
+        # step 3: per-posting-list residual quantization
+        ex_bits = config.rabitq_bits - 1
+        t_const = 0.0
+        t_rows = None
+        if ex_bits > 0 and config.faster_config:
+            t_const = compute_const_scaling_factor(dim, ex_bits, seed, device=dev)
+        sizes = [m.size for m in members]
+        offsets = np.zeros(len(members) + 1, np.int64)
+        np.cumsum(sizes, out=offsets[1:])
+        ids = np.concatenate(members) if members else np.zeros(0, np.int64)
+        row_list = np.repeat(np.arange(len(members), dtype=np.int32), sizes)
+        with timed(f"quantize rows={ids.shape[0]}", _log):
+            if ex_bits > 0 and not config.faster_config:
+                # reference default: exact per-vector t sweep on the host
+                host = data if isinstance(data, np.ndarray) else data_dev.cpu().numpy()
+                if rotator is None:
+                    t_rows = exact_t_rows(host, centroids, row_list, ids, None, ex_bits)
+                else:
+                    t_rows = exact_t_rows(
+                        host, None, row_list, ids, rotator, ex_bits, centroids_rotated=centroids
+                    )
+            codes = build_codes_device(
+                data_dev, torch.from_numpy(centroids).to(dev), row_list, rotator=rotator,
+                ex_bits=ex_bits, metric=config.metric, use_t_const=config.faster_config,
+                t_const=t_const, t_rows=t_rows, order=ids,
+            )
+            # the [R] per-row fields come to the host now; the code planes
+            # stay on the device and feed the layout
+            small = {k: codes[k].cpu().numpy() for k in _SMALL_FIELDS}
+        synchronize(dev)
+        t_end = time.perf_counter()
+        meta = {"ids": ids, "list_offsets": offsets, "centroids": centroids, "small": small}
+        index = cls(
+            config, orig_dim, None, scan_dtype, rotator=rotator, device=dev,
+            _meta=meta, _codes_dev=codes,
+        )
+        index.build_report = {
+            "upload": upload_report,
+            "upload_s": round(t_upload - t0, 2),
+            "clustering_s": round(t_cluster - t_upload, 2),
+            "clustering": clusters.report,
+            "closure_s": round(t_closure - t_cluster, 2),
+            "quantize_s": round(t_end - t_closure, 2),
+            "total_s": round(t_end - t0, 2),
+        }
+        return index
+
+    @classmethod
+    def from_host_arrays(
+        cls,
+        *,
+        config: MstgConfig,
+        dim: int,
+        binary_bits: np.ndarray,  # [R, quant_dim] {0,1}, list-sorted
+        ex_codes: np.ndarray,  # [R, quant_dim] raw ex codes
+        f_add: np.ndarray,
+        f_rescale: np.ndarray,
+        f_add_ex: np.ndarray,
+        f_rescale_ex: np.ndarray,
+        delta: np.ndarray,
+        vl: np.ndarray,
+        ids: np.ndarray,  # [R] original ids
+        list_offsets: np.ndarray,  # [C+1] row ranges per posting list
+        centroids: np.ndarray,  # [C, quant_dim] stored centroids
+        f_error: np.ndarray | None = None,
+        residual_norm: np.ndarray | None = None,
+        rotator_bytes: bytes = b"",
+        scan_dtype: str = "bf16",
+        approx_topk: bool | None = None,
+        device: "str | torch.device | None" = None,
+    ) -> "MstgIndex":
+        """An index over existing codes: the JAX package's ``MstgIndex``
+        state (its ``host`` fields as host arrays, its config's values, and
+        ``rotator.serialize()``, empty for no rotator) carried across, so
+        both packages search the same codes in the same device row order."""
+        centroids = np.asarray(centroids, np.float32)
+        rotator = None
+        if rotator_bytes:
+            rotator = FhtKacRotator.deserialize(dim, centroids.shape[1], rotator_bytes)
+
+        def f32(x):
+            return None if x is None else np.asarray(x, np.float32)
+
+        host = MstgHost(
+            binary_bits=np.asarray(binary_bits, np.uint8), ex_codes=np.asarray(ex_codes, np.uint16),
+            f_add=f32(f_add), f_rescale=f32(f_rescale), f_add_ex=f32(f_add_ex),
+            f_rescale_ex=f32(f_rescale_ex), delta=f32(delta), vl=f32(vl),
+            ids=np.asarray(ids, np.int64), list_offsets=np.asarray(list_offsets, np.int64),
+            centroids=centroids, f_error=f32(f_error), residual_norm=f32(residual_norm),
+        )
+        return cls(config, dim, host, scan_dtype, approx_topk, rotator, device=device)
+
+    # ------------------------------------------------------------------
+    # accessors
+    # ------------------------------------------------------------------
+
+    def __len__(self) -> int:
+        """Number of distinct indexed vectors: the largest id + 1."""
+        return self._n_vectors
+
+    @property
+    def total_rows(self) -> int:
+        """Rows in the posting lists, replicas included."""
+        return int(self._ids.shape[0])
+
+    def posting_list_count(self) -> int:
+        return int(self._offsets.shape[0] - 1)
+
+    def replication_factor(self) -> float:
+        return self.total_rows / max(len(self), 1)
+
+    def memory_usage(self) -> int:
+        """Rough device-resident bytes (``mstg/index.rs:143-147``), from
+        shapes only (never forces the host download)."""
+        r = int(self._ids.shape[0])
+        code_bytes = 2 * r * self.quant_dim  # binary + ex int8 planes
+        factor_bytes = 6 * 4 * r
+        cent_bytes = int(
+            self._centroids_np.shape[0]
+            * self._centroids_np.shape[1]
+            * self.config.centroid_precision.bytes_per_dim
+        )
+        return code_bytes + factor_bytes + cent_bytes
+
+    # ------------------------------------------------------------------
+    # device layout and the scan gates
+    # ------------------------------------------------------------------
+
+    def _layout_mode(self) -> str:
+        """'sorted' (list-contiguous, TN-padded: the fused scans) or 'perm'
+        (pseudorandom scatter: the dense and packed scans)."""
+        return "sorted" if is_fused(self.scan_dtype) else "perm"
+
+    @property
+    def layout(self):
+        """The device layout for the current ``scan_dtype`` (the JAX
+        package's ``device`` property). Built at first use from the build's
+        device planes or the host arrays; assigning ``scan_dtype`` to another
+        layout mode re-lays it on the device from the current layout."""
+        mode = self._layout_mode()
+        if self._layout is None or self._layout_mode_built != mode:
+            ex_bits = self.config.rabitq_bits - 1
+            if self._layout is not None:
+                src = host_order_planes(self._layout, self.total_rows, self.quant_dim, ex_bits)
+                self._layout = None
+            elif self._codes_dev is not None:
+                src = self._codes_dev
+                self._codes_dev = None  # the layout holds the data from here on
+            else:
+                h = self.host
+                src = {"binary": h.binary_bits, "ex": h.ex_codes, "f_add": h.f_add,
+                       "f_rescale": h.f_rescale, "f_add_ex": h.f_add_ex,
+                       "f_rescale_ex": h.f_rescale_ex}
+            kwargs = {}
+            if mode == "sorted":
+                # refinement off -> stage 2 re-scores with the 1-bit
+                # estimator, which reads the dense binary plane
+                kwargs = {"permute": False, "row_pad": TN, "keep_binary": not self.config.refine_ex}
+            self._layout = assemble_device_layout(
+                n=self.total_rows, ex_bits=ex_bits, cluster_sizes=np.diff(self._offsets),
+                ids=self._ids, centroids=self._centroids_np,
+                # the reference MSTG zeroes f_error in its scan (mstg/index.rs:285)
+                zero_f_error=True, device=self.device,
+                **{k: src[k] for k in _PLANE_FIELDS}, **kwargs,
+            )
+            self._layout_mode_built = mode
+            self._packed = None
+            self._c_blk = None
+            self._max_tiles_cache = {}
+            self._cl_ranges = None
+        return self._layout
+
+    def _maybe_downgrade_fused(self) -> None:
+        """The fused kernels need list-sorted tiles spanning <= 128 posting
+        lists and a plane within the two-stage width; other indexes are
+        served by the dense bf16 scan, as the reference does."""
+        if not is_fused(self.scan_dtype):
+            return
+        if self._geometry_ok is None:
+            self._geometry_ok = fused_geometry_ok(np.diff(self._offsets))
+        plane_w = self.quant_dim + (-self.quant_dim) % 128
+        limit = TWO_STAGE_MAX_WIDTH_INT8 if self.scan_dtype == "fused8" else TWO_STAGE_MAX_WIDTH
+        if not (self._geometry_ok and plane_w <= limit):
+            _log.warning(
+                "posting-list geometry unsuited for scan_dtype=%r (a row tile would span "
+                ">128 posting lists, or the plane is wider than the two-stage fused scan "
+                "serves); falling back to bf16",
+                self.scan_dtype,
+            )
+            self.scan_dtype = "bf16"
+
+    def _fused_max_tiles(self, ef_search, batch: int | None = None) -> int | None:
+        """Probed-tile budget of the kernel's compacted walk, or None for the
+        dense walk (``IvfRabitqIndex._fused_max_tiles``; ef_search plays
+        nprobe, posting lists play clusters, and the tiles count every row,
+        replicas included). Env ``RABITQ_FUSED_COMPACT``: "0" dense walk,
+        "force" every tile listed."""
+        compact_env = os.environ.get("RABITQ_FUSED_COMPACT", "1")
+        if (
+            not is_fused(self.scan_dtype)
+            or compact_env == "0"
+            or not isinstance(ef_search, (int, np.integer))
+        ):
+            return None
+        n_tiles = pad_rows(self.total_rows, TN) // TN
+        if compact_env == "force":
+            return n_tiles
+        bt = TB if batch is None else min(TB, ((int(batch) + 31) // 32) * 32)
+        key = (int(ef_search), bt)
+        if key not in self._max_tiles_cache:
+            sizes = np.diff(self._offsets)
+            if expected_tile_cost(sizes, int(ef_search), batch_tile=bt) >= 0.6 * n_tiles:
+                self._max_tiles_cache[key] = None  # most tiles probed anyway: dense walk
+            else:
+                bound = probed_tile_bound(sizes, int(ef_search), batch_tile=bt)
+                self._max_tiles_cache[key] = min(1 << (bound - 1).bit_length(), n_tiles)
+        return self._max_tiles_cache[key]
+
+    def _fused_exact_ok(self) -> bool:
+        """Whether the fused scan runs in EXACT mode (the TOTAL refine plane
+        within ``EXACT_MAX_WIDTH``, refinement on); env
+        ``RABITQ_FUSED_EXACT=0`` takes the two-stage scan instead."""
+        if os.environ.get("RABITQ_FUSED_EXACT", "1") == "0":
+            return False
+        plane_w = self.quant_dim + (-self.quant_dim) % 128
+        return (
+            is_fused(self.scan_dtype)
+            and self.config.refine_ex
+            and ex_plane_is_total(self.config.rabitq_bits - 1)
+            and plane_w <= EXACT_MAX_WIDTH
+        )
+
+    def _gather_budget(self, ef_search) -> int | None:
+        """Per-query row budget of the gather scan, or None for the bin
+        scans (``IvfRabitqIndex._gather_budget``; opt-in by env
+        ``RABITQ_GATHER=1``, declined above ``RABITQ_GATHER_MAX`` or at half
+        the rows). The ef largest lists bound the probed set: pruning only
+        shrinks it."""
+        if os.environ.get("RABITQ_GATHER", "0") != "1":
+            return None
+        ex_bits = self.config.rabitq_bits - 1
+        if not (is_fused(self.scan_dtype) and self.config.refine_ex and ex_plane_is_total(ex_bits)):
+            return None
+        bucket = gather_budget_bucket(np.diff(self._offsets), ef_search)
+        limit = int(os.environ.get("RABITQ_GATHER_MAX", "16384"))
+        if bucket is None or bucket > limit or 2 * bucket >= self.total_rows:
+            return None
+        return bucket
+
+    def _cluster_ranges(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """Device [C] first rows and sizes of the posting lists (gather scan)."""
+        if self._cl_ranges is None:
+            offsets = torch.from_numpy(self._offsets).to(self.device)
+            self._cl_ranges = (offsets[:-1], offsets[1:] - offsets[:-1])
+        return self._cl_ranges
+
+    def _has_replicas(self) -> bool:
+        """Whether closure assignment replicated any vector. Without
+        replicas the dispatch extracts top_k directly and skips the dedup."""
+        if self._has_repl is None:
+            self._has_repl = len(np.unique(self._ids)) != len(self._ids)
+        return self._has_repl
+
+    def _scan_planes(self):
+        """Bring the layout, the packed plane and the tile windows up to date
+        for the current ``scan_dtype``; returns the layout."""
+        self._maybe_downgrade_fused()
+        lay = self.layout
+        fused = is_fused(self.scan_dtype)
+        if (fused or self.scan_dtype == "packed") and self._packed is None:
+            if lay.packed is not None:  # fused layouts pre-pack
+                self._packed = lay.packed
+            else:
+                self._packed = pack_bitplanes(lay.binary, self.quant_dim)
+        if fused and self._c_blk is None:
+            n_pad = int(lay.ids.shape[0])
+            c_blk = tile_cluster_blocks(
+                cluster_of_rows(np.diff(self._offsets), n_pad), np.arange(n_pad) < self.total_rows
+            )
+            self._c_blk = torch.from_numpy(c_blk).to(self.device)
+        return lay
+
+    # ------------------------------------------------------------------
+    # search
+    # ------------------------------------------------------------------
+
+    def _encode_queries(self, queries: np.ndarray, b_pad: int):
+        """Host (q, qscale | None) tensors in the ``upload_dtype`` encoding."""
+        return encode_queries(queries, b_pad, self.dim, self.upload_dtype)
+
+    def _scan(self, q, qscale, params: MstgSearchParams, **scan_kw):
+        """Decode and rotate one encoded query block and queue the scan with
+        MSTG's fixed options; ``scan_kw`` holds the per-call ones."""
+        lay = self.layout
+        fused = is_fused(self.scan_dtype)
+        q_rot = decode_queries(q, qscale, self.dim)
+        if self.rotator is not None:
+            q_rot = self.rotator.rotate(q_rot)
+        return scan_kernel(
+            q_rot, lay.centroids, lay.binary, lay.ex, lay.f_add, lay.f_rescale, lay.f_error,
+            lay.f_add_ex, lay.f_rescale_ex, lay.cluster_of, lay.valid, lay.ids,
+            nprobe=params.ef_search, prune_epsilon=params.pruning_epsilon,
+            packed=self._packed if (fused or self.scan_dtype == "packed") else None,
+            fused_cblk=self._c_blk if fused else None,
+            metric=self.config.metric, ex_bits=self.config.rabitq_bits - 1,
+            scan_dtype=self.scan_dtype, use_prune_epsilon=True, refine_ex=self.config.refine_ex,
+            clamp_l2=True, centroid_select_l2=True, approx_topk=self.approx_topk,
+            probe_k=probe_k_bucket(params.ef_search, self.posting_list_count(), self.scan_dtype),
+            **scan_kw,
+        )
+
+    def _dispatch_scan(self, q, qscale, params: MstgSearchParams):
+        """Queue the MSTG scan of one encoded query block; returns device
+        (ids [B, top_k], dists). With replicas the scan returns the whole
+        re-ranked candidate set (``rerank``, at least top_k times the
+        replication factor + 16, so that top_k distinct ids survive) and the
+        device dedup cuts it to top_k; without, the scan extracts top_k."""
+        gather_rows = self._gather_budget(params.ef_search)
+        cl_starts = cl_sizes = max_tiles = None
+        if gather_rows is not None:
+            cl_starts, cl_sizes = self._cluster_ranges()
+        else:
+            max_tiles = self._fused_max_tiles(params.ef_search, batch=q.shape[0])
+        dedup = self._has_replicas()
+        rerank = max(
+            params.resolved_rerank(),
+            int(np.ceil(params.top_k * self.replication_factor())) + 16,
+        )
+        ids, dists = self._scan(
+            q, qscale, params, cl_starts=cl_starts, cl_sizes=cl_sizes, gather_rows=gather_rows,
+            top_k=rerank if dedup else params.top_k, rerank=rerank, max_tiles=max_tiles,
+            fused_exact=self._fused_exact_ok(),
+            # dedup path: keep the kernel's best-first candidate order through
+            # the dedup, which sorts the rows it keeps
+            fused_exact_sort=not dedup,
+            locality_depth=int(os.environ.get("RABITQ_LOCALITY", "1")),
+        )
+        if not dedup:
+            return ids, dists
+        return self._dedup_topk_device(ids, dists, top_k=params.top_k)
+
+    @staticmethod
+    def _dedup_topk_device(ids: torch.Tensor, dists: torch.Tensor, *, top_k: int):
+        """Closure dedup on the device: results arrive best-first along the
+        candidate axis, so in a stable id sort the first occurrence of an id
+        is its best replica. Kept entries are compacted to the front in
+        their order, cut to ``top_k`` (padded with -1 / +inf), and each row
+        sorted by distance (``sort_result_rows``)."""
+        b, r = ids.shape
+        valid = (ids >= 0) & torch.isfinite(dists)
+        ids_safe = torch.where(valid, ids, torch.full_like(ids, -1))
+        sorted_ids, order = torch.sort(ids_safe, dim=1, stable=True)
+        first = torch.ones_like(valid)
+        first[:, 1:] = sorted_ids[:, 1:] != sorted_ids[:, :-1]
+        keep = torch.zeros_like(valid).scatter(1, order, first) & valid
+        # compact kept entries to the front, preserving best-first order
+        rank = torch.arange(r, device=ids.device).expand(b, r)
+        comp = torch.argsort(torch.where(keep, rank, r + rank), dim=1)[:, : min(top_k, r)]
+        ok = torch.gather(keep, 1, comp)
+        out_ids = torch.where(ok, torch.gather(ids, 1, comp), -1)
+        out_d = torch.where(ok, torch.gather(dists, 1, comp), float("inf"))
+        if top_k > r:  # tiny indexes: pad out to the requested k
+            out_ids = torch.nn.functional.pad(out_ids, (0, top_k - r), value=-1)
+            out_d = torch.nn.functional.pad(out_d, (0, top_k - r), value=float("inf"))
+        return sort_result_rows(out_ids, out_d)
+
+    def _dedup_results(
+        self, ids: np.ndarray, dists: np.ndarray, top_k: int
+    ) -> list[list[SearchResult]]:
+        """SearchResult lists of host result rows, first (= best)
+        occurrence of each id only."""
+        valid = (ids >= 0) & np.isfinite(dists)
+        ids_safe = np.where(valid, ids, np.int64(-1))
+        sort_keys = np.argsort(ids_safe, axis=1, kind="stable")
+        sorted_ids = np.take_along_axis(ids_safe, sort_keys, axis=1)
+        first = np.ones_like(sorted_ids, bool)
+        first[:, 1:] = sorted_ids[:, 1:] != sorted_ids[:, :-1]
+        keep = np.zeros_like(valid)
+        np.put_along_axis(keep, sort_keys, first, axis=1)
+        keep &= valid
+        sign = 1.0 if self.config.metric is Metric.L2 else -1.0
+        out: list[list[SearchResult]] = []
+        for row_ids, row_d, row_keep in zip(ids, dists, keep):
+            sel = np.nonzero(row_keep)[0][:top_k]
+            out.append(
+                [SearchResult(id=int(row_ids[j]), score=sign * float(row_d[j])) for j in sel]
+            )
+        return out
+
+    def _check_queries(self, queries) -> np.ndarray:
+        if self.total_rows == 0:
+            raise EmptyIndex()
+        queries = np.atleast_2d(np.asarray(queries, np.float32))
+        if queries.shape[1] != self.dim:
+            raise DimensionMismatch(self.dim, queries.shape[1])
+        return queries
+
+    def search(self, query: np.ndarray, params: MstgSearchParams) -> list[SearchResult]:
+        return self.batch_search(np.asarray(query, np.float32)[None, :], params)[0]
+
+    def batch_search(
+        self, queries: np.ndarray, params: MstgSearchParams
+    ) -> list[list[SearchResult]]:
+        """(``mstg/index.rs:150-213``, batched as at 340) One dispatch for
+        the batch, padded to a power of two."""
+        queries = self._check_queries(queries)
+        b = queries.shape[0]
+        if params.top_k <= 0:
+            return [[] for _ in range(b)]
+        self._scan_planes()
+        q, qscale = self._encode_queries(queries, _pad_pow2(b))
+        ids, dists = self._dispatch_scan(
+            q.to(self.device), None if qscale is None else qscale.to(self.device), params
+        )
+        return self._dedup_results(ids.cpu().numpy()[:b], dists.cpu().numpy()[:b], params.top_k)
+
+    def upload_queries(self, queries: np.ndarray):
+        """Encode the queries once with the current ``upload_dtype`` and keep
+        them on the device: ``batch_search_resident`` then reruns ef / epsilon
+        sweeps over them with no query byte crossing the host link. Checks the
+        queries' width only. Returns an opaque handle."""
+        queries = np.atleast_2d(np.asarray(queries, np.float32))
+        if queries.shape[1] != self.dim:
+            raise DimensionMismatch(self.dim, queries.shape[1])
+        q, qscale = self._encode_queries(queries, _pad_pow2(queries.shape[0]))
+        return (q.to(self.device), None if qscale is None else qscale.to(self.device),
+                queries.shape[0])
+
+    def batch_search_resident(
+        self, qcache, params: MstgSearchParams, batch_size: int = 256
+    ) -> list[list[SearchResult]]:
+        """``batch_search`` over an ``upload_queries`` handle: each dispatch
+        scans a ``batch_size`` slice of the resident block."""
+        if self.total_rows == 0:
+            raise EmptyIndex()
+        q, qscale, b_total = qcache
+        if params.top_k <= 0:
+            return [[] for _ in range(b_total)]
+        self._scan_planes()
+        bs = _pad_pow2(min(batch_size, q.shape[0]))
+        pending = [
+            self._dispatch_scan(
+                q[off : off + bs], None if qscale is None else qscale[off : off + bs], params
+            )
+            for off in range(0, b_total, bs)
+        ]
+        ids, dists = _fetch(pending, b_total)
+        return self._dedup_results(ids, dists, params.top_k)
+
+    def _pipelined(self, queries, params, batch_size, upload_block):
+        self._scan_planes()
+        return serve_pipelined(
+            queries, batch_size, upload_block, self._encode_queries, self.device,
+            lambda q, qscale: self._dispatch_scan(q, qscale, params),
+        )
+
+    def batch_search_pipelined(
+        self,
+        queries: np.ndarray,
+        params: MstgSearchParams,
+        batch_size: int = 256,
+        upload_block: int | None = None,
+    ) -> list[list[SearchResult]]:
+        """``batch_search`` over many fixed-size blocks, each upload block
+        copied from pinned memory without blocking and its scans queued
+        behind it (``scan.serve_pipelined``); ``upload_block`` (>=
+        batch_size) sets the copy granularity. Results equal
+        ``batch_search``'s."""
+        queries = self._check_queries(queries)
+        if params.top_k <= 0:
+            return [[] for _ in range(queries.shape[0])]
+        ids, dists = self._pipelined(queries, params, batch_size, upload_block)
+        return self._dedup_results(ids, dists, params.top_k)
+
+    def batch_search_arrays_pipelined(
+        self,
+        queries: np.ndarray,
+        params: MstgSearchParams,
+        batch_size: int = 256,
+        upload_block: int | None = None,
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """``batch_search_pipelined`` returning arrays (ids [B, top_k] int32
+        with -1 padding, internal distances f32) instead of SearchResult
+        lists; the dedup already ran on the device."""
+        queries = self._check_queries(queries)
+        b_total = queries.shape[0]
+        if params.top_k <= 0:
+            return (
+                np.full((b_total, 0), -1, np.int32),
+                np.full((b_total, 0), np.inf, np.float32),
+            )
+        return self._pipelined(queries, params, batch_size, upload_block)
+
+    def search_with_diagnostics(
+        self, query: np.ndarray, params: MstgSearchParams
+    ) -> tuple[list[SearchResult], SearchDiagnostics]:
+        """Search plus counters measured inside the scan (fused: the bin
+        kernel's offered rows, through the two-stage scan; dense: mask sums).
+        ``estimated + skipped_by_lower_bound`` is the rows offered: below the
+        sum of the top-ef list sizes where epsilon-pruning binds
+        (``mstg/index.rs:349-362``)."""
+        self._scan_planes()
+        q = torch.from_numpy(np.asarray(query, np.float32).reshape(1, self.dim)).to(self.device)
+        ids, dists, diag = self._scan(
+            q, None, params, top_k=params.top_k, rerank=params.resolved_rerank(),
+            with_diagnostics=True, max_tiles=self._fused_max_tiles(params.ef_search, batch=1),
+        )
+        sign = 1.0 if self.config.metric is Metric.L2 else -1.0
+        results = [
+            SearchResult(id=i, score=sign * dd)
+            for i, dd in zip(ids[0].tolist(), dists[0].tolist())
+            if i >= 0 and np.isfinite(dd)
+        ][: params.top_k]
+        d = diag[0].tolist()
+        return results, SearchDiagnostics(
+            estimated=d[0], skipped_by_lower_bound=d[1], extended_evaluations=d[2]
+        )
+
+    # ------------------------------------------------------------------
+    # persistence
+    # ------------------------------------------------------------------
+
+    def save_to_path(self, path, format: str = "native") -> None:
+        """Write the index: ``format="native"`` the single-file v1003 format,
+        ``format="reference"`` the reference's bincode v1 ``.mstg`` body and
+        its hnsw side files (``ref_io.save_reference_mstg``)."""
+        if format == "reference":
+            from .ref_io import save_reference_mstg
+
+            save_reference_mstg(self, path)
+            return
+        if format != "native":
+            raise InvalidConfig(f"unknown MSTG save format {format!r}")
+        h = self.host
+        cfg = self.config
+        r = self.total_rows
+        ex_bits = cfg.rabitq_bits - 1
+
+        with open(path, "wb") as f:
+            crc = 0
+
+            def w(data: bytes, hashed: bool = True):
+                nonlocal crc
+                f.write(data)
+                if hashed:
+                    crc = zlib.crc32(data, crc)
+
+            w(_MAGIC, hashed=False)
+            w(struct.pack("<I", _VERSION), hashed=False)
+            w(struct.pack(
+                _HEADER, self.dim, cfg.metric.to_tag(), cfg.rabitq_bits,
+                list(ScalarPrecision).index(cfg.centroid_precision), 1 if cfg.refine_ex else 0,
+                cfg.closure_epsilon, cfg.balance_weight, cfg.max_posting_size,
+                cfg.branching_factor, cfg.pruning_epsilon, cfg.default_ef_search,
+                1 if cfg.faster_config else 0,
+            ))
+            w(struct.pack("<I", self.quant_dim))
+            rot_blob = self.rotator.serialize() if self.rotator is not None else b""
+            w(struct.pack("<Q", len(rot_blob)))
+            w(rot_blob)
+            w(struct.pack("<QQ", self.posting_list_count(), r))
+            # the centroid block in the configured precision; the stored
+            # centroids are exactly representable in it, so this is lossless
+            stored, _ = quantize_centroids(h.centroids, cfg.centroid_precision)
+            if cfg.centroid_precision is ScalarPrecision.INT8:
+                w(stored["scale"].astype("<f4").tobytes())
+                w(stored["data"].astype("<i1").tobytes())
+            elif cfg.centroid_precision is ScalarPrecision.BF16:
+                w(stored["data"].astype("<u2").tobytes())
+            elif cfg.centroid_precision is ScalarPrecision.FP16:
+                w(stored["data"].astype("<f2").tobytes())
+            else:
+                w(stored["data"].astype("<f4").tobytes())
+            w(h.list_offsets.astype("<u8").tobytes())
+            w(h.ids.astype("<u8").tobytes())
+            w(packing.pack_binary(h.binary_bits).tobytes())
+            if ex_bits > 0:
+                w(packing.pack_ex_generic(h.ex_codes, ex_bits).tobytes())
+            for name in ("f_add", "f_rescale", "f_add_ex", "f_rescale_ex", "delta", "vl"):
+                w(getattr(h, name).astype("<f4").tobytes())
+            # v1003: f_error + residual_norm (the scan zeroes f_error, but
+            # the reference-format writer needs the real ones)
+            for name in ("f_error", "residual_norm"):
+                v = getattr(h, name)
+                v = np.zeros(r, np.float32) if v is None else v
+                w(v.astype("<f4").tobytes())
+            w(struct.pack("<I", crc), hashed=False)
+
+    @classmethod
+    def load_from_path(
+        cls, path, scan_dtype: str = "bf16", device: "str | torch.device | None" = None
+    ) -> "MstgIndex":
+        """Read a native v1001-v1003 file, or a reference v1 ``.mstg`` set;
+        the index lays itself out on ``device`` (None: the card)."""
+        from ...io.persistence import _Cursor
+
+        with open(path, "rb") as f:
+            data = f.read()
+        cur = _Cursor(data)
+        if cur.take(4) != _MAGIC:
+            raise InvalidPersistence("unrecognized file header")
+        version = cur.u32()
+        if version == 1:
+            # the reference's bincode multi-file format (mstg/io.rs:14-245)
+            from .ref_io import load_reference_mstg
+
+            return load_reference_mstg(path, scan_dtype=scan_dtype, device=device)
+        if version not in (1001, 1002, _VERSION):
+            raise InvalidPersistence(
+                f"unsupported MSTG format version {version} (supported: the "
+                "native v1001/v1002/v1003 single-file formats and the "
+                "reference's bincode v1 multi-file format)"
+            )
+        stored_crc = struct.unpack("<I", data[-4:])[0]
+        if zlib.crc32(data[8:-4]) != stored_crc:
+            raise InvalidPersistence("checksum mismatch")
+
+        (
+            dim, metric_tag, rabitq_bits, prec_tag, refine_ex, closure_eps, balance_w,
+            max_posting, branching, pruning_eps, default_ef, faster,
+        ) = struct.unpack(_HEADER, cur.take(struct.calcsize(_HEADER)))
+        if version >= 1002:
+            quant_dim = cur.u32()
+            rot_len = cur.u64()
+            rot_blob = cur.take(rot_len)
+        else:  # v1001 predates the rotator extension
+            quant_dim, rot_len, rot_blob = dim, 0, b""
+        n_lists = cur.u64()
+        r = cur.u64()
+        cfg = MstgConfig(
+            max_posting_size=max_posting, branching_factor=branching, balance_weight=balance_w,
+            closure_epsilon=closure_eps, rabitq_bits=rabitq_bits, faster_config=bool(faster),
+            metric=Metric.from_tag(metric_tag), centroid_precision=list(ScalarPrecision)[prec_tag],
+            default_ef_search=default_ef, pruning_epsilon=pruning_eps,
+            refine_ex=bool(refine_ex), use_rotator=rot_len > 0,
+        )
+        rotator = FhtKacRotator.deserialize(dim, quant_dim, rot_blob) if rot_len > 0 else None
+        ex_bits = rabitq_bits - 1
+        prec = cfg.centroid_precision
+        if version >= 1003 and prec is not ScalarPrecision.FP32:
+            stored = {}
+            if prec is ScalarPrecision.INT8:
+                stored["scale"] = cur.f32s(n_lists)
+                stored["data"] = cur.bytes_np(n_lists * quant_dim).view(np.int8).reshape(
+                    n_lists, quant_dim)
+            else:  # BF16 bits / FP16 halves: 2 bytes per dim
+                raw = cur.bytes_np(2 * n_lists * quant_dim)
+                dt = "<u2" if prec is ScalarPrecision.BF16 else "<f2"
+                stored["data"] = np.frombuffer(raw.tobytes(), dt).reshape(n_lists, quant_dim)
+            centroids = dequantize_centroids(stored, prec)
+        else:
+            centroids = cur.f32s(n_lists * quant_dim).reshape(n_lists, quant_dim)
+        offsets = cur.u64s(n_lists + 1).astype(np.int64)
+        ids = cur.u64s(r).astype(np.int64)
+        bin_len = (quant_dim + 7) // 8
+        binary = packing.unpack_binary(
+            cur.bytes_np(r * bin_len).reshape(r, bin_len), quant_dim
+        ).astype(np.uint8)
+        if ex_bits > 0:
+            ex_len = (quant_dim * ex_bits + 7) // 8
+            ex = packing.unpack_ex_generic(
+                cur.bytes_np(r * ex_len).reshape(r, ex_len), quant_dim, ex_bits
+            ).astype(np.uint16)
+        else:
+            ex = np.zeros((r, quant_dim), np.uint16)
+        fields = {}
+        for name in ("f_add", "f_rescale", "f_add_ex", "f_rescale_ex", "delta", "vl"):
+            fields[name] = cur.f32s(r)
+        if version >= 1003:
+            for name in ("f_error", "residual_norm"):
+                fields[name] = cur.f32s(r)
+        host = MstgHost(
+            binary_bits=binary, ex_codes=ex, ids=ids, list_offsets=offsets,
+            centroids=centroids.astype(np.float32), **fields,
+        )
+        return cls(cfg, dim, host, scan_dtype, rotator=rotator, device=device)

@@ -97,6 +97,33 @@ def pack_int4_queries(q: np.ndarray):
     return (lo | hi).astype(np.uint8), scale.astype(np.float32)
 
 
+def _pad_pow2(n: int, floor: int = 1) -> int:
+    """``n`` rounded up to a power of two, at least ``floor``."""
+    p = floor
+    while p < n:
+        p *= 2
+    return p
+
+
+def encode_queries(queries: np.ndarray, b_pad: int, dim: int, upload_dtype: str):
+    """Host (q, qscale | None) tensors of ``queries`` zero-padded to ``b_pad``
+    rows in the upload encoding: "bf16", "int8" (symmetric per-query scale,
+    a quarter of the bytes), "int4" (nibble pairs, an eighth), and f32 for
+    "f32" or any other value, as the reference serves it."""
+    q = np.zeros((b_pad, dim), np.float32)
+    q[: queries.shape[0]] = queries
+    if upload_dtype == "bf16":
+        return torch.from_numpy(q).to(torch.bfloat16), None
+    if upload_dtype == "int8":
+        scale = np.maximum(np.abs(q).max(axis=1), 1e-30) / 127.0
+        q_i8 = np.clip(np.rint(q / scale[:, None]), -127, 127).astype(np.int8)
+        return torch.from_numpy(q_i8), torch.from_numpy(scale.astype(np.float32))
+    if upload_dtype == "int4":
+        packed, scale = pack_int4_queries(q)
+        return torch.from_numpy(packed), torch.from_numpy(scale)
+    return torch.from_numpy(q), None
+
+
 def decode_queries(q: torch.Tensor, qscale: torch.Tensor | None, dim: int) -> torch.Tensor:
     """Upload encoding -> f32 raw queries: f32, bf16, symmetric int8 with a
     per-query scale, or int4 nibble pairs (uint8, lo = even dim) with a
@@ -110,6 +137,39 @@ def decode_queries(q: torch.Tensor, qscale: torch.Tensor | None, dim: int) -> to
     if qscale is not None:
         q = q * qscale[:, None]
     return q
+
+
+def serve_pipelined(queries, batch_size, upload_block, pad_queries, device, dispatch):
+    """Queue ``dispatch(q, qscale)`` over fixed-size blocks of ``queries``
+    and fetch the results once: each upload block (``upload_block`` rows,
+    >= ``batch_size``; None: one per scan block) is encoded by
+    ``pad_queries``, copied from pinned host memory without blocking, and
+    its ``batch_size`` scan blocks are queued behind the copy. Returns host
+    (ids, dists) trimmed to the queries."""
+    b_total = queries.shape[0]
+    bs = _pad_pow2(min(batch_size, _pad_pow2(b_total)))
+    ub = bs if upload_block is None else _pad_pow2(min(max(upload_block, bs), _pad_pow2(b_total)))
+    pending = []
+    staged = []  # pinned host blocks stay alive until the final fetch
+    for s in range(0, b_total, ub):
+        host = pad_queries(queries[s : s + ub], ub)
+        if device.type == "cuda":
+            host = tuple(None if h is None else h.pin_memory() for h in host)
+            staged.append(host)
+        q, qscale = (None if h is None else h.to(device, non_blocking=True) for h in host)
+        for off in range(0, min(ub, b_total - s), bs):
+            pending.append(
+                dispatch(q[off : off + bs], None if qscale is None else qscale[off : off + bs])
+            )
+    return _fetch(pending, b_total)
+
+
+def _fetch(pending, b_total: int) -> tuple[np.ndarray, np.ndarray]:
+    """Host (ids, dists) of queued per-block results, trimmed to the
+    queries asked for."""
+    ids = torch.cat([p[0] for p in pending]).cpu().numpy()[:b_total]
+    dists = torch.cat([p[1] for p in pending]).cpu().numpy()[:b_total]
+    return ids, dists
 
 
 def gather_rows_bound(cluster_sizes, nprobe: int) -> int:

@@ -62,34 +62,67 @@ def _block_size(k: int) -> int:
     return 1 << (raw.bit_length() - 1)
 
 
+def _centroid_operands(centroids: torch.Tensor, assign_dtype: str):
+    """(||c||^2, the product's centroid operand [D, C], bf16?) for the
+    assignment distances; ``assign_dtype="bf16"`` rounds the operand to
+    bf16 (the norms stay f32)."""
+    if assign_dtype not in ("f32", "bf16"):
+        raise ValueError(f"unknown assign_dtype {assign_dtype!r}")
+    bf16 = assign_dtype == "bf16"
+    ct = centroids.T
+    if bf16:
+        ct = ct.to(torch.bfloat16).to(torch.float32)
+    return torch.sum(centroids * centroids, dim=-1), ct.contiguous(), bf16
+
+
+def _block_dists(xb: torch.Tensor, c_norm, ct, bf16: bool) -> torch.Tensor:
+    """[block, C] clamped expansion ||x||^2 + ||c||^2 - 2 x.c
+    (``kmeans.rs:496-507``), the row operand rounded to bf16 with ``bf16``."""
+    xo = xb.to(torch.bfloat16).to(torch.float32) if bf16 else xb
+    x_norm = torch.sum(xb * xb, dim=-1, keepdim=True)
+    return torch.clamp_min(x_norm + c_norm[None, :] - 2.0 * (xo @ ct), 0.0)
+
+
 def _assign_blocks(
     data: torch.Tensor, centroids: torch.Tensor, block: int, assign_dtype: str = "f32"
 ):
     """Nearest-centroid assignment over row blocks. Returns
-    (assignments [N] int64, min_dists [N] f32); distance is the clamped
-    expansion ||x||^2 + ||c||^2 - 2 x.c (``kmeans.rs:496-507``)."""
-    if assign_dtype not in ("f32", "bf16"):
-        raise ValueError(f"unknown assign_dtype {assign_dtype!r}")
-    bf16 = assign_dtype == "bf16"
-    c_norm = torch.sum(centroids * centroids, dim=-1)
-    ct = centroids.T
-    if bf16:
-        ct = ct.to(torch.bfloat16).to(torch.float32)
-    ct = ct.contiguous()
+    (assignments [N] int64, min_dists [N] f32)."""
+    c_norm, ct, bf16 = _centroid_operands(centroids, assign_dtype)
     n = data.shape[0]
     assign = torch.empty(n, dtype=torch.int64, device=data.device)
     dists = torch.empty(n, dtype=torch.float32, device=data.device)
     with _tf32_matmul(bf16):
         for s in range(0, n, block):
-            xb = data[s : s + block]
-            xo = xb.to(torch.bfloat16).to(torch.float32) if bf16 else xb
-            dot = xo @ ct
-            x_norm = torch.sum(xb * xb, dim=-1, keepdim=True)
-            dist = torch.clamp_min(x_norm + c_norm[None, :] - 2.0 * dot, 0.0)
-            best = torch.min(dist, dim=-1)
+            best = torch.min(_block_dists(data[s : s + block], c_norm, ct, bf16), dim=-1)
             dists[s : s + block] = best.values
             assign[s : s + block] = best.indices
     return assign, dists
+
+
+def _grouped_assign_blocks(
+    data: torch.Tensor,  # [N, D]
+    centroids: torch.Tensor,  # [C, D] children of many parent clusters
+    cent_group: torch.Tensor,  # [C] int32 parent group of each centroid
+    row_group: torch.Tensor,  # [N] int32 parent group of each row (-1: not split)
+    block: int,
+    assign_dtype: str = "f32",
+) -> torch.Tensor:
+    """Group-restricted nearest-centroid assignment: a row considers only
+    the centroids whose ``cent_group`` equals its ``row_group`` (padded
+    centroid slots carry group -2 and match no row; a row matching none gets
+    0). The distance and the bf16 operand rule are :func:`_assign_blocks`'s.
+    Returns [N] int32."""
+    c_norm, ct, bf16 = _centroid_operands(centroids, assign_dtype)
+    n = data.shape[0]
+    assign = torch.empty(n, dtype=torch.int32, device=data.device)
+    with _tf32_matmul(bf16):
+        for s in range(0, n, block):
+            dist = _block_dists(data[s : s + block], c_norm, ct, bf16)
+            ok = row_group[s : s + block, None] == cent_group[None, :]
+            dist = torch.where(ok, dist, float("inf"))
+            assign[s : s + block] = torch.argmin(dist, dim=-1).to(torch.int32)
+    return assign
 
 
 def _kmeanspp_init(

@@ -527,3 +527,67 @@ def test_rbq1_from_the_card_loads_on_the_cpu(cuda, tmp_path):
     c_ids, _ = cpu.batch_search_arrays(data[:64], params)
     assert np.mean([len(set(g_ids[i]) & set(c_ids[i])) / 10 for i in range(64)]) >= 0.99
     assert np.all(c_ids[:, 0] == np.arange(64)) and np.all(g_ids[:, 0] == np.arange(64))
+
+
+@pytest.mark.parametrize("scan_dtype,refine", [("fused8", True), ("fused", False), ("packed", True)])
+def test_mstg_built_on_the_card_matches_the_cpu(cuda, scan_dtype, refine, tmp_path):
+    """A small MSTG index (rotated, with closure replicas) built on the card,
+    its codes carried to the CPU: each scan on the card through its kernel
+    (the EXACT bin scan for "fused8", the packed bin scan for "fused" without
+    refinement, the packed lower-bound plane for "packed") against the plain
+    versions on the CPU: top-10 lists agree on >= 98% of ids, no id twice in
+    a row. The index's native file, written from the card, loads on the CPU
+    with the same arrays."""
+    from rabitq_tpu_torch import MstgConfig, MstgIndex, MstgSearchParams
+
+    rng = np.random.default_rng(8)
+    centers = (rng.standard_normal((24, 200)) * 2).astype(np.float32)
+    data = centers[rng.integers(0, 24, 5000)] + 0.5 * rng.standard_normal((5000, 200))
+    pa = rng.integers(0, 24, 500)
+    pb = (pa + 1 + rng.integers(0, 23, 500)) % 24
+    bridges = 0.5 * (centers[pa] + centers[pb]) + 0.3 * rng.standard_normal((500, 200))
+    data = np.concatenate([data, bridges]).astype(np.float32)
+    cfg = MstgConfig(max_posting_size=200, faster_config=True, use_rotator=True,
+                     closure_epsilon=0.9, refine_ex=refine)
+    card = MstgIndex.build(data, cfg, seed=3, scan_dtype=scan_dtype, device=cuda)
+    assert card.replication_factor() > 1.0
+    h = card.host
+    cpu = MstgIndex.from_host_arrays(
+        config=cfg, dim=card.dim, rotator_bytes=card.rotator.serialize(),
+        scan_dtype=scan_dtype, device="cpu",
+        **{f: getattr(h, f) for f in ("binary_bits", "ex_codes", "f_add", "f_rescale",
+                                      "f_add_ex", "f_rescale_ex", "delta", "vl", "ids",
+                                      "list_offsets", "centroids", "f_error", "residual_norm")},
+    )
+    counters = {
+        "fused8": lambda: fs.fused_bin_scan_cuda.dense_launches
+        + fs.fused_bin_scan_cuda.compact_launches,
+        "fused": lambda: sum(fs.fused_bin_scan_packed_cuda.launches.values()),
+        "packed": lambda: ps.packed_lb_plane_cuda.launches,
+    }[scan_dtype]
+    before, fht_before = counters(), fht_kernel.launches
+    queries = np.concatenate([data[:48], data[-16:]]) + 0.01
+    params = MstgSearchParams(top_k=10, ef_search=12, pruning_epsilon=0.8)
+    g_ids, _ = card.batch_search_arrays_pipelined(queries, params, batch_size=32)
+    c_ids, _ = cpu.batch_search_arrays_pipelined(queries, params, batch_size=32)
+    assert counters() > before and fht_kernel.launches > fht_before
+    assert card.scan_dtype == scan_dtype and card._fused_exact_ok() == (scan_dtype == "fused8")
+    assert np.mean([len(set(g_ids[i]) & set(c_ids[i])) / 10 for i in range(64)]) >= 0.98
+    for row in g_ids:
+        assert len(set(row.tolist())) == 10
+    card.save_to_path(tmp_path / "card.mstg")
+    loaded = MstgIndex.load_from_path(tmp_path / "card.mstg", scan_dtype=scan_dtype, device="cpu")
+    np.testing.assert_array_equal(loaded.host.ex_codes, h.ex_codes)
+    np.testing.assert_array_equal(loaded.host.ids, h.ids)
+
+
+def test_upload_of_a_tensor_on_the_card_is_the_tensor(cuda):
+    """A dataset already on the card crosses no link: ``device="cuda"`` and
+    ``cuda:N`` name the card it is on, so the rows are used as they are (not
+    copied through the host, not rounded by an upload encoding)."""
+    from rabitq_tpu_torch.utils.transfer import upload_dataset
+
+    x = torch.randn((1 << 20, 160), device=cuda)  # 640 MB: "auto" would send bf16
+    for device in ("cuda", cuda, torch.device("cuda", torch.cuda.current_device())):
+        out, report = upload_dataset(x, "auto", device)
+        assert out.data_ptr() == x.data_ptr() and report["encoding"] == "resident"

@@ -48,7 +48,13 @@ def test_sources_import_no_jax():
 def test_entry_points_refuse_a_missing_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")
-    from rabitq_tpu_torch import BruteForceRabitqIndex, IvfRabitqIndex, load_index
+    from rabitq_tpu_torch import (
+        BruteForceRabitqIndex,
+        IvfRabitqIndex,
+        MstgConfig,
+        MstgIndex,
+        load_index,
+    )
     from rabitq_tpu_torch.ops.kmeans import run_kmeans
 
     data = np.random.default_rng(0).standard_normal((600, 32)).astype(np.float32)
@@ -60,11 +66,14 @@ def test_entry_points_refuse_a_missing_card():
         run_kmeans(data, 4)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         BruteForceRabitqIndex.train(data, total_bits=7)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        MstgIndex.build(data, MstgConfig(max_posting_size=100))
     for name in ("tiny_ivf.rbq", "tiny_bf.rbf"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             load_index(ROOT / "tests" / "golden" / name)
     # asking for the CPU works
     assert len(IvfRabitqIndex.train(data, nlist=4, total_bits=7, device="cpu")) == 600
+    assert len(MstgIndex.build(data, MstgConfig(max_posting_size=100), device="cpu")) == 600
 
 
 @pytest.mark.parametrize("alone", [False, True])

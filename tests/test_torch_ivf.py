@@ -178,13 +178,14 @@ def test_port_alone_matches_naive_oracle():
 
 
 def test_unported_paths_raise():
-    """An unknown scan_dtype is refused; what the port refused before the
-    dense and two-stage scans were ported, it now serves. (FHT rows longer
-    than 8192 stay refused by the kernel: ``tests/test_torch_cuda.py``.)"""
+    """An unknown scan_dtype builds, as in the reference, and raises
+    ValueError at the first scan; what the port refused before the dense and
+    two-stage scans were ported, it now serves."""
     data = _data()[:600]
-    with pytest.raises(tr.InvalidConfig, match="scan_dtype"):
-        tr.IvfRabitqIndex.train(data, nlist=8, total_bits=7, scan_dtype="fp4", device="cpu")
     params = tr.SearchParams(top_k=5, nprobe=8)
+    unknown = tr.IvfRabitqIndex.train(data, nlist=8, total_bits=7, scan_dtype="fp4", device="cpu")
+    with pytest.raises(ValueError, match="fp4"):
+        unknown.search(data[0], params)
     dense = tr.IvfRabitqIndex.train(data, nlist=8, total_bits=7, scan_dtype="bf16", device="cpu")
     assert dense.search(data[0], params)[0].id == 0
     wide_bits = tr.IvfRabitqIndex.train(
