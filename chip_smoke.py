@@ -57,6 +57,24 @@ Between 6 and 7, on the 7-bit index and the same data:
      cluster) and "bf16" with recall@10 (floor 0.90) and QPS, the kernel
      against its plain version on the packed path's inputs, a profile of a
      packed run, and an RBF1 round trip with equal ids;
+  streamed tier: StreamedIvfIndex over the same 7-bit index (fused8, so the
+     two-stage scan: the packed bin kernel with an int8 query, and the FHT):
+     the in-memory index's own results first (RABITQ_FUSED_EXACT=0 set in
+     this process and unset after, f32 query uploads, nprobe 16 and 256),
+     then a one-chunk tier whose ids must equal them and distances within
+     1e-5 relative, then the tier in 4 chunks of 262144 rows from pinned
+     memory: chunk count, upload bytes a batch, the bare pinned
+     host-to-device rate of one chunk (the tier's bound: bytes a batch over
+     it), the 2048 queries served as one batch at nprobe 16 (compacted walk)
+     and 256 (dense walk) with recall@10 (floor 0.90 at 256) and QPS (median
+     [min, max] of 3) beside the transfer bound and the same scans on
+     resident chunks, the 4-chunk results against the one-chunk ones (top-10
+     overlap >= 0.98, recall no more than 0.005 below), a profile of one
+     batch (copy time, kernel time, copying hidden under kernels), a
+     filtered batch (a seeded half of the ids), the packed bin kernel
+     against its plain version on chunk 0's inputs for one 256-query block
+     (both walks), and last the wrapped index serving nprobe 64 in memory
+     again with the ids it gave before;
   MSTG: MstgIndex.build on the 1M rows with bench.py's configuration
      (max_posting_size rows/500, faster config, FhtKac rotator, 7 bits,
      fused8, seed 42), its phases, list sizes and replication, then 2048
@@ -70,7 +88,19 @@ Between 6 and 7, on the 7-bit index and the same data:
      rows if the first build took over 60 s), served and checked the same
      way, replication above 1 and no id twice in a result row, and at each
      ef the device dedup against the host dedup on the same candidates and
-     recall beside the gather scan's (no bins) on the same index.
+     recall beside the gather scan's (no bins) on the same index; the
+     headline index is saved to a native file for the next phase;
+  front ends: the IVF binding fit on the 1M rows (nlist 4096, 7 bits,
+     fused8) and its batch_query of the 2048 queries at nprobe 64 (the
+     pipelined branch; ids and distances equal to its index's
+     batch_search_arrays), the MSTG binding's load of the headline file and
+     batch_query at ef 64 (ids equal to the index's own serving loop), the
+     ann-benchmarks IVF module (ann_benchmarks/rabitq-tpu-torch-ivf) at its
+     nlist_4096 group and nprobe 64, and the CLI (python -m
+     rabitq_tpu_torch build, info, query --groundtruth, sweep --method ivf
+     --nprobes 16 64) in subprocesses on a 100,000-row fvecs slice with 256
+     queries (files in a temporary directory of the checkout, deleted), each
+     of which must exit 0, with recall and the CSV header checked.
 Each of these paths zeroes the launch counters just before it and reads
 them just after; every kernel it runs must have launched.
 Then one JSON line of kernel numbers, nvidia-smi's line again, and last
@@ -85,6 +115,7 @@ import itertools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -104,6 +135,10 @@ MSTG_EFS = (8, 64)  # ef_search served on the MSTG indexes (bench.py's sweep sta
 MSTG_EPS = 0.6  # pruning epsilon (bench.py's)
 MSTG_BUILD_CUT_S = 60.0  # a slower headline MSTG build cuts the replicated variant ...
 MSTG_CUT_ROWS = 262_144  # ... to this many rows
+STREAM_CHUNK_ROWS = 262_144  # rows a slab of the streamed tier: 4 chunks at 1M rows
+STREAM_QPS_RUNS = 3  # timed streamed batches a nprobe
+CLI_ROWS, CLI_QUERIES = 100_000, 256  # the CLI's fvecs slice (1M x 960 would be 3.8 GB)
+CLI_RECALL_FLOOR = 0.80  # recall@10 of the CLI's query (nlist 1024, nprobe 64, bf16 scan)
 
 
 def log(msg: str) -> None:
@@ -306,7 +341,7 @@ def bin_scan_bound(args, kw):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_bin_scan(index, queries_np, nprobe):
+def check_bin_scan(index, queries_np, nprobe, walk):
     """Kernel vs plain on the exact inputs the main path hands the bin
     kernel for one 256-query block at this nprobe, in the mode the index's
     scan_dtype takes (direct, or packed with a bf16 or int8 query)."""
@@ -314,12 +349,14 @@ def check_bin_scan(index, queries_np, nprobe):
 
     return check_bin_scan_run(
         lambda: index.batch_search_arrays(queries_np[:256], SearchParams(top_k=10, nprobe=nprobe)),
-        f"nprobe={nprobe}")
+        f"nprobe={nprobe}", walk)
 
 
-def check_bin_scan_run(run, label):
+def check_bin_scan_run(run, label, walk=None):
     """:func:`check_bin_scan` on the first bin-kernel call that ``run()``
-    makes (one 256-query block of a path's search)."""
+    makes (one 256-query block of a path's search). Where ``walk`` is given
+    ("compacted" or "dense"), fails unless that call took that walk, so a
+    result filed under a walk's name holds that walk's numbers."""
     import torch
     from rabitq_tpu_torch.ops import fused_scan
 
@@ -336,7 +373,10 @@ def check_bin_scan_run(run, label):
     finally:
         fused_scan.fused_bin_scan = real
     args, kw = captured[0]
-    walk = "dense" if args[8] is None else "compacted"
+    seen = "dense" if args[8] is None else "compacted"
+    if walk is not None and seen != walk:
+        raise AssertionError(f"bin scan ({label}): took the {seen} walk, expected {walk}")
+    walk = seen
     if kw.get("f_error") is None:
         mode, kernel = "direct", fused_scan.fused_bin_scan_cuda
     else:
@@ -513,7 +553,6 @@ def profile_run(run, label):
     time the device was busy (torch.profiler); returns the device's busy
     milliseconds."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -522,9 +561,21 @@ def profile_run(run, label):
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = device_rows(prof)
+    busy = sum(r[0] for r in rows)
+    log(f"profile {label}: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
+        f"({100 * busy / wall_ms:.0f}%); top: {top_rows(rows)}")
+    return busy
+
+
+def device_rows(prof):
+    """(device ms, name, count) of every kernel and copy a profile recorded,
+    largest first; fails if the device ran nothing."""
+    from torch.autograd import DeviceType
+
     rows = []
     for ev in prof.key_averages():
-        # kernel rows only: an operator's row repeats its kernels' device time
+        # device rows only: an operator's row repeats its kernels' device time
         if ev.device_type != DeviceType.CUDA:
             continue
         dev_us = getattr(ev, "self_device_time_total", None)
@@ -534,12 +585,11 @@ def profile_run(run, label):
             rows.append((dev_us / 1e3, ev.key, ev.count))
     if not rows:
         raise AssertionError("the profiler recorded no kernel on the device")
-    rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows)
-    top = "; ".join(f"{name[:48]} x{n} {ms:.2f} ms" for ms, name, n in rows[:8])
-    log(f"profile {label}: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
-        f"({100 * busy / wall_ms:.0f}%); top: {top}")
-    return busy
+    return sorted(rows, reverse=True)
+
+
+def top_rows(rows, n=8):
+    return "; ".join(f"{name[:48]} x{k} {ms:.2f} ms" for ms, name, k in rows[:n])
 
 
 def file_digest(path) -> str:
@@ -578,7 +628,7 @@ def read_launches(path, needed):
     """The launch counters after a path's run; fails if a kernel in
     ``needed`` never ran on it."""
     from rabitq_tpu_torch.ops.fht import fht_kernel
-    from rabitq_tpu_torch.ops.fused_scan import fused_bin_scan_cuda
+    from rabitq_tpu_torch.ops.fused_scan import fused_bin_scan_cuda, fused_bin_scan_packed_cuda
     from rabitq_tpu_torch.ops.packed_scan import packed_lb_plane_cuda
 
     counts = {"fht": fht_kernel.launches,
@@ -587,6 +637,8 @@ def read_launches(path, needed):
               "fused_bin_scan": fused_bin_scan_cuda.dense_launches
               + fused_bin_scan_cuda.compact_launches,
               "packed_lb_plane": packed_lb_plane_cuda.launches}
+    counts.update({f"fused_bin_scan_packed_{k}": v
+                   for k, v in fused_bin_scan_packed_cuda.launches.items()})
     counts = {k: counts[k] for k in needed}
     log(f"launches on the {path} path: {counts}")
     if min(counts.values()) <= 0:
@@ -985,16 +1037,24 @@ def mstg_recall_witness(index, queries_np, gt):
 
 def check_mstg(data, queries, centers):
     """The MSTG phase: the headline variant on the 1M rows and a profile of
-    one serving run, then the replicated variant (at MSTG_CUT_ROWS rows if
-    the headline build took over MSTG_BUILD_CUT_S) and its recall witness.
-    Returns ({(variant, "build" | ef): launches}, {(variant, ef): K1
-    check})."""
+    one serving run, saved to a native file for the front-end phase, then
+    the replicated variant (at MSTG_CUT_ROWS rows if the headline build took
+    over MSTG_BUILD_CUT_S) and its recall witness. Returns ({(variant,
+    "build" | ef): launches}, {(variant, ef): K1 check}, the headline
+    file's path, in a temporary directory of the checkout)."""
+    import tempfile
+
     import torch
 
     index, head, k1_head, build_s, _ = mstg_variant("headline", data, queries)
     queries_np = queries.cpu().numpy()
     ef = min(MSTG_EFS)
     profile_run(lambda: serve_mstg(index, queries_np, ef), f"MSTG headline ef={ef}")
+    mstg_path = os.path.join(tempfile.mkdtemp(dir=ROOT), "headline.mstg")
+    t0 = time.perf_counter()
+    index.save_to_path(mstg_path)
+    log(f"MSTG headline saved (native file, for the front-end phase): "
+        f"{os.path.getsize(mstg_path)} bytes in {time.perf_counter() - t0:.2f} s")
     del index
     torch.cuda.empty_cache()
     rows = data.shape[0]
@@ -1014,7 +1074,391 @@ def check_mstg(data, queries, centers):
     launches.update({("replicated", k): v for k, v in repl.items()})
     k1 = {("headline", k): v for k, v in k1_head.items()}
     k1.update({("replicated", k): v for k, v in k1_repl.items()})
-    return launches, k1
+    return launches, k1, mstg_path
+
+
+def intervals_union(spans):
+    """Sorted, merged [start, end) intervals of ``spans``."""
+    out = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def intervals_overlap(x, y):
+    """Length of the intersection of two merged interval lists."""
+    i = j = 0
+    total = 0.0
+    while i < len(x) and j < len(y):
+        lo, hi = max(x[i][0], y[j][0]), min(x[i][1], y[j][1])
+        total += max(0.0, hi - lo)
+        if x[i][1] < y[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def profile_streamed(run, label):
+    """One streamed batch under torch.profiler: the host-to-device copy time
+    (the copy engine's busy time), the kernels' busy time, and how much of
+    the copying ran while a kernel ran (from the trace's timeline)."""
+    import tempfile
+
+    import torch
+    from rabitq_tpu_torch.utils.profiling import device_trace
+
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        with device_trace(tmp) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        with open(os.path.join(tmp, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+    copies, kernels = [], []
+    for e in events:
+        if e.get("ph") != "X" or "dur" not in e:
+            continue
+        span = (float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+        if e.get("cat") == "gpu_memcpy" and "HtoD" in str(e.get("name", "")):
+            copies.append(span)
+        elif e.get("cat") == "kernel":
+            kernels.append(span)
+    top = top_rows(device_rows(prof))
+    cu, ku = intervals_union(copies), intervals_union(kernels)
+    copy_ms = sum(b - a for a, b in cu) / 1e3
+    kern_ms = sum(b - a for a, b in ku) / 1e3
+    hidden_ms = intervals_overlap(cu, ku) / 1e3
+    share = f"{100 * hidden_ms / copy_ms:.0f}%" if copy_ms else "no copy recorded"
+    log(f"profile streamed {label}: wall {wall_ms:.1f} ms; host-to-device copies {copy_ms:.1f} "
+        f"ms busy ({len(copies)} copies), kernels {kern_ms:.1f} ms busy; copying hidden under "
+        f"kernels {hidden_ms:.1f} ms ({share}); top: {top}")
+    return dict(wall_ms=wall_ms, copy_ms=copy_ms, kernel_ms=kern_ms, hidden_ms=hidden_ms)
+
+
+def h2d_gbps(chunk):
+    """Bare pinned host-to-device rate of one slab: all its tensors copied
+    without blocking on one stream, timed with CUDA events (median of 3
+    after a warm-up)."""
+    import statistics
+
+    import torch
+
+    n_bytes = sum(t.numel() * t.element_size() for t in chunk.values())
+    rates = []
+    for rep in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        dev = [t.to("cuda", non_blocking=True) for t in chunk.values()]
+        end.record()
+        end.synchronize()
+        if rep:
+            rates.append(n_bytes / (start.elapsed_time(end) / 1e3) / 1e9)
+        del dev
+    return statistics.median(rates), n_bytes
+
+
+def streamed_compute_ms(tier, queries_np, params):
+    """The same scans on resident chunks (every slab uploaded beforehand):
+    host time of one batch's rotation, scans and fetch, median of 3."""
+    import statistics
+
+    import torch
+    from rabitq_tpu_torch.index.scan import probe_k_bucket
+
+    resident = [{k: v.to("cuda") for k, v in c.items()} for c in tier._chunks]
+    probe_k = probe_k_bucket(params.nprobe, tier.index.cluster_count(), tier.index.scan_dtype)
+
+    def run():
+        b, q_rot = tier._rotate(queries_np)
+        max_tiles = tier._fused_max_tiles(params.nprobe, q_rot.shape[0])
+        out = [tier._scan_chunk(c, q_rot, params, None, max_tiles, probe_k) for c in resident]
+        torch.cat([o[0] for o in out], dim=1).cpu()
+
+    run()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        times.append((time.perf_counter() - t0) * 1e3)
+    del resident
+    torch.cuda.empty_cache()
+    return statistics.median(times)
+
+
+def check_streamed(index, queries_np, gt):
+    """The streamed tier at full size on the 7-bit index (the last phase that
+    uses it): the in-memory index's own results first (two-stage scan,
+    RABITQ_FUSED_EXACT=0 set in this process and unset after, f32 query
+    uploads, nprobe 16 and 256; the EXACT scan at nprobe 64), then a
+    one-chunk tier held equal to them, then the 4-chunk tier: its chunks,
+    upload bytes and bare H2D rate, serving (QPS, recall, batch time beside
+    the transfer bound and the compute on resident chunks), a profile, a
+    filtered batch, the chunking witness against the one-chunk tier, and
+    the packed bin kernel against its plain version on a chunk's inputs;
+    last, the wrapped index serves nprobe 64 in memory again with the ids
+    it gave before. Returns (launches, {walk: kernel check})."""
+    import numpy as np
+    import torch
+    from rabitq_tpu_torch import SearchParams, StreamedIvfIndex
+
+    upload = index.upload_dtype
+    before64, _ = serve(index, queries_np, 64)
+    index.upload_dtype = "f32"  # the streamed tier uploads f32 queries
+    os.environ["RABITQ_FUSED_EXACT"] = "0"
+    try:
+        mem = {nprobe: index.batch_search_arrays(queries_np, SearchParams(top_k=10, nprobe=nprobe))
+               for nprobe in (16, 256)}
+    finally:
+        del os.environ["RABITQ_FUSED_EXACT"]
+    index.upload_dtype = upload
+
+    t0 = time.perf_counter()
+    one = StreamedIvfIndex(index, chunk_rows=ROWS + 512)
+    one_s = time.perf_counter() - t0
+    if one.n_chunks != 1 or index._layout is not None:
+        raise AssertionError(f"one-chunk tier: {one.n_chunks} chunks, layout released "
+                             f"{index._layout is None}")
+    single = {}
+    for nprobe, (m_ids, m_d) in mem.items():
+        ids, d = one.batch_search_arrays(queries_np, SearchParams(top_k=10, nprobe=nprobe))
+        same = float(np.mean(ids == m_ids))
+        rel = float(np.max(np.abs(d - m_d) / np.maximum(np.abs(m_d), 1e-30)))
+        log(f"streamed one chunk nprobe={nprobe}: ids equal to the in-memory two-stage scan on "
+            f"{same:.5f} of entries, distances within {rel:.3g} relative")
+        if same != 1.0 or rel > 1e-5:
+            raise AssertionError(f"one-chunk tier differs from the in-memory scan at nprobe {nprobe}")
+        single[nprobe] = ids
+    del one
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    tier = StreamedIvfIndex(index, chunk_rows=STREAM_CHUNK_ROWS)
+    init_s = time.perf_counter() - t0
+    rows = [int(c["valid"].sum()) for c in tier._chunks]
+    pinned = all(t.is_pinned() for c in tier._chunks for t in c.values())
+    gbps, chunk_bytes = h2d_gbps(tier._chunks[0])
+    upload = sum(t.numel() * t.element_size() for c in tier._chunks for t in c.values())
+    bound_ms = upload / (gbps * 1e9) * 1e3
+    log(f"streamed tier: {tier.n_chunks} chunks of {rows} rows (chunk_rows {tier.chunk_rows}), "
+        f"slabs pinned {pinned}, keys {sorted(tier._chunks[0])}; {upload} bytes uploaded a "
+        f"batch ({upload / ROWS:.1f} a row); bare pinned H2D of one chunk "
+        f"({chunk_bytes} bytes) {gbps:.2f} GB/s, so a batch's transfer bound is {bound_ms:.1f} ms; "
+        f"tier built in {init_s:.1f} s (the one-chunk tier in {one_s:.1f} s)")
+    if tier.n_chunks != 4 or not pinned or "binary" in tier._chunks[0]:
+        raise AssertionError("the 4-chunk tier is not laid out as expected")
+
+    zero_launches()
+    results, qps = {}, {}
+    for nprobe in (16, 256):
+        params = SearchParams(top_k=10, nprobe=nprobe)
+        results[nprobe] = tier.batch_search_arrays(queries_np, params)
+        qps[nprobe] = []
+        for _ in range(STREAM_QPS_RUNS):
+            t0 = time.perf_counter()
+            tier.batch_search_arrays(queries_np, params)
+            qps[nprobe].append(len(queries_np) / (time.perf_counter() - t0))
+    launches = read_launches("streamed", ("fht", "fused_bin_scan_packed_int8_compact",
+                                          "fused_bin_scan_packed_int8_dense"))
+    walks = {16: tier._fused_max_tiles(16, len(queries_np)),
+             256: tier._fused_max_tiles(256, len(queries_np))}
+    for nprobe in (16, 256):
+        ids, dists = results[nprobe]
+        if ids.shape != (len(queries_np), 10) or (ids < 0).any() or not np.isfinite(dists).all():
+            raise AssertionError(f"streamed nprobe={nprobe}: malformed results {ids.shape}")
+        if (np.diff(dists, axis=1) < 0).any():
+            raise AssertionError(f"streamed nprobe={nprobe}: rows not sorted by distance")
+        recall, recall_one = recall_at(ids, gt, 10), recall_at(single[nprobe], gt, 10)
+        overlap = np.mean([len(set(a) & set(b)) / 10 for a, b in zip(ids, single[nprobe])])
+        compute = streamed_compute_ms(tier, queries_np, SearchParams(top_k=10, nprobe=nprobe))
+        q = qps[nprobe]
+        walk = "dense walk" if walks[nprobe] is None else f"compacted walk, {walks[nprobe]} tiles"
+        log(f"serve streamed nprobe={nprobe} ({walk}): recall@10 {recall:.4f} (one chunk "
+            f"{recall_one:.4f}, top-10 overlap with it {overlap:.4f}); QPS over "
+            f"{STREAM_QPS_RUNS} batches of {len(queries_np)} (median [min, max]) "
+            f"{np.median(q):.0f} [{min(q):.0f}, {max(q):.0f}]: batch "
+            f"{len(queries_np) / np.median(q) * 1e3:.1f} ms against a transfer bound of "
+            f"{bound_ms:.1f} ms and {compute:.1f} ms for the same scans on resident chunks")
+        if overlap < 0.98 or recall < recall_one - 0.005:
+            raise AssertionError(f"streamed nprobe={nprobe}: 4 chunks against one: overlap "
+                                 f"{overlap:.4f}, recall {recall:.4f} against {recall_one:.4f}")
+        if nprobe == 256 and recall < RECALL_FLOOR:
+            raise AssertionError(f"streamed: recall@10 {recall:.4f} < {RECALL_FLOOR} at nprobe=256")
+    profile_streamed(lambda: tier.batch_search_arrays(queries_np, SearchParams(top_k=10, nprobe=16)),
+                     "nprobe=16")
+
+    allowed = np.random.default_rng(11).permutation(ROWS)[: ROWS // 2]
+    ids, _ = tier.batch_search_arrays(queries_np, SearchParams(top_k=10, nprobe=16), allowed)
+    inside = np.isin(ids[ids >= 0], allowed)
+    log(f"streamed filtered batch (a seeded half of the ids, nprobe=16): {int((ids >= 0).sum())} "
+        f"of {ids.size} slots hold an id, all in the filter {bool(inside.all())}")
+    if not inside.all():
+        raise AssertionError("the streamed tier returned an id outside the filter")
+
+    checks = {}
+    for nprobe, key, walk in ((16, "compact", "compacted"), (256, "dense", "dense")):
+        params = SearchParams(top_k=10, nprobe=nprobe)
+        checks[key] = check_bin_scan_run(
+            lambda: tier.batch_search_arrays(queries_np[:256], params),
+            f"streamed chunk 0, nprobe={nprobe}", walk)
+    del tier
+    torch.cuda.empty_cache()
+
+    after64, _ = serve(index, queries_np, 64)
+    log(f"after the tiers: the wrapped index serves nprobe=64 in memory again, ids equal to "
+        f"before {np.array_equal(after64, before64)}")
+    if not np.array_equal(after64, before64):
+        raise AssertionError("the wrapped index serves other ids after its re-layout")
+    return launches, checks
+
+
+def load_ann_module(name):
+    """An ann-benchmarks module of the repository, loaded by path as
+    ann-benchmarks loads it."""
+    import importlib.util
+
+    path = ROOT / "ann_benchmarks" / name / "module.py"
+    spec = importlib.util.spec_from_file_location(name.replace("-", "_"), path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_cli(*args):
+    """``python -m rabitq_tpu_torch`` in a subprocess of the checkout; fails
+    unless it exits 0. Returns its standard output."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "rabitq_tpu_torch", *args], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        raise AssertionError(f"CLI {args[0]} exited {out.returncode}: {out.stderr[-2000:]}")
+    log(f"CLI {args[0]}: exit 0 in {time.perf_counter() - t0:.1f} s")
+    return out.stdout
+
+
+def check_front_ends(data, queries, gt, mstg_path):
+    """The front ends at full size: the IVF binding (fit on the 1M rows,
+    nlist 4096, 7 bits, fused8; batch_query of the 2048 queries at nprobe
+    64 takes the pipelined branch, ids equal to the wrapped index's
+    batch_search_arrays), the MSTG binding (load of the headline MSTG file,
+    batch_query at ef 64, ids equal to the index's own serving loop), the
+    ann-benchmarks IVF module at its nlist_4096 group (nprobe 64), and the
+    CLI's build / info / query / sweep on a 100,000-row fvecs slice in
+    subprocesses (files in a temporary directory of the checkout,
+    deleted). Returns {path: launches}."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from rabitq_tpu_torch import MstgSearchParams, SearchParams, bindings
+    from rabitq_tpu_torch.io import write_fvecs, write_ivecs
+
+    data_np = data.cpu().numpy()
+    queries_np = queries.cpu().numpy()
+    launches = {}
+    t0 = time.perf_counter()
+    ivf = bindings.IvfRabitqIndex(DIM)
+    ivf.fit(data_np, nlist=NLIST, total_bits=7, scan_dtype="fused8")
+    fit_s = time.perf_counter() - t0
+    params = SearchParams(top_k=10, nprobe=64)
+    # the index's own search in the blocks of 256 the pipelined loop
+    # dispatches (a batch of another size takes other GEMM shapes for the
+    # centroid distances, whose f32 sums may round otherwise)
+    blocks = [ivf.index.batch_search_arrays(queries_np[s : s + 256], params)
+              for s in range(0, len(queries_np), 256)]
+    want_ids, want_d = (np.concatenate([b[i] for b in blocks]) for i in (0, 1))
+    whole_ids, _ = ivf.index.batch_search_arrays(queries_np, params)
+    zero_launches()
+    res = ivf.batch_query(queries_np, 10, 64)
+    launches["IVF binding"] = read_launches("IVF binding", ("fht", "fused_bin_scan_dense"))
+    ids = np.stack([r[:, 0].astype(np.int64) for r in res])
+    equal = np.array_equal(ids, want_ids) and all(
+        np.array_equal(r[:, 1], d) for r, d in zip(res, want_d))
+    log(f"IVF binding: fit {fit_s:.2f} s ({len(data_np)} x {DIM} host rows, nlist {NLIST}, 7 bits, "
+        f"fused8); "
+        f"batch_query of {len(queries_np)} at nprobe 64 (pipelined): ids and distances equal to "
+        f"batch_search_arrays over blocks of 256 {equal} (ids equal to one batch of "
+        f"{len(queries_np)} on {np.mean(ids == whole_ids):.5f} of entries); recall@10 "
+        f"{recall_at(ids, gt, 10):.4f}")
+    if not equal:
+        raise AssertionError("the IVF binding's results differ from its index's")
+    if np.mean(ids == whole_ids) < 0.999:
+        raise AssertionError("the IVF binding's ids agree with one batch of the index's on "
+                             f"{np.mean(ids == whole_ids):.5f} < 0.999 of entries")
+    del ivf
+    torch.cuda.empty_cache()
+
+    mstg = bindings.MstgIndex.load(mstg_path)
+    mstg.set_query_arguments(ef_search=64, pruning_epsilon=MSTG_EPS)
+    params = MstgSearchParams(top_k=10, ef_search=64, pruning_epsilon=MSTG_EPS)
+    want = mstg.index.batch_search_pipelined(queries_np, params, batch_size=256)
+    zero_launches()
+    res = mstg.batch_query(queries_np, 10)
+    launches["MSTG binding"] = read_launches("MSTG binding", ("fht",))
+    equal = all(np.array_equal(r[:, 0].astype(np.int64), [h.id for h in w])
+                for r, w in zip(res, want))
+    ids = np.full((len(res), 10), -1, np.int64)
+    for i, r in enumerate(res):
+        ids[i, : len(r)] = r[:, 0]
+    log(f"MSTG binding: load of the headline MSTG file ({os.path.getsize(mstg_path)} bytes, "
+        f"scan_dtype {mstg.index.scan_dtype}, {len(mstg)} vectors); batch_query at ef 64: ids "
+        f"equal to the index's own {equal}; recall@10 {recall_at(ids, gt, 10):.4f}")
+    if not equal or len(mstg) != ROWS:
+        raise AssertionError("the MSTG binding's results differ from its index's")
+    del mstg
+    torch.cuda.empty_cache()
+
+    mod = load_ann_module("rabitq-tpu-torch-ivf")
+    t0 = time.perf_counter()
+    algo = mod.RabitqTorchIvf("euclidean", {"nlist": 4096, "total_bits": 7, "faster_config": True})
+    algo.fit(data_np)
+    fit_s = time.perf_counter() - t0
+    algo.set_query_arguments({"nprobe": 64})
+    zero_launches()
+    t0 = time.perf_counter()
+    algo.batch_query(queries_np, 10)
+    batch_s = time.perf_counter() - t0
+    launches["ann-benchmarks IVF"] = read_launches("ann-benchmarks IVF", ("fht",))
+    ids = np.stack(algo.get_batch_results())
+    recall = recall_at(ids, gt, 10)
+    log(f"ann-benchmarks {algo} (nlist_4096 group, scan_dtype {algo.index.index.scan_dtype}): "
+        f"fit {fit_s:.2f} s, batch_query of {len(queries_np)} {batch_s:.2f} s, recall@10 "
+        f"{recall:.4f}")
+    if recall < RECALL_FLOOR:
+        raise AssertionError(f"ann-benchmarks IVF module: recall@10 {recall:.4f} < {RECALL_FLOOR}")
+    del algo
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        base, qf, gtf = (os.path.join(tmp, f) for f in ("base.fvecs", "q.fvecs", "gt.ivecs"))
+        index_path, csv = os.path.join(tmp, "index.rbq"), os.path.join(tmp, "sweep.csv")
+        write_fvecs(base, data_np[:CLI_ROWS])
+        write_fvecs(qf, queries_np[:CLI_QUERIES])
+        write_ivecs(gtf, ground_truth(data[:CLI_ROWS], queries[:CLI_QUERIES], 100).astype(np.int32))
+        run_cli("build", "--data", base, "--output", index_path, "--nlist", "1024")
+        info = json.loads(run_cli("info", "--index", index_path))
+        out = json.loads(run_cli("query", "--index", index_path, "--queries", qf,
+                                 "--groundtruth", gtf))
+        run_cli("sweep", "--data", base, "--queries", qf, "--groundtruth", gtf, "--method", "ivf",
+                "--nprobes", "16", "64", "--stream-reps", "1", "--output", csv)
+        with open(csv) as f:
+            rows = f.read().strip().splitlines()
+    log(f"CLI on {CLI_ROWS} x {DIM} rows and {CLI_QUERIES} queries: info {json.dumps(info)}; "
+        f"query (nprobe 64) recall@10 {out['recall']:.4f}, {out['qps']:.0f} QPS; sweep: "
+        + " | ".join(rows))
+    if info["kind"] != "ivf" or info["vectors"] != CLI_ROWS or out["recall"] < CLI_RECALL_FLOOR:
+        raise AssertionError(f"CLI: info {info}, query {out}")
+    if rows[0] != "method,config,recall_at_100,latency_ms,qps" or len(rows) != 3:
+        raise AssertionError(f"CLI sweep CSV: {rows}")
+    return launches
 
 
 def main() -> int:
@@ -1125,8 +1569,8 @@ def main() -> int:
         raise AssertionError(f"recall@10 {recalls[256]:.4f} < {RECALL_FLOOR} at nprobe=256")
 
     t0 = time.perf_counter()
-    compact = check_bin_scan(index, queries_np, 16)
-    dense = check_bin_scan(index, queries_np, 256)
+    compact = check_bin_scan(index, queries_np, 16, "compacted")
+    dense = check_bin_scan(index, queries_np, 256, "dense")
     for nprobe in (16, 256):
         profile_serving(index, queries_np, nprobe)
     log(f"phase seconds: 7-bit checks and profiles {time.perf_counter() - t0:.1f}")
@@ -1140,6 +1584,9 @@ def main() -> int:
     resident = check_resident(index, queries_np)
     gather = check_gather(index, queries_np, gt)
     log(f"phase seconds: resident queries and gather scan {time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    streamed, k3_streamed = check_streamed(index, queries_np, gt)
+    log(f"phase seconds: streamed tier {time.perf_counter() - t0:.1f}")
     del index
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -1147,8 +1594,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"phase seconds: brute force {time.perf_counter() - t0:.1f}")
     t0 = time.perf_counter()
-    mstg, k1_mstg = check_mstg(data, queries, centers)
+    mstg, k1_mstg, mstg_path = check_mstg(data, queries, centers)
     log(f"phase seconds: MSTG {time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    try:
+        front = check_front_ends(data, queries, gt, mstg_path)
+    finally:
+        shutil.rmtree(os.path.dirname(mstg_path), ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"phase seconds: front ends {time.perf_counter() - t0:.1f}")
 
     # ---- two-stage and dense paths: total_bits=8 keeps raw ex codes, so the
     # fused scans run two-stage through the packed bin kernel
@@ -1207,12 +1661,12 @@ def main() -> int:
     lb = check_packed_lb_scan(index8, queries_np, 256)
     profile_serving(index8, queries_np, 256, label="total_bits=8 packed ")
     index8.scan_dtype = "fused8"  # re-laid back to the cluster-sorted layout
-    p_int8_compact = check_bin_scan(index8, queries_np, 16)
-    p_int8_dense = check_bin_scan(index8, queries_np, 256)
+    p_int8_compact = check_bin_scan(index8, queries_np, 16, "compacted")
+    p_int8_dense = check_bin_scan(index8, queries_np, 256, "dense")
     profile_serving(index8, queries_np, 16, label="total_bits=8 fused8 ")
     index8.scan_dtype = "fused"
-    p_bf16_compact = check_bin_scan(index8, queries_np, 16)
-    p_bf16_dense = check_bin_scan(index8, queries_np, 256)
+    p_bf16_compact = check_bin_scan(index8, queries_np, 16, "compacted")
+    p_bf16_dense = check_bin_scan(index8, queries_np, 256, "dense")
     profile_serving(index8, queries_np, 256, label="total_bits=8 fused ")
     log(f"phase seconds: total_bits=8 checks and profiles {time.perf_counter() - t0:.1f}")
 
@@ -1227,14 +1681,16 @@ def main() -> int:
     scan_src = "rabitq_tpu_torch/csrc/fused_bin_scan.cu"
     scan_tpu = "rabitq_tpu/ops/pallas_fused_scan.py:497"
     packed_src = "rabitq_tpu_torch/csrc/packed_bin_scan.cu"
-    paths = (launches, launches8, persist, resident, gather, brute) + tuple(mstg.values())
+    paths = ((launches, launches8, persist, resident, gather, brute, streamed)
+             + tuple(mstg.values()) + tuple(front.values()))
     kernels = [
         entry("fht", "rabitq_tpu_torch/csrc/fht.cu", "rabitq_tpu/ops/pallas_fht.py:49",
               sum(p["fht"] for p in paths), fht_rows[(8192, 512)]),
         entry("fused_bin_scan_compact", scan_src, scan_tpu,
               launches["fused_bin_scan_compact"], compact),
         entry("fused_bin_scan_dense", scan_src, scan_tpu,
-              sum(p.get("fused_bin_scan_dense", 0) for p in (launches, persist, resident)), dense),
+              sum(p.get("fused_bin_scan_dense", 0)
+                  for p in (launches, persist, resident, front["IVF binding"])), dense),
         entry("fused_bin_scan_packed_int8_compact", packed_src, scan_tpu,
               launches8["fused_bin_scan_packed_int8_compact"], p_int8_compact),
         entry("fused_bin_scan_packed_int8_dense", packed_src, scan_tpu,
@@ -1243,6 +1699,10 @@ def main() -> int:
               launches8["fused_bin_scan_packed_bf16_compact"], p_bf16_compact),
         entry("fused_bin_scan_packed_bf16_dense", packed_src, scan_tpu,
               launches8["fused_bin_scan_packed_bf16_dense"], p_bf16_dense),
+        entry("fused_bin_scan_packed_int8_streamed_compact", packed_src, scan_tpu,
+              streamed["fused_bin_scan_packed_int8_compact"], k3_streamed["compact"]),
+        entry("fused_bin_scan_packed_int8_streamed_dense", packed_src, scan_tpu,
+              streamed["fused_bin_scan_packed_int8_dense"], k3_streamed["dense"]),
         entry("packed_lb_plane", "rabitq_tpu_torch/csrc/packed_lb_scan.cu",
               "rabitq_tpu/ops/pallas_scan.py:141", launches8["packed_lb_plane"], lb["plane"]),
         entry("packed_lb_scan", "rabitq_tpu_torch/csrc/packed_lb_scan.cu",

@@ -386,6 +386,17 @@ class IvfRabitqIndex:
         self._layout = None
         self._set_layout(ids=self._ids, offsets=self._offsets, centroids=centroids, **planes)
 
+    def _rematerialize(self) -> None:
+        """Lay the index out on the device again from its host copy, in the
+        current ``scan_dtype``'s layout mode."""
+        h = self._host
+        self._set_layout(
+            ids=self._ids, offsets=self._offsets, centroids=h.centroids,
+            binary=h.binary_bits, ex=h.ex_codes, f_add=h.f_add, f_rescale=h.f_rescale,
+            f_error=h.f_error, f_add_ex=h.f_add_ex, f_rescale_ex=h.f_rescale_ex,
+            delta=h.delta, vl=h.vl,
+        )
+
     @property
     def host(self) -> HostCodes:
         """The codes as host arrays in cluster-sorted order: those the index
@@ -412,7 +423,9 @@ class IvfRabitqIndex:
     @property
     def layout(self) -> DeviceLayout:
         if self._layout is None:
-            raise EmptyIndex()
+            if self._host is None:
+                raise EmptyIndex()
+            self._rematerialize()  # the layout was released (the streamed tier)
         if self._layout_mode_built != self._layout_mode():
             self._relayout()  # scan_dtype was assigned since the layout was built
         return self._layout

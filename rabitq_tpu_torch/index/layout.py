@@ -6,7 +6,8 @@ per-row factor vectors, rows grouped by cluster, padded to a multiple of
 cluster-sorted (``permute=False``, ``row_pad=TN``), width-pads the refine
 plane to 128 columns and adds the packed bit planes; ``permute=True``
 scatters rows pseudorandomly (``device_row_permutation``) as the JAX
-package's approximate-top-k paths need.
+package's approximate-top-k paths need. :func:`assemble_host_chunks` lays
+the same rows out as host slabs for the streamed tier.
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..ops.packed_scan import pack_bitplanes
+from ..ops.fused_scan import TN, tile_cluster_blocks
+from ..ops.packed_scan import pack_bitplanes, pack_bitplanes_np
 from .scan import device_row_permutation, ex_plane_is_total, make_refine_plane
 
 _ROW_PAD = 128  # default device row padding multiple
@@ -183,3 +185,84 @@ def assemble_device_layout(
         delta=scalar(delta) if delta is not None else None,
         vl=scalar(vl) if vl is not None else None,
     )
+
+
+def assemble_host_chunks(
+    *,
+    n: int,
+    ex_bits: int,
+    binary: np.ndarray,
+    ex: np.ndarray,
+    f_add: np.ndarray,
+    f_rescale: np.ndarray,
+    f_error: np.ndarray,
+    f_add_ex: np.ndarray,
+    f_rescale_ex: np.ndarray,
+    cluster_sizes: np.ndarray,
+    ids: np.ndarray,
+    chunk_rows: int,
+    fused: bool = False,
+) -> list[dict]:
+    """The device layout as host slabs of ``chunk_rows`` rows (numpy arrays,
+    each slab padded with invalid rows), for the streamed tier
+    (``index/streaming.py``); the same arrays as the JAX package's.
+
+    Dense scans: one global pseudorandom scatter of the rows
+    (``device_row_permutation``), cut into slabs padded to 128 rows.
+    ``fused=True``: rows stay cluster-sorted, slabs pad to the bin
+    kernels' ``TN`` row tiles, and each
+    carries its ``packed`` 1-bit planes and ``cblk`` cluster windows; where
+    the refine plane holds TOTAL codes the dense binary plane is left out
+    (stage 2 never reads it, and the tier pays for every uploaded byte)."""
+    if fused:
+        row_pad = TN
+        perm = np.arange(n, dtype=np.int64)
+    else:
+        row_pad = _ROW_PAD
+        perm = device_row_permutation(n, n)[:n]
+    cluster_of = cluster_of_rows(cluster_sizes, n)[perm]
+    ids_p = np.asarray(ids).astype(np.int32)[perm]
+    binary_p = np.asarray(binary)[perm]
+    plane = np.asarray(make_refine_plane(binary_p, np.asarray(ex)[perm], ex_bits))
+    ex_dt = np.int8 if ex_bits <= 7 else np.int32  # refine_plane_dtype, as numpy
+    scal = {
+        "f_add": np.asarray(f_add, np.float32)[perm],
+        "f_rescale": np.asarray(f_rescale, np.float32)[perm],
+        "f_error": np.asarray(f_error, np.float32)[perm],
+        "f_add_ex": np.asarray(f_add_ex, np.float32)[perm],
+        "f_rescale_ex": np.asarray(f_rescale_ex, np.float32)[perm],
+    }
+
+    chunks = []
+    for s in range(0, n, chunk_rows):
+        e = min(s + chunk_rows, n)
+        rows = e - s
+        m = rows + ((-rows) % row_pad)
+
+        def pad2(x, dtype):
+            out = np.zeros((m, x.shape[1]), dtype)
+            out[:rows] = x[s:e]
+            return out
+
+        def pad1(x, fill=0):
+            out = np.full(m, fill, x.dtype)
+            out[:rows] = x[s:e]
+            return out
+
+        valid = np.zeros(m, bool)
+        valid[:rows] = True
+        chunk = dict(
+            binary=pad2(binary_p, np.int8),
+            ex=pad2(plane, ex_dt),
+            cluster_of=pad1(cluster_of),
+            ids=pad1(ids_p, fill=-1),
+            valid=valid,
+            **{k: pad1(v) for k, v in scal.items()},
+        )
+        if fused:
+            chunk["packed"] = pack_bitplanes_np(chunk["binary"], chunk["binary"].shape[1])
+            chunk["cblk"] = tile_cluster_blocks(chunk["cluster_of"], valid)
+            if ex_plane_is_total(ex_bits):
+                del chunk["binary"]
+        chunks.append(chunk)
+    return chunks

@@ -82,3 +82,9 @@ def est_extended(
     """Extended-code refined distance (``ivf.rs:2093-2099``)."""
     total_term = binary_scale * binary_dot + ex_dot + kbx_sum_q
     return f_add_ex + g_add + f_rescale_ex * total_term
+
+
+def scores_from_distances(dist: torch.Tensor, metric: Metric) -> torch.Tensor:
+    """The reference reports the distance for L2 and -distance for inner
+    product (``ivf.rs:2106-2109``; results ordered best-first either way)."""
+    return dist if metric is Metric.L2 else -dist

@@ -1,5 +1,5 @@
-"""Bit-packing codecs of the persisted code formats (a copy of the numpy
-paths of ``rabitq_tpu/ops/packing.py``).
+"""Bit-packing codecs of the persisted code formats (a copy of
+``rabitq_tpu/ops/packing.py``).
 
 Host-side only (index save and load): the device keeps codes as dense int8
 planes. Formats, byte-compatible with lqhl/rabitq-rs:
@@ -12,12 +12,16 @@ planes. Formats, byte-compatible with lqhl/rabitq-rs:
 * FastScan 32-vector batch transpose with the KPERM0 permutation
   (``pack_codes``/``unpack_single_vector``, ``simd.rs:864-960``)
 
-Each codec has an exact inverse.
+Each codec has an exact inverse. Where the native codec library is built
+(``native.py``), the binary, ex-code and FastScan codecs run through it, as
+in the JAX package; the bytes are the same either way.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from .. import native as _native
 
 FASTSCAN_BATCH_SIZE = 32  # simd.rs:768
 KPERM0 = np.array([0, 8, 1, 9, 2, 10, 3, 11, 4, 12, 5, 13, 6, 14, 7, 15])  # simd.rs:774
@@ -29,11 +33,15 @@ KPERM0 = np.array([0, 8, 1, 9, 2, 10, 3, 11, 4, 12, 5, 13, 6, 14, 7, 15])  # sim
 
 def pack_binary(bits: np.ndarray) -> np.ndarray:
     """[..., D] {0,1} -> [..., ceil(D/8)] bytes, MSB-first (simd.rs:141-150)."""
+    if _native.available():
+        return _native.pack_binary(bits)
     return np.packbits(bits.astype(np.uint8), axis=-1, bitorder="big")
 
 
 def unpack_binary(packed: np.ndarray, dim: int) -> np.ndarray:
     """[..., nbytes] -> [..., dim] {0,1} (simd.rs:153-163)."""
+    if _native.available():
+        return _native.unpack_binary(packed, dim)
     return np.unpackbits(packed, axis=-1, bitorder="big")[..., :dim]
 
 
@@ -140,11 +148,13 @@ def pack_ex(ex: np.ndarray, ex_bits: int) -> np.ndarray:
     dim = ex.shape[-1]
     if ex_bits == 0:
         return np.zeros((*ex.shape[:-1], 0), np.uint8)
-    if dim % 16 == 0:
-        if ex_bits == 2:
-            return pack_ex_2bit_cpp(ex)
-        if ex_bits == 6:
-            return pack_ex_6bit_cpp(ex)
+    native = _native.available()
+    if dim % 16 == 0 and ex_bits in (2, 6):
+        if native:
+            return _native.pack_ex_cpp(ex, ex_bits)
+        return pack_ex_2bit_cpp(ex) if ex_bits == 2 else pack_ex_6bit_cpp(ex)
+    if native:
+        return _native.pack_ex_generic(ex, ex_bits)
     return pack_ex_generic(ex, ex_bits)
 
 
@@ -152,11 +162,15 @@ def unpack_ex(packed: np.ndarray, dim: int, ex_bits: int) -> np.ndarray:
     """Dispatch matching ``simd::unpack_ex_code`` (``simd.rs:101-134``)."""
     if ex_bits == 0:
         return np.zeros((*packed.shape[:-1], dim), np.uint16)
-    if dim % 16 == 0:
+    native = _native.available()
+    if dim % 16 == 0 and ex_bits in (2, 6):
+        if native:
+            return _native.unpack_ex_cpp(packed, dim, ex_bits)
         if ex_bits == 2:
             return unpack_ex_2bit_cpp(packed, dim)
-        if ex_bits == 6:
-            return unpack_ex_6bit_cpp(packed, dim)
+        return unpack_ex_6bit_cpp(packed, dim)
+    if native:
+        return _native.unpack_ex_generic(packed, dim, ex_bits)
     return unpack_ex_generic(packed, dim, ex_bits)
 
 
@@ -192,6 +206,8 @@ def pack_codes(packed_rows: np.ndarray) -> np.ndarray:
     layout (``pack_codes``, simd.rs:864-904)."""
     nb, bs, dim_bytes = packed_rows.shape
     assert bs == FASTSCAN_BATCH_SIZE
+    if _native.available():
+        return _native.pack_codes(packed_rows)
     col = np.transpose(packed_rows, (0, 2, 1))  # [nb, dim_bytes, 32]
     col0 = col >> 4
     col1 = col & 15
@@ -208,6 +224,8 @@ def unpack_codes(batch_packed: np.ndarray, dim_bytes: int) -> np.ndarray:
     packed rows (``unpack_single_vector``, simd.rs:915-960, for all 32 lanes
     at once)."""
     nb = batch_packed.shape[0]
+    if _native.available():
+        return _native.unpack_codes(batch_packed, dim_bytes)
     data = batch_packed.reshape(nb, dim_bytes, 32)
     val0 = data[..., :16]  # [nb, dim_bytes, 16]
     val1 = data[..., 16:]

@@ -267,3 +267,11 @@ def quantize_block(
         f_rescale_ex=f_rescale_ex,
         residual_norm=norm_resid,
     )
+
+
+def reconstruct(
+    centroid: torch.Tensor, total_code: torch.Tensor, delta: torch.Tensor, vl: torch.Tensor
+) -> torch.Tensor:
+    """Rows rebuilt in rotated space (``reconstruct_into``,
+    ``quantizer.rs:542-548``): centroid + delta * code + vl."""
+    return centroid + delta[..., None] * total_code.to(torch.float32) + vl[..., None]

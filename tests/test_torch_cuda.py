@@ -591,3 +591,88 @@ def test_upload_of_a_tensor_on_the_card_is_the_tensor(cuda):
     for device in ("cuda", cuda, torch.device("cuda", torch.cuda.current_device())):
         out, report = upload_dataset(x, "auto", device)
         assert out.data_ptr() == x.data_ptr() and report["encoding"] == "resident"
+
+
+@pytest.mark.parametrize("b", [1, 8, 300])
+def test_streamed_tier_on_the_card_matches_the_cpu(cuda, b):
+    """The streamed tier on the card (pinned slabs, side-stream uploads, the
+    packed bin kernel with an int8 query, the FHT) against the same tier on
+    the CPU over the same codes: top-10 lists agree on >= 99% of ids (sums
+    in another order may swap near ties), and every query finds itself."""
+    from rabitq_tpu_torch import StreamedIvfIndex
+
+    data, cpu, card = _cpu_and_card_indexes(cuda)
+    c_tier = StreamedIvfIndex(cpu, chunk_rows=1024)
+    g_tier = StreamedIvfIndex(card, chunk_rows=1024)
+    assert g_tier.n_chunks == c_tier.n_chunks == 4
+    assert all(t.is_pinned() for c in g_tier._chunks for t in c.values())
+    assert "binary" not in g_tier._chunks[0] and card._layout is None
+    k3 = fs.fused_bin_scan_packed_cuda.launches
+    before = (k3["int8_dense"] + k3["int8_compact"], fht_kernel.launches)
+    for nprobe in (2, 80):
+        params = SearchParams(top_k=10, nprobe=nprobe)
+        g_ids, g_d = g_tier.batch_search_arrays(data[:b], params)
+        c_ids, c_d = c_tier.batch_search_arrays(data[:b], params)
+        assert g_ids.shape == (b, 10) and np.all(g_ids[:, 0] == np.arange(b))
+        assert np.mean([len(set(g_ids[i]) & set(c_ids[i])) / 10 for i in range(b)]) >= 0.99
+        for i in range(b):  # common ids: rtol 1e-4, or 1e-2 absolute near 0
+            want = dict(zip(c_ids[i].tolist(), c_d[i].tolist()))
+            for rid, dist in zip(g_ids[i].tolist(), g_d[i].tolist()):
+                if rid in want:
+                    assert dist == pytest.approx(want[rid], rel=1e-4, abs=1e-2)
+    after = (k3["int8_dense"] + k3["int8_compact"], fht_kernel.launches)
+    assert after[0] >= before[0] + 8 and after[1] > before[1]
+
+
+def test_one_chunk_on_the_card_equals_in_memory_two_stage(cuda, monkeypatch):
+    """One chunk holding every row serves exactly what the in-memory index
+    serves through its two-stage fused scan (f32 query uploads on both):
+    the same layout, bins and re-rank. Afterwards the index lays itself out
+    again and serves the same ids."""
+    from rabitq_tpu_torch import StreamedIvfIndex
+
+    monkeypatch.setenv("RABITQ_FUSED_EXACT", "0")
+    data, _, card = _cpu_and_card_indexes(cuda)
+    queries = data[:300] + 0.05
+    want = {nprobe: card.batch_search_arrays(queries, SearchParams(top_k=10, nprobe=nprobe))
+            for nprobe in (4, 80)}
+    tier = StreamedIvfIndex(card, chunk_rows=8192)
+    assert tier.n_chunks == 1
+    for nprobe, (w_ids, w_d) in want.items():
+        ids, d = tier.batch_search_arrays(queries, SearchParams(top_k=10, nprobe=nprobe))
+        np.testing.assert_array_equal(ids, w_ids)
+        np.testing.assert_allclose(d, w_d, rtol=1e-5)
+    ids, _ = card.batch_search_arrays(queries, SearchParams(top_k=10, nprobe=4))
+    np.testing.assert_array_equal(ids, want[4][0])
+
+
+def test_streamed_slab_freed_during_its_scan_is_not_reused(cuda):
+    """The record_stream trap: a slab uploaded on the side stream and freed
+    while its scan still waits in the compute stream must not be handed to
+    the next allocation on the side stream. The compute stream is held
+    back, the slab dropped, and same-sized tensors filled with junk on the
+    side stream: they get other memory, and the scan's result equals the
+    one of a plain upload."""
+    from rabitq_tpu_torch import StreamedIvfIndex
+
+    data, _, card = _cpu_and_card_indexes(cuda)
+    tier = StreamedIvfIndex(card, chunk_rows=1024)
+    params = SearchParams(top_k=10, nprobe=8)
+    b, q_rot = tier._rotate(data[:256])
+    kw = dict(allowed=None, max_tiles=tier._fused_max_tiles(8, q_rot.shape[0]), probe_k=None)
+    plain = {k: v.to(cuda) for k, v in tier._chunks[0].items()}
+    want = [t.cpu() for t in tier._scan_chunk(plain, q_rot, params, **kw)]
+    uploads = tier._uploads()
+    cur = next(uploads)
+    shapes = [(t.shape, t.dtype) for t in cur.values()]
+    freed = {t.data_ptr() for t in cur.values()}
+    torch.cuda._sleep(200_000_000)  # hold the compute stream back
+    got = tier._scan_chunk(cur, q_rot, params, **kw)
+    del cur
+    uploads.close()  # the generator drops its reference: the slab is freed
+    with torch.cuda.stream(tier._copy_stream):
+        junk = [torch.full(s, 3, dtype=d, device=cuda) for s, d in shapes]
+    assert not freed & {t.data_ptr() for t in junk}
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)

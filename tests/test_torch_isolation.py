@@ -39,7 +39,8 @@ def test_import_loads_no_jax():
 def test_sources_import_no_jax():
     pattern = re.compile(r"^\s*(import|from)\s+(jax\b|rabitq_tpu(\.|\s|$))", re.M)
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 10
+    files += sorted((ROOT / "ann_benchmarks").glob("rabitq-tpu-torch-*/module.py"))
+    assert len(files) > 10 and sum("ann_benchmarks" in str(p) for p in files) == 2
     for path in files:
         hits = pattern.findall(path.read_text())
         assert not hits, (path, hits)
@@ -71,8 +72,21 @@ def test_entry_points_refuse_a_missing_card():
     for name in ("tiny_ivf.rbq", "tiny_bf.rbf"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             load_index(ROOT / "tests" / "golden" / name)
+    from rabitq_tpu_torch import StreamedIvfIndex, bindings
+    from rabitq_tpu_torch.__main__ import main
+
+    for make in (lambda: bindings.IvfRabitqIndex(32), lambda: bindings.MstgIndex(32)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["info", "--index", str(ROOT / "tests" / "golden" / "tiny_ivf.rbq")])
+    on_cpu = IvfRabitqIndex.train(data, nlist=4, total_bits=7, device="cpu")
+    on_cpu.device = torch.device("cuda")  # as if trained on a card that is gone
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        StreamedIvfIndex(on_cpu, chunk_rows=256)
     # asking for the CPU works
     assert len(IvfRabitqIndex.train(data, nlist=4, total_bits=7, device="cpu")) == 600
+    assert len(bindings.IvfRabitqIndex(32, device="cpu")) == 0
     assert len(MstgIndex.build(data, MstgConfig(max_posting_size=100), device="cpu")) == 600
 
 
