@@ -101,6 +101,28 @@ Between 6 and 7, on the 7-bit index and the same data:
      --nprobes 16 64) in subprocesses on a 100,000-row fvecs slice with 256
      queries (files in a temporary directory of the checkout, deleted), each
      of which must exit 0, with recall and the CSV header checked.
+The sharded tier (rabitq_tpu_torch.parallel.sharding), with its 4 shards
+all on the one card, runs on each index while that index is alive, so that
+no phase before or after it serves with less memory than it would alone:
+  sharded IVF (after the streamed tier, on the 7-bit index): a one-shard
+     mesh first (ids and distances equal to the index's at nprobe 16 and
+     256), then 4 shards serving the 2048 queries in blocks of 256 at
+     nprobe 16, 64 and 256 (recall@10, floor 0.90 at 256; top-10 overlap
+     with the index; QPS, median of 5, beside the index's one-batch QPS;
+     rows and tile budget a shard), the direct bin kernel against its plain
+     version on shard 0's inputs (compacted at 16, dense at 256), and a
+     profile at nprobe 16 with the merge's device time;
+  sharded MSTG (in the MSTG phase, on the headline index before the
+     replicated variant is built): ef 8 and 64 (recall, floor 0.90 at 64;
+     QPS; queries rotated on the card) and a one-shard wrapper at ef 64
+     returning the index's ids;
+  sharded train (after the front ends, before the 8-bit index is trained): ShardedIvfIndex.train on the 1M rows (nlist 4096, 7 bits,
+     faster config, fused8, 25 k-means iterations) with seconds by phase,
+     its k-means objective beside the 7-bit index's, and recall@10 at
+     nprobe 64 (floor 0.90);
+  sharded 8-bit (after 7): the 8-bit index through fused8 at nprobe 16 and
+     packed at 256 (recall, QPS; the packed bin kernel with an int8 query
+     and the packed lower-bound kernel checked on shard 0's inputs).
 Each of these paths zeroes the launch counters just before it and reads
 them just after; every kernel it runs must have launched.
 Then one JSON line of kernel numbers, nvidia-smi's line again, and last
@@ -139,6 +161,8 @@ STREAM_CHUNK_ROWS = 262_144  # rows a slab of the streamed tier: 4 chunks at 1M 
 STREAM_QPS_RUNS = 3  # timed streamed batches a nprobe
 CLI_ROWS, CLI_QUERIES = 100_000, 256  # the CLI's fvecs slice (1M x 960 would be 3.8 GB)
 CLI_RECALL_FLOOR = 0.80  # recall@10 of the CLI's query (nlist 1024, nprobe 64, bf16 scan)
+SHARDS = 4  # shards of the sharded phase, all on the one card
+SHARD_BLOCK = 256  # queries a sharded dispatch
 
 
 def log(msg: str) -> None:
@@ -1038,15 +1062,17 @@ def mstg_recall_witness(index, queries_np, gt):
 def check_mstg(data, queries, centers):
     """The MSTG phase: the headline variant on the 1M rows and a profile of
     one serving run, saved to a native file for the front-end phase, then
-    the replicated variant (at MSTG_CUT_ROWS rows if the headline build took
-    over MSTG_BUILD_CUT_S) and its recall witness. Returns ({(variant,
-    "build" | ef): launches}, {(variant, ef): K1 check}, the headline
-    file's path, in a temporary directory of the checkout)."""
+    the headline sharded (check_sharded_mstg), then the replicated variant
+    (at MSTG_CUT_ROWS rows if the headline build took over
+    MSTG_BUILD_CUT_S) and its recall witness. Returns ({(variant, "build" |
+    ef): launches}, {(variant, ef): K1 check}, the headline file's path, in
+    a temporary directory of the checkout, the sharded headline's launches
+    and that check's seconds)."""
     import tempfile
 
     import torch
 
-    index, head, k1_head, build_s, _ = mstg_variant("headline", data, queries)
+    index, head, k1_head, build_s, gt = mstg_variant("headline", data, queries)
     queries_np = queries.cpu().numpy()
     ef = min(MSTG_EFS)
     profile_run(lambda: serve_mstg(index, queries_np, ef), f"MSTG headline ef={ef}")
@@ -1055,6 +1081,10 @@ def check_mstg(data, queries, centers):
     index.save_to_path(mstg_path)
     log(f"MSTG headline saved (native file, for the front-end phase): "
         f"{os.path.getsize(mstg_path)} bytes in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    sharded = check_sharded_mstg(index, queries_np, gt)
+    sharded_s = time.perf_counter() - t0
+    log(f"phase seconds: sharded MSTG {sharded_s:.1f}")
     del index
     torch.cuda.empty_cache()
     rows = data.shape[0]
@@ -1074,7 +1104,7 @@ def check_mstg(data, queries, centers):
     launches.update({("replicated", k): v for k, v in repl.items()})
     k1 = {("headline", k): v for k, v in k1_head.items()}
     k1.update({("replicated", k): v for k, v in k1_repl.items()})
-    return launches, k1, mstg_path
+    return launches, k1, mstg_path, sharded, sharded_s
 
 
 def intervals_union(spans):
@@ -1319,6 +1349,283 @@ def check_streamed(index, queries_np, gt):
     return launches, checks
 
 
+def serve_blocks(search, queries_np, block=SHARD_BLOCK):
+    """(ids, dists) of ``search`` over the queries in blocks of ``block``."""
+    import numpy as np
+
+    outs = [search(queries_np[s : s + block]) for s in range(0, len(queries_np), block)]
+    return np.concatenate([o[0] for o in outs]), np.concatenate([o[1] for o in outs])
+
+
+def timed_runs(run, n_queries, runs):
+    """One warm-up ``run()``, then ``runs`` timed ones: (the last result,
+    QPS of each)."""
+    run()
+    qps = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        out = run()
+        qps.append(n_queries / (time.perf_counter() - t0))
+    return out, qps
+
+
+def result_arrays(rows, k=10):
+    """SearchResult lists -> (ids [B, k] -1 padded, scores [B, k] +inf padded)."""
+    import numpy as np
+
+    ids = np.full((len(rows), k), -1, np.int64)
+    scores = np.full((len(rows), k), np.inf, np.float32)
+    for i, row in enumerate(rows):
+        ids[i, : len(row)] = [h.id for h in row]
+        scores[i, : len(row)] = [h.score for h in row]
+    return ids, scores
+
+
+def check_served(what, ids, dists, n, gt=None, floor=None):
+    """Shape, padding, finite sorted distances; recall@10 where ``gt`` is
+    given, held to ``floor`` where that is given. Returns the recall."""
+    import numpy as np
+
+    if ids.shape != (n, 10) or (ids < 0).any() or not np.isfinite(dists).all():
+        raise AssertionError(f"{what}: malformed results {ids.shape}")
+    if (np.diff(dists, axis=1) < 0).any():
+        raise AssertionError(f"{what}: result rows not sorted by distance")
+    recall = None if gt is None else recall_at(ids, gt, 10)
+    if floor is not None and recall < floor:
+        raise AssertionError(f"{what}: recall@10 {recall:.4f} < {floor}")
+    return recall
+
+
+def nearest_objective(index, data):
+    """Sum over the rows of the squared distance to the nearest of the
+    index's centroids (rotated back): one yardstick for two clusterings."""
+    from rabitq_tpu_torch.ops.kmeans import assign_dataset
+
+    return assign_dataset(data, index.rotator.inverse_rotate(index.layout.centroids))[1]
+
+
+def check_sharded_ivf(index, data, queries_np, gt, mem_qps):
+    """The sharded tier over the 7-bit index at full size, SHARDS shards on
+    the one card (``devices=[cuda] * SHARDS``), run while the index is
+    alive, before the phases after it: the one-shard witness (ids and
+    distances equal to the index's own batch_search_arrays, f32 query
+    uploads, nprobe 16 and 256), then SHARDS shards served in blocks of
+    SHARD_BLOCK queries at nprobe 16 / 64 / 256 (recall@10, top-10 overlap
+    with the index, QPS beside the index's one-batch QPS), K1 on shard 0's
+    inputs (compacted at 16, dense at 256) and a profile with the merge's
+    device time. The serving zeroes the launch counters before and reads
+    them after. Returns ({"IVF": launches}, {walk: K1 check}, the
+    single-card yardsticks of check_sharded_train)."""
+    import numpy as np
+    import torch
+    from rabitq_tpu_torch import SearchParams
+    from rabitq_tpu_torch.ops.fused_scan import TN
+    from rabitq_tpu_torch.parallel import sharding
+
+    cuda = torch.device("cuda", torch.cuda.current_device())
+    n = len(queries_np)
+
+    # --- the one-shard witness, and the index's own results (f32 uploads)
+    upload = index.upload_dtype
+    index.upload_dtype = "f32"
+    try:
+        mem = {nprobe: index.batch_search_arrays(queries_np, SearchParams(top_k=10, nprobe=nprobe))
+               for nprobe in (16, 64, 256)}
+    finally:
+        index.upload_dtype = upload
+    one = sharding.ShardedIvfIndex(index, devices=[cuda])
+    for nprobe in (16, 256):
+        ids, d = one.batch_search_arrays(queries_np, SearchParams(top_k=10, nprobe=nprobe))
+        same_ids, same_d = np.array_equal(ids, mem[nprobe][0]), np.array_equal(d, mem[nprobe][1])
+        log(f"sharded one shard nprobe={nprobe}: ids equal to the index's {same_ids}, distances "
+            f"equal {same_d} ({n} queries, one batch, f32 uploads)")
+        if not (same_ids and same_d):
+            raise AssertionError(f"one shard differs from the index at nprobe {nprobe}")
+    del one
+
+    # --- SHARDS shards on the card
+    t0 = time.perf_counter()
+    sh = sharding.ShardedIvfIndex(index, devices=[cuda] * SHARDS)
+    torch.cuda.synchronize()
+    budgets = {nprobe: sh._fused_max_tiles(nprobe, SHARD_BLOCK) for nprobe in (16, 64, 256)}
+    log(f"sharded IVF: {SHARDS} shards on {cuda} of {sh._slab_rows} rows each "
+        f"({sh._slab_rows // TN} tiles), wrapped in {time.perf_counter() - t0:.2f} s; "
+        f"per-shard tile budget a {SHARD_BLOCK}-query block: {budgets} (None: dense walk)")
+    zero_launches()
+    served = {}
+    for nprobe in (16, 64, 256):
+        params = SearchParams(top_k=10, nprobe=nprobe)
+        served[nprobe] = timed_runs(
+            lambda: serve_blocks(lambda q: sh.batch_search_arrays(q, params), queries_np),
+            n, QPS_RUNS)
+    launches = {"IVF": read_launches(f"sharded IVF ({SHARDS} shards)", (
+        "fht", "fused_bin_scan_compact", "fused_bin_scan_dense"))}
+    for nprobe, ((ids, d), qps) in served.items():
+        recall = check_served(f"sharded nprobe={nprobe}", ids, d, n, gt,
+                              RECALL_FLOOR if nprobe == 256 else None)
+        overlap = np.mean([len(set(a) & set(b)) / 10 for a, b in zip(ids, mem[nprobe][0])])
+        log(f"serve sharded {SHARDS} shards nprobe={nprobe}: recall@10 {recall:.4f} (index "
+            f"{recall_at(mem[nprobe][0], gt, 10):.4f}), top-10 overlap with the index "
+            f"{overlap:.4f}; QPS over {QPS_RUNS} runs of {n // SHARD_BLOCK} blocks of "
+            f"{SHARD_BLOCK} (median [min, max]) {np.median(qps):.0f} [{min(qps):.0f}, "
+            f"{max(qps):.0f}] beside the index's one-batch {mem_qps[nprobe]:.0f}")
+    k1 = {}
+    for nprobe, key, walk in ((16, "compact", "compacted"), (256, "dense", "dense")):
+        params = SearchParams(top_k=10, nprobe=nprobe)
+        k1[key] = check_bin_scan_run(lambda: sh.batch_search_arrays(queries_np[:SHARD_BLOCK], params),
+                                     f"sharded shard 0 of {SHARDS}, nprobe={nprobe}", walk)
+    merges = []
+    real_merge = sharding._merge_topk
+    sharding._merge_topk = lambda *a: merges.append(a) or real_merge(*a)
+    try:
+        params = SearchParams(top_k=10, nprobe=16)
+        busy = profile_run(lambda: serve_blocks(lambda q: sh.batch_search_arrays(q, params),
+                                                queries_np),
+                           f"sharded {SHARDS} shards nprobe=16")
+    finally:
+        sharding._merge_topk = real_merge
+    merge_ms = queued_us(lambda: real_merge(*merges[0]), 20) / 1e3
+    log(f"sharded merge: {len(merges)} a run, {merge_ms:.4f} ms device time each (concatenation, "
+        f"stable sort and gather of [{SHARD_BLOCK}, {SHARDS} x 10], queued back to back), "
+        f"{100 * merge_ms * len(merges) / busy:.2f}% of the run's busy device time")
+    del sh
+    torch.cuda.empty_cache()
+    single = {"recall64": recall_at(mem[64][0], gt, 10),
+              "objective": nearest_objective(index, data)}
+    return launches, k1, single
+
+
+def check_sharded_mstg(mstg, queries_np, gt):
+    """The MSTG headline index sharded, SHARDS shards on the one card, run
+    while the index is alive, before the replicated variant: served at ef
+    8 and 64 in blocks of SHARD_BLOCK (recall@10, floor 0.90 at 64; QPS;
+    queries rotated on the card), the launch counters zeroed before and
+    read after, then the one-shard witness at ef 64 (the index's ids).
+    Returns the launches."""
+    import numpy as np
+    import torch
+    from rabitq_tpu_torch import MstgSearchParams
+    from rabitq_tpu_torch.parallel import sharding
+
+    cuda = torch.device("cuda", torch.cuda.current_device())
+    n = len(queries_np)
+    msh = sharding.ShardedMstgIndex(mstg, devices=[cuda] * SHARDS)
+    zero_launches()
+    served = {}
+    for ef in MSTG_EFS:
+        params = MstgSearchParams(top_k=10, ef_search=ef, pruning_epsilon=MSTG_EPS)
+        served[ef] = timed_runs(lambda: serve_blocks(
+            lambda q: result_arrays(msh.batch_search(q, params)), queries_np), n, QPS_RUNS)
+    launches = read_launches(f"sharded MSTG ({SHARDS} shards)", ("fht", "fused_bin_scan"))
+    for ef, ((ids, scores), qps) in served.items():
+        recall = check_served(f"sharded MSTG ef={ef}", ids, scores, n, gt,
+                              RECALL_FLOOR if ef == max(MSTG_EFS) else None)
+        log(f"serve sharded {SHARDS} shards MSTG headline ef={ef} eps={MSTG_EPS}: recall@10 "
+            f"{recall:.4f}; QPS over {QPS_RUNS} runs (median [min, max]) {np.median(qps):.0f} "
+            f"[{min(qps):.0f}, {max(qps):.0f}] (queries rotated on the card)")
+    del msh
+    params = MstgSearchParams(top_k=10, ef_search=max(MSTG_EFS), pruning_epsilon=MSTG_EPS)
+    upload = mstg.upload_dtype
+    mstg.upload_dtype = "f32"
+    try:
+        want = [[h.id for h in row] for row in mstg.batch_search(queries_np, params)]
+    finally:
+        mstg.upload_dtype = upload
+    got = sharding.ShardedMstgIndex(mstg, devices=[cuda]).batch_search(queries_np, params)
+    same = [[h.id for h in row] for row in got] == want
+    log(f"sharded MSTG one shard ef={max(MSTG_EFS)}: ids equal to the index's {same}")
+    if not same:
+        raise AssertionError("one MSTG shard differs from the index")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_sharded_train(data, queries_np, gt, single):
+    """ShardedIvfIndex.train on the 1M rows, SHARDS shards on the one card
+    (nlist 4096, 7 bits, faster config, fused8, 25 k-means iterations),
+    run while the rows are on the card: seconds by phase, the k-means
+    objective beside the single-card train's (``single``, from
+    check_sharded_ivf), recall@10 at nprobe 64 (floor 0.90). The train and
+    its serving are one path for the launch counters. Returns the
+    launches."""
+    import torch
+    from rabitq_tpu_torch import SearchParams
+    from rabitq_tpu_torch.parallel import sharding
+
+    cuda = torch.device("cuda", torch.cuda.current_device())
+    n = len(queries_np)
+    zero_launches()
+    t0 = time.perf_counter()
+    trained = sharding.ShardedIvfIndex.train(
+        data, nlist=NLIST, total_bits=7, mesh=sharding.make_mesh(devices=[cuda] * SHARDS),
+        seed=42, use_faster_config=True, kmeans_iters=25, scan_dtype="fused8",
+    )
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    rep = trained.index.build_report
+    params = SearchParams(top_k=10, nprobe=64)
+    ids, d = serve_blocks(lambda q: trained.batch_search_arrays(q, params), queries_np)
+    launches = read_launches(f"sharded train ({SHARDS} shards) and its serving",
+                             ("fht", "fused_bin_scan"))
+    recall = check_served("sharded train nprobe=64", ids, d, n, gt, RECALL_FLOOR)
+    obj, obj_single = nearest_objective(trained.index, data), single["objective"]
+    log(f"sharded train {SHARDS} shards ({ROWS} x {DIM}, nlist {NLIST}, 7 bits, faster config, "
+        f"fused8, 25 k-means iterations): {train_s:.2f} s (k-means with its init "
+        f"{rep['kmeans_s']} s, build codes {rep['codes_s']} s, layout and wrap "
+        f"{rep['layout_s']} s); k-means objective {rep['kmeans']['objective']:.6g}; "
+        f"nearest-centroid objective {obj:.6g} against the single-card train's {obj_single:.6g} "
+        f"(ratio {obj / obj_single:.4f}); recall@10 at nprobe 64 {recall:.4f} (single card "
+        f"{single['recall64']:.4f})")
+    del trained
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_sharded_8bit(index8, queries_np, gt):
+    """The 8-bit index sharded, SHARDS shards on the one card: fused8 at
+    nprobe 16 (K3, int8 query, compacted) and packed at 256 (K4 G_TABLE),
+    each a path of its own (recall@10, QPS), its kernel then held against
+    its plain version on shard 0's inputs. Returns ({path: launches}, K3
+    check, K4 check)."""
+    import numpy as np
+    import torch
+    from rabitq_tpu_torch import SearchParams
+    from rabitq_tpu_torch.parallel import sharding
+
+    cuda = torch.device("cuda", torch.cuda.current_device())
+    n = len(queries_np)
+    launches, checks = {}, {}
+    for scan_dtype, nprobe, needed in (("fused8", 16, "fused_bin_scan_packed_int8_compact"),
+                                       ("packed", 256, "packed_lb_plane")):
+        index8.scan_dtype = scan_dtype  # "packed" re-lays the index to the permuted layout
+        w = sharding.ShardedIvfIndex(index8, devices=[cuda] * SHARDS)
+        if index8.scan_dtype != scan_dtype:
+            raise AssertionError(f"{scan_dtype} was downgraded to {index8.scan_dtype}")
+        params = SearchParams(top_k=10, nprobe=nprobe)
+        zero_launches()
+        (ids, d), qps = timed_runs(
+            lambda: serve_blocks(lambda q: w.batch_search_arrays(q, params), queries_np),
+            n, QPS_RUNS_8BIT)
+        launches[f"IVF total_bits=8 {scan_dtype}"] = read_launches(
+            f"sharded total_bits=8 {scan_dtype} ({SHARDS} shards)", ("fht", needed))
+        recall = check_served(f"sharded total_bits=8 {scan_dtype}", ids, d, n, gt)
+        log(f"serve sharded {SHARDS} shards total_bits=8 {scan_dtype} nprobe={nprobe}: recall@10 "
+            f"{recall:.4f}; QPS over {QPS_RUNS_8BIT} runs (median [min, max]) {np.median(qps):.0f} "
+            f"[{min(qps):.0f}, {max(qps):.0f}]")
+        label = f"sharded total_bits=8 shard 0 of {SHARDS}, nprobe={nprobe}"
+        block = queries_np[:SHARD_BLOCK]
+        if scan_dtype == "fused8":
+            checks[scan_dtype] = check_bin_scan_run(
+                lambda: w.batch_search_arrays(block, params), label, "compacted")
+        else:
+            checks[scan_dtype] = check_lb_plane(
+                capture_packed_lb_plane(lambda: w.batch_search_arrays(block, params)),
+                f"packed lb plane (G_TABLE, {label})")
+        del w
+        torch.cuda.empty_cache()
+    return launches, checks["fused8"], checks["packed"]
+
+
 def load_ann_module(name):
     """An ann-benchmarks module of the repository, loaded by path as
     ann-benchmarks loads it."""
@@ -1531,7 +1838,7 @@ def main() -> int:
     log(f"train: {build_s:.2f} s; report {json.dumps(index.build_report)}; "
         f"fht launches {build_fht}")
     index.upload_dtype = "int8"
-    recalls = {}
+    recalls, one_batch_qps = {}, {}
     t0_serve = time.perf_counter()
     for nprobe in (16, 64, 256):
         params = SearchParams(top_k=10, nprobe=nprobe)
@@ -1551,6 +1858,7 @@ def main() -> int:
             ids2, _ = index.batch_search_arrays(queries_np, params)
             qps_one.append(len(queries_np) / (time.perf_counter() - t0))
         recalls[nprobe] = recall_at(ids, gt, 10)
+        one_batch_qps[nprobe] = float(np.median(qps_one))
         log(f"serve nprobe={nprobe}: recall@10 {recalls[nprobe]:.4f} "
             f"(batch_search_arrays {recall_at(ids2, gt, 10):.4f}); QPS over {QPS_RUNS} runs "
             f"(median [min, max]): pipelined int8 {np.median(qps):.0f} "
@@ -1587,6 +1895,10 @@ def main() -> int:
     t0 = time.perf_counter()
     streamed, k3_streamed = check_streamed(index, queries_np, gt)
     log(f"phase seconds: streamed tier {time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    sharded, k1_sharded, single = check_sharded_ivf(index, data, queries_np, gt, one_batch_qps)
+    sharded_s = {"IVF": time.perf_counter() - t0}
+    log(f"phase seconds: sharded IVF {sharded_s['IVF']:.1f}")
     del index
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -1594,8 +1906,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"phase seconds: brute force {time.perf_counter() - t0:.1f}")
     t0 = time.perf_counter()
-    mstg, k1_mstg, mstg_path = check_mstg(data, queries, centers)
-    log(f"phase seconds: MSTG {time.perf_counter() - t0:.1f}")
+    mstg, k1_mstg, mstg_path, sharded["MSTG"], sharded_s["MSTG"] = check_mstg(
+        data, queries, centers)
+    log(f"phase seconds: MSTG {time.perf_counter() - t0 - sharded_s['MSTG']:.1f} (without the "
+        f"sharded MSTG check)")
     t0 = time.perf_counter()
     try:
         front = check_front_ends(data, queries, gt, mstg_path)
@@ -1603,6 +1917,11 @@ def main() -> int:
         shutil.rmtree(os.path.dirname(mstg_path), ignore_errors=True)
     torch.cuda.empty_cache()
     log(f"phase seconds: front ends {time.perf_counter() - t0:.1f}")
+
+    t0 = time.perf_counter()
+    sharded["train"] = check_sharded_train(data, queries_np, gt, single)
+    sharded_s["train"] = time.perf_counter() - t0
+    log(f"phase seconds: sharded train {sharded_s['train']:.1f}")
 
     # ---- two-stage and dense paths: total_bits=8 keeps raw ex codes, so the
     # fused scans run two-stage through the packed bin kernel
@@ -1648,7 +1967,8 @@ def main() -> int:
                  for k, v in fused_bin_scan_packed_cuda.launches.items()}
     launches8["packed_lb_plane"] = packed_lb_plane_cuda.launches
     launches8["fht"] = fht_kernel.launches
-    # the TPU contract's epilogue is on no main path (the sharded tier will call it)
+    # the TPU contract's epilogue is on no path (the sharded "packed" scan
+    # takes G_TABLE, as the in-memory one does)
     g_plane_launches = packed_lb_scan_cuda.launches
     log(f"launches on the two-stage and dense paths: {launches8}; packed_lb_scan (G_PLANE, "
         f"on no main path): {g_plane_launches}")
@@ -1670,6 +1990,16 @@ def main() -> int:
     profile_serving(index8, queries_np, 256, label="total_bits=8 fused ")
     log(f"phase seconds: total_bits=8 checks and profiles {time.perf_counter() - t0:.1f}")
 
+    t0 = time.perf_counter()
+    launches_sh8, k3_sharded, k4_sharded = check_sharded_8bit(index8, queries_np, gt)
+    sharded.update(launches_sh8)
+    sharded_s["8-bit"] = time.perf_counter() - t0
+    log(f"phase seconds: sharded 8-bit {sharded_s['8-bit']:.1f}")
+    log(f"phase seconds: sharded {sum(sharded_s.values()):.1f} (IVF, MSTG, train, 8-bit: "
+        + ", ".join(f"{v:.1f}" for v in sharded_s.values()) + ")")
+    del index8
+    torch.cuda.empty_cache()
+
     def entry(name, source, replaces, n, r):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1682,7 +2012,7 @@ def main() -> int:
     scan_tpu = "rabitq_tpu/ops/pallas_fused_scan.py:497"
     packed_src = "rabitq_tpu_torch/csrc/packed_bin_scan.cu"
     paths = ((launches, launches8, persist, resident, gather, brute, streamed)
-             + tuple(mstg.values()) + tuple(front.values()))
+             + tuple(mstg.values()) + tuple(front.values()) + tuple(sharded.values()))
     kernels = [
         entry("fht", "rabitq_tpu_torch/csrc/fht.cu", "rabitq_tpu/ops/pallas_fht.py:49",
               sum(p["fht"] for p in paths), fht_rows[(8192, 512)]),
@@ -1714,6 +2044,18 @@ def main() -> int:
         entry(f"fused_bin_scan_mstg_{variant}_ef{ef}", scan_src, scan_tpu,
               mstg[(variant, ef)]["fused_bin_scan"], r)
         for (variant, ef), r in k1_mstg.items()
+    ]
+    kernels += [
+        entry("fused_bin_scan_sharded_compact", scan_src, scan_tpu,
+              sharded["IVF"]["fused_bin_scan_compact"], k1_sharded["compact"]),
+        entry("fused_bin_scan_sharded_dense", scan_src, scan_tpu,
+              sharded["IVF"]["fused_bin_scan_dense"], k1_sharded["dense"]),
+        entry("fused_bin_scan_packed_int8_sharded_compact", packed_src, scan_tpu,
+              sharded["IVF total_bits=8 fused8"]["fused_bin_scan_packed_int8_compact"],
+              k3_sharded),
+        entry("packed_lb_plane_sharded", "rabitq_tpu_torch/csrc/packed_lb_scan.cu",
+              "rabitq_tpu/ops/pallas_scan.py:141",
+              sharded["IVF total_bits=8 packed"]["packed_lb_plane"], k4_sharded),
     ]
     for k in kernels:
         if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms")):

@@ -25,6 +25,7 @@ Persistence is the byte-compatible RBQ1 v3 format (``io/persistence.py``).
 
 from __future__ import annotations
 
+import math
 import os
 import time
 from dataclasses import dataclass
@@ -172,14 +173,7 @@ class IvfRabitqIndex:
         bf16). ``device=None`` means the card."""
         dev = resolve_device(device)
         n, dim = data.shape
-        if n == 0:
-            raise InvalidConfig("training data must be non-empty")
-        if nlist <= 0:
-            raise InvalidConfig("nlist must be positive")
-        if not (1 <= total_bits <= 16):
-            raise InvalidConfig("total_bits must be between 1 and 16")
-        if nlist > n:
-            raise InvalidConfig("nlist cannot exceed number of vectors")
+        cls._validate_train_args(data, nlist, total_bits)
         t0 = time.perf_counter()
         data_dev, upload_report = upload_dataset(data, data_upload, dev)
         t_upload = time.perf_counter()
@@ -206,6 +200,19 @@ class IvfRabitqIndex:
             "total_s": round(t_end - t0, 2),
         }
         return index
+
+    @staticmethod
+    def _validate_train_args(data, nlist: int, total_bits: int) -> None:
+        """The checks of ``train`` (a host array or a tensor), shared with
+        the sharded tier's ``ShardedIvfIndex.train``."""
+        if math.prod(data.shape) == 0:
+            raise InvalidConfig("training data must be non-empty")
+        if nlist <= 0:
+            raise InvalidConfig("nlist must be positive")
+        if not (1 <= total_bits <= 16):
+            raise InvalidConfig("total_bits must be between 1 and 16")
+        if nlist > data.shape[0]:
+            raise InvalidConfig("nlist cannot exceed number of vectors")
 
     @classmethod
     def train_with_clusters(

@@ -529,6 +529,18 @@ def test_rbq1_from_the_card_loads_on_the_cpu(cuda, tmp_path):
     assert np.all(c_ids[:, 0] == np.arange(64)) and np.all(g_ids[:, 0] == np.arange(64))
 
 
+def _bridged_rows():
+    """5000 rows in 24 blobs and 500 rows between pairs of them, which
+    closure (epsilon 0.9) puts into more than one posting list."""
+    rng = np.random.default_rng(8)
+    centers = (rng.standard_normal((24, 200)) * 2).astype(np.float32)
+    data = centers[rng.integers(0, 24, 5000)] + 0.5 * rng.standard_normal((5000, 200))
+    pa = rng.integers(0, 24, 500)
+    pb = (pa + 1 + rng.integers(0, 23, 500)) % 24
+    bridges = 0.5 * (centers[pa] + centers[pb]) + 0.3 * rng.standard_normal((500, 200))
+    return np.concatenate([data, bridges]).astype(np.float32)
+
+
 @pytest.mark.parametrize("scan_dtype,refine", [("fused8", True), ("fused", False), ("packed", True)])
 def test_mstg_built_on_the_card_matches_the_cpu(cuda, scan_dtype, refine, tmp_path):
     """A small MSTG index (rotated, with closure replicas) built on the card,
@@ -540,13 +552,7 @@ def test_mstg_built_on_the_card_matches_the_cpu(cuda, scan_dtype, refine, tmp_pa
     with the same arrays."""
     from rabitq_tpu_torch import MstgConfig, MstgIndex, MstgSearchParams
 
-    rng = np.random.default_rng(8)
-    centers = (rng.standard_normal((24, 200)) * 2).astype(np.float32)
-    data = centers[rng.integers(0, 24, 5000)] + 0.5 * rng.standard_normal((5000, 200))
-    pa = rng.integers(0, 24, 500)
-    pb = (pa + 1 + rng.integers(0, 23, 500)) % 24
-    bridges = 0.5 * (centers[pa] + centers[pb]) + 0.3 * rng.standard_normal((500, 200))
-    data = np.concatenate([data, bridges]).astype(np.float32)
+    data = _bridged_rows()
     cfg = MstgConfig(max_posting_size=200, faster_config=True, use_rotator=True,
                      closure_epsilon=0.9, refine_ex=refine)
     card = MstgIndex.build(data, cfg, seed=3, scan_dtype=scan_dtype, device=cuda)
@@ -676,3 +682,91 @@ def test_streamed_slab_freed_during_its_scan_is_not_reused(cuda):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("total_bits,scan_dtype", [(7, "fused8"), (8, "fused8"), (8, "packed")])
+def test_four_shards_on_the_card_match_the_cpu(cuda, total_bits, scan_dtype):
+    """Four shards on one card (the bin kernels, or the packed lower-bound
+    kernel, on each shard's row slice, and the FHT) against four shards on
+    the CPU over the same codes (the plain versions): top-10 lists agree on
+    >= 99% of ids (sums in another order may swap near ties), and every
+    query finds itself."""
+    from rabitq_tpu_torch.parallel.sharding import ShardedIvfIndex
+
+    data, cpu, card = _cpu_and_card_indexes(cuda, total_bits, scan_dtype)
+    g_sh = ShardedIvfIndex(card, devices=[cuda] * 4)
+    c_sh = ShardedIvfIndex(cpu, devices=["cpu"] * 4)
+    assert g_sh._slab_rows == c_sh._slab_rows and g_sh.mesh.devices[0].type == "cuda"
+    counters = fs.fused_bin_scan_packed_cuda.launches
+
+    def launches():
+        return (fs.fused_bin_scan_cuda.dense_launches + fs.fused_bin_scan_cuda.compact_launches
+                + sum(counters.values()) + ps.packed_lb_plane_cuda.launches, fht_kernel.launches)
+
+    before = launches()
+    for nprobe in (2, 80):
+        params = SearchParams(top_k=10, nprobe=nprobe)
+        g_ids, _ = g_sh.batch_search_arrays(data[:64], params)
+        c_ids, _ = c_sh.batch_search_arrays(data[:64], params)
+        assert np.all(g_ids[:, 0] == np.arange(64))
+        assert np.mean([len(set(g_ids[i]) & set(c_ids[i])) / 10 for i in range(64)]) >= 0.99
+    after = launches()
+    assert after[0] >= before[0] + 8 and after[1] > before[1]  # 4 shards x 2 batches
+
+
+def test_one_shard_on_the_card_equals_the_index(cuda):
+    """A one-shard mesh on the card serves exactly what the index does."""
+    from rabitq_tpu_torch.parallel.sharding import ShardedIvfIndex
+
+    data, _, card = _cpu_and_card_indexes(cuda)
+    one = ShardedIvfIndex(card, devices=[cuda])
+    queries = data[:300] + 0.05
+    for nprobe in (4, 80):
+        params = SearchParams(top_k=10, nprobe=nprobe)
+        ids, d = one.batch_search_arrays(queries, params)
+        w_ids, w_d = card.batch_search_arrays(queries, params)
+        np.testing.assert_array_equal(ids, w_ids)
+        np.testing.assert_array_equal(d, w_d)
+
+
+def test_shard_merge_tie_order_on_the_card(cuda):
+    """The merge of four shards' candidates on the card keeps the lower
+    column among equal distances (a stable ascending sort, the order of
+    ``lax.top_k``)."""
+    from rabitq_tpu_torch.parallel.sharding import _merge_topk
+
+    rng = np.random.default_rng(0)
+    dists = rng.integers(0, 4, (300, 4 * 10)).astype(np.float32)  # many ties
+    dists[0, :3] = np.inf
+    ids = rng.integers(0, 1 << 20, dists.shape).astype(np.int32)
+    g_ids, g_d = _merge_topk(
+        list(torch.from_numpy(ids).to(cuda).split(10, dim=1)),
+        list(torch.from_numpy(dists).to(cuda).split(10, dim=1)), 10, cuda,
+    )
+    order = np.argsort(dists, axis=1, kind="stable")[:, :10]
+    np.testing.assert_array_equal(g_ids.cpu().numpy(), np.take_along_axis(ids, order, 1))
+    np.testing.assert_array_equal(g_d.cpu().numpy(), np.take_along_axis(dists, order, 1))
+
+
+def test_sharded_mstg_rotates_on_the_card(cuda):
+    """The sharded MSTG wrapper rotates its queries on the card (the FHT
+    kernel runs on that path): one shard returns the index's ids through
+    the dedup (the index has closure replicas), and four shards agree with
+    it on >= 98% of ids."""
+    from rabitq_tpu_torch import MstgConfig, MstgIndex, MstgSearchParams
+    from rabitq_tpu_torch.parallel.sharding import ShardedMstgIndex
+
+    data = _bridged_rows()
+    cfg = MstgConfig(max_posting_size=200, faster_config=True, use_rotator=True,
+                     closure_epsilon=0.9)
+    card = MstgIndex.build(data, cfg, seed=3, scan_dtype="fused8", device=cuda)
+    assert card.replication_factor() > 1.0
+    queries = np.concatenate([data[:48], data[-16:]]) + 0.01
+    params = MstgSearchParams(top_k=10, ef_search=12, pruning_epsilon=0.8)
+    want = [[h.id for h in row] for row in card.batch_search(queries, params)]
+    fht_before = fht_kernel.launches
+    one = ShardedMstgIndex(card, devices=[cuda]).batch_search(queries, params)
+    assert fht_kernel.launches > fht_before
+    assert [[h.id for h in row] for row in one] == want
+    four = ShardedMstgIndex(card, devices=[cuda] * 4).batch_search(queries, params)
+    assert np.mean([len({h.id for h in a} & set(b)) / 10 for a, b in zip(four, want)]) >= 0.98

@@ -84,10 +84,22 @@ def test_entry_points_refuse_a_missing_card():
     on_cpu.device = torch.device("cuda")  # as if trained on a card that is gone
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         StreamedIvfIndex(on_cpu, chunk_rows=256)
+    from rabitq_tpu_torch.parallel import sharding
+
+    on_cpu.device = torch.device("cpu")
+    mstg = MstgIndex.build(data, MstgConfig(max_posting_size=100), device="cpu")
+    for make in (sharding.make_mesh, lambda: sharding.make_mesh(devices=["cuda"] * 2),
+                 lambda: sharding.ShardedIvfIndex(on_cpu),
+                 lambda: sharding.ShardedIvfIndex.train(data, nlist=4, total_bits=7),
+                 lambda: sharding.ShardedMstgIndex(mstg)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
     # asking for the CPU works
     assert len(IvfRabitqIndex.train(data, nlist=4, total_bits=7, device="cpu")) == 600
     assert len(bindings.IvfRabitqIndex(32, device="cpu")) == 0
-    assert len(MstgIndex.build(data, MstgConfig(max_posting_size=100), device="cpu")) == 600
+    assert len(mstg) == 600
+    cpu_mesh = sharding.make_mesh(devices=["cpu"] * 2)
+    assert sharding.ShardedIvfIndex(on_cpu, cpu_mesh).mesh.shape[sharding.SHARD_AXIS] == 2
 
 
 @pytest.mark.parametrize("alone", [False, True])
