@@ -125,6 +125,27 @@ no phase before or after it serves with less memory than it would alone:
      and the packed lower-bound kernel checked on shard 0's inputs).
 Each of these paths zeroes the launch counters just before it and reads
 them just after; every kernel it runs must have launched.
+Every search of the IVF, brute-force and MSTG indexes goes through the
+index's fused search (rabitq_tpu_torch.index.scan.make_fused_search): on the
+card one CUDA graph replay a dispatch, captured at a key's first call, with
+the launch counters advanced at each replay by what the capture recorded.
+The checks that need a kernel's arguments from inside a search (the bin
+scan and packed lower-bound checks) run that search through the index's
+eager body, and every profile runs its search once before it, so that no
+graph is captured inside the profiler. The fused-search phase, on each
+index while it is alive: 7 bits fused8 at nprobe 16, 64 and 256, the gather
+scan, a filtered search, resident queries and f32, bf16 and int4 uploads
+(after the gather scan); brute force packed and bf16 (after its serving);
+MSTG headline and replicated at each ef (after each ef's checks); 8 bits
+fused8, fused, packed and bf16 (after the 8-bit serving). For each: the
+graphs' results against the eager body on the same blocks (ids and
+distances equal; where a torch.topk cut over bf16 lower bounds may break
+ties otherwise, the overlap is measured, floor 0.99), no kernel launched
+outside a graph and one replay a block, eager and graph QPS paired (medians
+of 5), one profile of each (device busy share, CUDA API kernel and graph
+launches a dispatch, the port's kernels inside the replays), the seconds of
+each capture, and the graph pool's bytes, and after each index its pool's
+peak.
 Then one JSON line of kernel numbers, nvidia-smi's line again, and last
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
 
@@ -373,14 +394,41 @@ def check_bin_scan(index, queries_np, nprobe, walk):
 
     return check_bin_scan_run(
         lambda: index.batch_search_arrays(queries_np[:256], SearchParams(top_k=10, nprobe=nprobe)),
-        f"nprobe={nprobe}", walk)
+        f"nprobe={nprobe}", walk, index=index)
 
 
-def check_bin_scan_run(run, label, walk=None):
+class EagerBody:
+    """An index's fused search run as its eager body (``FusedSearch.eager``,
+    no graph): the witness the graphs are held against, and the way to see
+    the arguments a kernel gets inside a search (a replay runs no Python)."""
+
+    def __init__(self, fused):
+        self.fused = fused
+
+    def __call__(self, *a, **kw):
+        return self.fused.eager(*a, **kw)
+
+    def clear(self):
+        self.fused.clear()
+
+
+def eagerly(index, run):
+    """``run()`` with ``index``'s searches served by the eager body."""
+    fused = index._fused_scan
+    index._fused_scan = EagerBody(fused)
+    try:
+        return run()
+    finally:
+        index._fused_scan = fused
+
+
+def check_bin_scan_run(run, label, walk=None, index=None):
     """:func:`check_bin_scan` on the first bin-kernel call that ``run()``
-    makes (one 256-query block of a path's search). Where ``walk`` is given
-    ("compacted" or "dense"), fails unless that call took that walk, so a
-    result filed under a walk's name holds that walk's numbers."""
+    makes (one 256-query block of a path's search; through ``index``'s
+    eager body where an index is given, so that the wrapper is called).
+    Where ``walk`` is given ("compacted" or "dense"), fails unless that call
+    took that walk, so a result filed under a walk's name holds that walk's
+    numbers."""
     import torch
     from rabitq_tpu_torch.ops import fused_scan
 
@@ -393,7 +441,7 @@ def check_bin_scan_run(run, label, walk=None):
 
     fused_scan.fused_bin_scan = spy
     try:
-        run()
+        eagerly(index, run) if index is not None else run()
     finally:
         fused_scan.fused_bin_scan = real
     args, kw = captured[0]
@@ -478,9 +526,10 @@ def packed_lb_bound(n_bytes, bq, n, db):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def capture_packed_lb_plane(run):
+def capture_packed_lb_plane(run, index=None):
     """The arguments of the first ``packed_lb_plane`` call that ``run()``
-    makes (the dense "packed" scan's stage 1)."""
+    makes (the dense "packed" scan's stage 1; through ``index``'s eager body
+    where an index is given)."""
     from rabitq_tpu_torch.index import scan
 
     captured = []
@@ -492,7 +541,7 @@ def capture_packed_lb_plane(run):
 
     scan.packed_lb_plane = spy
     try:
-        run()
+        eagerly(index, run) if index is not None else run()
     finally:
         scan.packed_lb_plane = real
     return captured[0]
@@ -539,7 +588,7 @@ def check_packed_lb_scan(index, queries_np, nprobe):
     from rabitq_tpu_torch.ops import packed_scan
 
     args = capture_packed_lb_plane(lambda: index.batch_search_arrays(
-        queries_np[:256], SearchParams(top_k=10, nprobe=nprobe)))
+        queries_np[:256], SearchParams(top_k=10, nprobe=nprobe)), index)
     packed, q_perm, f_add, f_rescale, k1x, g_add, g_error, f_error, cluster_of = args[:9]
     n, db = packed.shape
     bq = g_add.shape[0]
@@ -575,21 +624,13 @@ def profile_serving(index, queries_np, nprobe, label=""):
 def profile_run(run, label):
     """Device time by kernel over one ``run()``, and the share of its wall
     time the device was busy (torch.profiler); returns the device's busy
-    milliseconds."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = device_rows(prof)
-    busy = sum(r[0] for r in rows)
-    log(f"profile {label}: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
-        f"({100 * busy / wall_ms:.0f}%); top: {top_rows(rows)}")
-    return busy
+    milliseconds. ``run()`` runs once before the profiled one, so that no
+    graph is captured inside the profiler."""
+    run()
+    p = profile_dispatches(run, 1)
+    log(f"profile {label}: wall {p['wall']:.1f} ms, device busy {p['busy']:.1f} ms "
+        f"({100 * p['busy'] / p['wall']:.0f}%); top: {top_rows(p['rows'])}")
+    return p["busy"]
 
 
 def device_rows(prof):
@@ -614,6 +655,109 @@ def device_rows(prof):
 
 def top_rows(rows, n=8):
     return "; ".join(f"{name[:48]} x{k} {ms:.2f} ms" for ms, name, k in rows[:n])
+
+
+KERNEL_NAMES = ("fht_", "bin_scan_kernel", "packed_lb_kernel")  # the port's kernels by name
+
+
+def profile_dispatches(run, dispatches):
+    """One profiled ``run()`` whose graphs are captured already: wall and
+    device busy ms, the kernel launches and graph launches the CUDA API made
+    a dispatch (the profiler's CPU events), the device's kernels and copies
+    a dispatch, and the device rows (:func:`device_rows`), all and the
+    port's kernels' alone."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = device_rows(prof)
+    busy = sum(r[0] for r in rows)
+    launches = graphs = 0
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CPU:
+            continue
+        if "GraphLaunch" in ev.key:
+            graphs += ev.count
+        elif "LaunchKernel" in ev.key:
+            launches += ev.count
+    ours = [r for r in rows if any(k in r[1] for k in KERNEL_NAMES)]
+    return dict(wall=wall, busy=busy, launches=launches / dispatches, graphs=graphs / dispatches,
+                device_ops=sum(r[2] for r in rows) / dispatches, rows=rows, ours=ours)
+
+
+def check_fused(name, index, run, dispatches, ties=False):
+    """The fused-search phase for one serving configuration. ``run()`` serves
+    the queries (``dispatches`` blocks) and returns host (ids, distances).
+    After one run that captures every key the configuration needs (the
+    seconds of each capture printed), a run must launch no kernel outside a
+    graph (no wrapper looks its kernel up) and replay once a block, and its
+    results must equal the eager body's on the same blocks, ids and
+    distances; with ``ties`` (a torch.topk survivor cut over bf16 lower
+    bounds) a difference is measured and allowed down to a top-10 overlap
+    of 0.99. Then eager and graph QPS paired (medians of 5, in turns), one
+    profile of each (device busy share, the CUDA API's kernel and graph
+    launches a dispatch, the port's kernels inside the replays), and the
+    graphs' memory pool."""
+    import numpy as np
+    from rabitq_tpu_torch.ops import _cuda
+
+    st = index._fused_scan.stats
+    seen = len(st["capture_s"])
+    run()
+    capture_s = st["capture_s"][seen:]
+    replays = st["replays"]
+    entries = []
+    real = _cuda.entry
+    _cuda.entry = lambda k: entries.append(k) or real(k)
+    try:
+        got = run()
+    finally:
+        _cuda.entry = real
+    replayed = st["replays"] - replays
+    if entries or replayed != dispatches:
+        raise AssertionError(f"fused {name}: {len(entries)} kernel launches outside a graph, "
+                             f"{replayed} replays for {dispatches} blocks")
+    want = eagerly(index, run)
+    ids_equal = float(np.mean(got[0] == want[0]))
+    overlap = float(np.mean([len(set(a.tolist()) & set(b.tolist())) / len(a)
+                             for a, b in zip(got[0], want[0])]))
+    same = ids_equal == 1.0 and np.array_equal(got[1], want[1])
+    d_err = float(np.nanmax(np.abs(got[1] - want[1]))) if got[1].size else 0.0
+    if not same and (not ties or overlap < 0.99):
+        raise AssertionError(f"fused {name}: graph results differ from the eager body's (ids "
+                             f"equal {ids_equal:.5f}, overlap {overlap:.5f}, max |d| {d_err:.3g})")
+    n = len(got[0])
+    qps = {"eager": [], "graph": []}
+    for i in range(QPS_RUNS):
+        for mode in (("eager", "graph") if i % 2 == 0 else ("graph", "eager")):
+            t0 = time.perf_counter()
+            eagerly(index, run) if mode == "eager" else run()
+            qps[mode].append(n / (time.perf_counter() - t0))
+    prof = {"eager": profile_dispatches(lambda: eagerly(index, run), dispatches),
+            "graph": profile_dispatches(run, dispatches)}
+    med = {k: float(np.median(v)) for k, v in qps.items()}
+    agree = ("ids and distances equal" if same else
+             f"ids equal {ids_equal:.5f}, top-10 overlap {overlap:.5f}, max |d| {d_err:.3g}")
+    log(f"fused {name}: graph vs eager body on the same {dispatches} blocks: {agree}; QPS "
+        f"paired, medians of {QPS_RUNS} [min, max]: eager {med['eager']:.0f} "
+        f"[{min(qps['eager']):.0f}, {max(qps['eager']):.0f}], graph {med['graph']:.0f} "
+        f"[{min(qps['graph']):.0f}, {max(qps['graph']):.0f}] ({med['graph'] / med['eager']:.2f}x)"
+        + "".join(
+            f"; {k}: device busy {p['busy']:.1f} of {p['wall']:.1f} ms "
+            f"({100 * p['busy'] / p['wall']:.0f}%), a dispatch {p['launches']:.1f} kernel "
+            f"launches + {p['graphs']:.1f} graph launches (CUDA API), {p['device_ops']:.1f} "
+            f"device kernels and copies" for k, p in prof.items())
+        + f"; captures {len(capture_s)} ("
+        + ", ".join(f"{c:.3f}" for c in capture_s) + " s); graph pool now "
+        f"{st['pool_bytes'] / 1e6:.1f} MB, peak {st['pool_peak'] / 1e6:.1f} MB; the port's "
+        f"kernels inside the replays: " + (top_rows(prof["graph"]["ours"], 4) or "none listed"))
+    return med
 
 
 def file_digest(path) -> str:
@@ -806,16 +950,73 @@ def check_gather(index, queries_np, gt):
     return launches
 
 
-def bf_ids(index, queries_np, params):
+def check_fused_ivf(index, queries_np):
+    """The fused-search phase on the 7-bit index (:func:`check_fused` for each
+    configuration): fused8 at nprobe 16, 64 and 256, the gather scan at 16
+    (RABITQ_GATHER=1 and its row limit raised to the budget, unset after), a
+    filtered search (a seeded half of the ids), resident queries (the
+    superblock scanned in windows), and f32, bf16 and int4 uploads at nprobe
+    64 (int8 is the nprobe 64 line)."""
+    import numpy as np
+    from rabitq_tpu_torch import SearchParams
+    from rabitq_tpu_torch.index.scan import gather_budget_bucket
+
+    blocks = len(queries_np) // 256
+    for nprobe in (16, 64, 256):
+        check_fused(f"7 bits fused8 nprobe={nprobe}", index,
+                    lambda: serve(index, queries_np, nprobe), blocks)
+    os.environ["RABITQ_GATHER"] = "1"
+    os.environ["RABITQ_GATHER_MAX"] = str(gather_budget_bucket(np.diff(index._offsets), 16))
+    try:
+        check_fused("7 bits gather scan nprobe=16", index, lambda: serve(index, queries_np, 16),
+                    blocks)
+    finally:
+        del os.environ["RABITQ_GATHER"], os.environ["RABITQ_GATHER_MAX"]
+    params = SearchParams(top_k=10, nprobe=64)
+    allowed = np.random.default_rng(5).permutation(len(index))[: len(index) // 2]
+    check_fused("7 bits filtered (a half of the ids) nprobe=64", index,
+                lambda: index.batch_search_arrays_pipelined(
+                    queries_np, params, batch_size=256, upload_block=1024, filter_ids=allowed),
+                blocks)
+    handle = index.upload_queries(queries_np)
+    check_fused("7 bits resident superblock nprobe=64", index,
+                lambda: index.batch_search_resident(handle, params, batch_size=256), blocks)
+    for upload in ("f32", "bf16", "int4"):
+        index.upload_dtype = upload
+        try:
+            check_fused(f"7 bits {upload} uploads nprobe=64", index,
+                        lambda: serve(index, queries_np, 64), blocks)
+        finally:
+            index.upload_dtype = "int8"
+    log_pool("7-bit", index)
+
+
+def log_pool(label, index):
+    """The graphs' memory pool of an index at its peak, and every capture it
+    made (seconds each, warm-up included)."""
+    st = index._fused_scan.stats
+    log(f"graph pool of the {label} index: peak {st['pool_peak'] / 1e6:.1f} MB; "
+        f"{len(st['capture_s'])} captures ({', '.join(f'{c:.3f}' for c in st['capture_s'])} s), "
+        f"{st['replays']} replays")
+
+
+def bf_arrays(index, queries_np, params):
     """Brute-force search of the queries in blocks of 256 (one dispatch
-    each) as an ids array."""
+    each) as (ids, scores) arrays."""
     import numpy as np
 
-    out = np.full((len(queries_np), params.top_k), -1, np.int64)
+    ids = np.full((len(queries_np), params.top_k), -1, np.int64)
+    scores = np.full((len(queries_np), params.top_k), np.inf, np.float32)
     for s in range(0, len(queries_np), 256):
         for i, hits in enumerate(index.batch_search(queries_np[s : s + 256], params)):
-            out[s + i, : len(hits)] = [h.id for h in hits]
-    return out
+            ids[s + i, : len(hits)] = [h.id for h in hits]
+            scores[s + i, : len(hits)] = [h.score for h in hits]
+    return ids, scores
+
+
+def bf_ids(index, queries_np, params):
+    """:func:`bf_arrays`' ids."""
+    return bf_arrays(index, queries_np, params)[0]
 
 
 def check_brute_force(data, queries_np, gt):
@@ -857,8 +1058,14 @@ def check_brute_force(data, queries_np, gt):
             raise AssertionError(f"brute force {scan_dtype}: recall@10 {recall:.4f} < "
                                  f"{RECALL_FLOOR}")
     launches = read_launches("brute-force", ("fht", "packed_lb_plane"))
+    for scan_dtype in ("packed", "bf16"):
+        index.scan_dtype = scan_dtype
+        check_fused(f"brute force {scan_dtype}", index,
+                    lambda: bf_arrays(index, queries_np, params), len(queries_np) // 256,
+                    ties=True)
+    log_pool("brute-force", index)
     index.scan_dtype = "packed"
-    args = capture_packed_lb_plane(lambda: index.batch_search(queries_np[:256], params))
+    args = capture_packed_lb_plane(lambda: index.batch_search(queries_np[:256], params), index)
     k4 = check_lb_plane(args, "packed lb plane (G_TABLE, brute force, C = 1)")
     profile_run(lambda: bf_ids(index, queries_np, params), "brute force packed")
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
@@ -988,7 +1195,10 @@ def mstg_variant(name, data, queries, closure_epsilon=None):
             f"[{min(qps):.0f}, {max(qps):.0f}]")
         params = MstgSearchParams(top_k=10, ef_search=ef, pruning_epsilon=MSTG_EPS)
         k1[ef] = check_bin_scan_run(lambda: index.batch_search(queries_np[:256], params),
-                                    f"MSTG {name} ef={ef}")
+                                    f"MSTG {name} ef={ef}", index=index)
+        check_fused(f"MSTG {name} ef={ef}", index, lambda: serve_mstg(index, queries_np, ef),
+                    len(queries_np) // 256)
+    log_pool(f"MSTG {name}", index)
     ef = max(MSTG_EFS)
     if recalls[ef] < RECALL_FLOOR:
         raise AssertionError(f"MSTG {name}: recall@10 {recalls[ef]:.4f} < {RECALL_FLOOR} at ef={ef}")
@@ -1852,6 +2062,7 @@ def main() -> int:
             raise AssertionError(f"nprobe={nprobe}: malformed results {ids.shape}")
         if (np.diff(dists, axis=1) < 0).any():
             raise AssertionError(f"nprobe={nprobe}: result rows not sorted by distance")
+        index.batch_search_arrays(queries_np, params)  # captures the one-batch graph
         qps_one = []
         for _ in range(QPS_RUNS):
             t0 = time.perf_counter()
@@ -1892,6 +2103,9 @@ def main() -> int:
     resident = check_resident(index, queries_np)
     gather = check_gather(index, queries_np, gt)
     log(f"phase seconds: resident queries and gather scan {time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    check_fused_ivf(index, queries_np)
+    log(f"phase seconds: fused search, 7 bits {time.perf_counter() - t0:.1f}")
     t0 = time.perf_counter()
     streamed, k3_streamed = check_streamed(index, queries_np, gt)
     log(f"phase seconds: streamed tier {time.perf_counter() - t0:.1f}")
@@ -1975,6 +2189,16 @@ def main() -> int:
     if min(launches8.values()) <= 0:
         raise AssertionError(f"a kernel of the two-stage or dense path never ran: {launches8}")
     log(f"phase seconds: total_bits=8 serving {time.perf_counter() - t0:.1f}")
+
+    t0 = time.perf_counter()
+    for scan_dtype, nprobe in (("fused8", 16), ("fused8", 256), ("fused", 16), ("fused", 256),
+                               ("packed", 256), ("bf16", 256)):
+        index8.scan_dtype = scan_dtype
+        check_fused(f"8 bits {scan_dtype} nprobe={nprobe}", index8,
+                    lambda: serve(index8, queries_np, nprobe), len(queries_np) // 256,
+                    ties=scan_dtype in ("packed", "bf16"))
+    log_pool("8-bit", index8)
+    log(f"phase seconds: fused search, 8 bits {time.perf_counter() - t0:.1f}")
 
     t0 = time.perf_counter()
     index8.scan_dtype = "packed"

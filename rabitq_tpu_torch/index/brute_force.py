@@ -3,12 +3,14 @@
 
 The whole dataset is quantized against one zero centroid
 (``brute_force.rs:252-275``) and every query scans every code: the IVF scan
-(``index/scan.scan_kernel``) with a single cluster and nprobe = 1. For
-``scan_dtype="packed"`` that is the packed lower-bound kernel over all rows
-with a one-column g table. The reference hardcodes ``g_add = 0`` instead of
-``||q - 0||^2`` (``brute_force.rs:571``), so its reported L2 "distance" is
-``||v - q||^2 - ||q||^2``, a per-query shift that never changes the
-ranking; the same scores are reported here.
+(``index/scan.scan_kernel``) with a single cluster and nprobe = 1, through
+the index's fused search (``index/scan.make_fused_search``: rotation and scan
+as one CUDA graph replay on the card). For ``scan_dtype="packed"`` that is
+the packed lower-bound kernel over all rows with a one-column g table. The
+reference hardcodes ``g_add = 0`` instead of ``||q - 0||^2``
+(``brute_force.rs:571``), so its reported L2 "distance" is ``||v - q||^2 -
+||q||^2``, a per-query shift that never changes the ranking; the same scores
+are reported here.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from ..types import Metric, RotatorType, SearchResult
 from ..utils.device import resolve_device
 from .build import build_codes_device, exact_t_rows
 from .layout import DeviceLayout, assemble_device_layout, host_order_planes
-from .scan import _pad_pow2, scan_kernel
+from .scan import _pad_pow2, make_fused_search
 
 
 @dataclass(frozen=True)
@@ -82,6 +84,8 @@ class BruteForceRabitqIndex:
         self._layout: DeviceLayout | None = None
         self._residual_norm: torch.Tensor | None = None  # until the host copy is made
         self._packed: torch.Tensor | None = None
+        # rotation + scan of a query block: one graph replay on the card
+        self._fused_scan = make_fused_search(self.rotator.rotate)
 
     @classmethod
     def train(
@@ -135,6 +139,7 @@ class BruteForceRabitqIndex:
         """One cluster (the zero centroid) with every row in it, rows
         permuted as the dense scans take them."""
         n = self._n
+        self._fused_scan.clear()  # the graphs read the old layout's tensors
         return assemble_device_layout(
             n=n, ex_bits=self.ex_bits, binary=planes["binary"], ex=planes["ex"],
             f_add=planes["f_add"], f_rescale=planes["f_rescale"], f_error=planes["f_error"],
@@ -220,6 +225,7 @@ class BruteForceRabitqIndex:
         if self.scan_dtype == "packed":
             if self._packed is None:
                 self._packed = pack_bitplanes(lay.binary, self.padded_dim)
+                self._fused_scan.clear()
             packed = self._packed
         row_allowed = lay.valid
         if filter_ids is not None:
@@ -235,10 +241,10 @@ class BruteForceRabitqIndex:
 
         q = np.zeros((_pad_pow2(b), self.dim), np.float32)
         q[:b] = queries
-        q_rot = self.rotator.rotate(torch.from_numpy(q).to(self.device))
-        ids, dists = scan_kernel(
-            q_rot, lay.centroids, lay.binary, lay.ex, lay.f_add, lay.f_rescale, lay.f_error,
-            lay.f_add_ex, lay.f_rescale_ex, lay.cluster_of, row_allowed, lay.ids,
+        ids, dists = self._fused_scan(
+            torch.from_numpy(q).to(self.device), lay.centroids, lay.binary, lay.ex, lay.f_add,
+            lay.f_rescale, lay.f_error, lay.f_add_ex, lay.f_rescale_ex, lay.cluster_of,
+            row_allowed, lay.ids,
             nprobe=1, packed=packed, top_k=params.top_k, rerank=params.resolved_rerank(),
             metric=self.metric, ex_bits=self.ex_bits, scan_dtype=self.scan_dtype,
             approx_topk=self.approx_topk,

@@ -2,7 +2,8 @@
 
 Rows stream through the device in fixed-size chunks: gather the chunk's
 source rows (storage order), rotate them (the FHT kernel on the card),
-gather each row's centroid, quantize. Outputs stay on the device.
+gather each row's centroid, quantize. Outputs stay on the device
+(:func:`build_codes_device`); :func:`build_codes` returns host arrays.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import torch
 from ..ops.quantize import best_rescale_factor_exact, quantize_block
 from ..ops.rotation import Rotator
 from ..types import Metric
+from ..utils.device import resolve_device
 
 _FIELDS = (
     "binary",
@@ -118,4 +120,40 @@ def build_codes_device(
         out["ex"][s:e] = qb.ex.to(out["ex"].dtype)
         for name in _FIELDS[2:]:
             out[name][s:e] = getattr(qb, name)
+    return out
+
+
+def build_codes(
+    data,  # [N, dim] host rows or a tensor
+    centroids,  # [C, Dq] in quantization space, host array or tensor
+    assign: np.ndarray,  # [M] cluster of each output row
+    *,
+    rotator: Rotator | None,
+    ex_bits: int,
+    metric: Metric,
+    use_t_const: bool,
+    t_const: float = 0.0,
+    t_rows: np.ndarray | None = None,
+    order: np.ndarray | None = None,
+    chunk: int | None = None,
+    device: "str | torch.device | None" = None,
+) -> dict[str, np.ndarray]:
+    """Host-output wrapper over :func:`build_codes_device`: the rows and
+    centroids go to ``device`` (None: the card), the codes come back as host
+    arrays with the JAX package's types (``ex`` uint16, ``binary`` uint8,
+    f32 factors)."""
+    dev = resolve_device(device)
+
+    def on_device(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(dev, torch.float32)
+        return torch.tensor(np.asarray(x, np.float32), device=dev)  # a copy: x may be read-only
+
+    codes = build_codes_device(
+        on_device(data), on_device(centroids), assign, rotator=rotator, ex_bits=ex_bits,
+        metric=metric, use_t_const=use_t_const, t_const=t_const, t_rows=t_rows, order=order,
+        chunk=chunk,
+    )
+    out = {name: x.cpu().numpy() for name, x in codes.items()}
+    out["ex"] = out["ex"].astype(np.uint16)
     return out

@@ -3,8 +3,10 @@
 Build: k-means on the device (``ops/kmeans.py``), FhtKac rotation (the FHT
 kernel), residual quantization in row chunks (``index/build.py``) and the
 device layout (``index/layout.py``): cluster-sorted for the fused scans,
-pseudorandomly permuted for the dense and packed ones. Search:
-``index/scan.scan_kernel``, routed as the reference routes it.
+pseudorandomly permuted for the dense and packed ones. Search: the index's
+fused search (``index/scan.make_fused_search``: decode, rotation and
+``scan_kernel`` of a query block, one CUDA graph replay on the card), routed
+as the reference routes it.
 
 ``scan_dtype`` "fused"/"fused8" takes the EXACT scan for ``total_bits`` 2..7
 (``ex_bits`` 1..6, the TOTAL int8 plane) and planes up to 2560 columns, the
@@ -64,13 +66,12 @@ from .layout import (
 from .scan import (
     _fetch,
     _pad_pow2,
-    decode_queries,
     encode_queries,
     ex_plane_is_total,
     gather_budget_bucket,
     is_fused,
+    make_fused_search,
     probe_k_bucket,
-    scan_kernel,
     serve_pipelined,
 )
 
@@ -143,6 +144,9 @@ class IvfRabitqIndex:
         self._max_tiles_cache: dict = {}
         self._cl_ranges: tuple[torch.Tensor, torch.Tensor] | None = None
         self._host: HostCodes | None = None  # see host
+        # decode + rotation + scan of a query block: one CUDA graph replay a
+        # dispatch on the card (scan.make_fused_search)
+        self._fused_scan = make_fused_search(self.rotator.rotate, dim=self.dim)
 
     # ------------------------------------------------------------------
     # construction
@@ -373,6 +377,7 @@ class IvfRabitqIndex:
         self._c_blk = None
         self._max_tiles_cache = {}
         self._cl_ranges = None
+        self._fused_scan.clear()  # the graphs read the old layout's tensors
 
     def _layout_mode(self) -> str:
         """'sorted' (cluster-contiguous, TN-padded: the fused scans) or
@@ -533,7 +538,8 @@ class IvfRabitqIndex:
         row_allowed = self._scan_inputs(filter_ids)
         return serve_pipelined(
             queries, batch_size, upload_block, self._pad_queries, self.device,
-            lambda q, qscale: self._dispatch_scan(q, qscale, params, row_allowed),
+            lambda q, qscale, off, bs: self._dispatch_scan(
+                q, qscale, params, row_allowed, offset=off, sub_block=bs),
         )
 
     def upload_queries(self, queries: np.ndarray):
@@ -557,8 +563,9 @@ class IvfRabitqIndex:
         filter_ids: np.ndarray | None = None,
     ) -> tuple[np.ndarray, np.ndarray]:
         """``batch_search_arrays`` over an ``upload_queries`` handle: each
-        dispatch scans a ``batch_size`` slice of the resident block. Results
-        equal the upload paths' on the same ``upload_dtype``."""
+        dispatch scans the ``batch_size``-row window of the resident block at
+        its offset (``sub_block``). Results equal the upload paths' on the
+        same ``upload_dtype``."""
         if self.is_empty:
             raise EmptyIndex()
         q, qscale, b_total = qcache
@@ -570,10 +577,7 @@ class IvfRabitqIndex:
         row_allowed = self._scan_inputs(filter_ids)
         bs = _pad_pow2(min(batch_size, q.shape[0]))
         pending = [
-            self._dispatch_scan(
-                q[off : off + bs], None if qscale is None else qscale[off : off + bs],
-                params, row_allowed,
-            )
+            self._dispatch_scan(q, qscale, params, row_allowed, offset=off, sub_block=bs)
             for off in range(0, b_total, bs)
         ]
         return _fetch(pending, b_total)
@@ -699,11 +703,18 @@ class IvfRabitqIndex:
         """Host (q, qscale | None) tensors in the upload encoding."""
         return encode_queries(queries, b_pad, self.dim, self.upload_dtype)
 
-    def _dispatch_scan(self, q, qscale, params: SearchParams, row_allowed, **scan_kw):
-        """Queue decode + rotation + scan of one padded query block on the
-        device; returns device tensors (callers fetch). The gather scan
-        serves the block where ``_gather_budget`` allows it."""
+    def _dispatch_scan(
+        self, q, qscale, params: SearchParams, row_allowed, offset=None, sub_block=None,
+        **scan_kw,
+    ):
+        """Queue decode + rotation + scan of one padded query block through
+        the index's fused search (one graph replay on the card); returns
+        device tensors (callers fetch). With ``sub_block``, ``q`` is a
+        resident upload block and the scan covers the window at ``offset``.
+        The gather scan serves the block where ``_gather_budget`` allows
+        it."""
         lay = self.layout
+        b = q.shape[0] if sub_block is None else sub_block
         fused = is_fused(self.scan_dtype)
         scan_kw.setdefault("fused_exact", self._fused_exact_ok())
         scan_kw.setdefault("locality_depth", int(os.environ.get("RABITQ_LOCALITY", "1")))
@@ -714,12 +725,11 @@ class IvfRabitqIndex:
         if gather_rows is not None:
             cl_starts, cl_sizes = self._cluster_ranges()
         else:
-            max_tiles = self._fused_max_tiles(params.nprobe, batch=q.shape[0])
-        q_rot = self.rotator.rotate(decode_queries(q, qscale, self.dim))
-        return scan_kernel(
-            q_rot, lay.centroids, lay.binary, lay.ex, lay.f_add, lay.f_rescale,
+            max_tiles = self._fused_max_tiles(params.nprobe, batch=b)
+        return self._fused_scan(
+            q, lay.centroids, lay.binary, lay.ex, lay.f_add, lay.f_rescale,
             lay.f_error, lay.f_add_ex, lay.f_rescale_ex, lay.cluster_of, row_allowed,
-            lay.ids,
+            lay.ids, qscale=qscale, offset=offset, sub_block=sub_block,
             nprobe=params.nprobe,
             packed=self._packed if (fused or self.scan_dtype == "packed") else None,
             fused_cblk=self._c_blk if fused else None,

@@ -64,6 +64,14 @@ class DeviceLayout:
     vl: torch.Tensor | None = None
     packed: torch.Tensor | None = None  # [Np, Db] uint8 bit planes (fused layouts)
 
+    def scan_args(self) -> tuple:
+        """The positional arguments ``binary`` .. ``ids`` of
+        ``scan.scan_kernel``, in order, with ``valid`` as the row mask."""
+        return (
+            self.binary, self.ex, self.f_add, self.f_rescale, self.f_error, self.f_add_ex,
+            self.f_rescale_ex, self.cluster_of, self.valid, self.ids,
+        )
+
 
 def host_order_planes(lay: DeviceLayout, n: int, padded_dim: int, ex_bits: int) -> dict:
     """The first ``n`` rows of a layout in cluster-sorted (host) order, on

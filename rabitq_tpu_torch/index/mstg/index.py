@@ -13,7 +13,9 @@ As in the JAX package:
 * navigation is an exact top-``ef_search`` centroid ranking by L2 (an HNSW
   graph is built only for the reference-format files, ``ref_io.py``);
 * posting lists are one flat row space served by ``index/scan.scan_kernel``
-  with ``use_prune_epsilon``, ``clamp_l2`` and ``centroid_select_l2`` and a
+  through the index's fused search (``index/scan.make_fused_search``:
+  decode, rotation and scan, one CUDA graph replay on the card), with
+  ``use_prune_epsilon``, ``clamp_l2`` and ``centroid_select_l2`` and a
   layout whose ``f_error`` is zero, as the reference's scan zeroes it
   (``mstg/index.rs:285-299``). ``scan_dtype`` picks the scan and the layout
   as for ``IvfRabitqIndex``; the fused scans reach the bin-scan kernels, the
@@ -70,13 +72,12 @@ from ..layout import assemble_device_layout, cluster_of_rows, host_order_planes,
 from ..scan import (
     _fetch,
     _pad_pow2,
-    decode_queries,
     encode_queries,
     ex_plane_is_total,
     gather_budget_bucket,
     is_fused,
+    make_fused_search,
     probe_k_bucket,
-    scan_kernel,
     serve_pipelined,
     sort_result_rows,
 )
@@ -171,6 +172,11 @@ class MstgIndex:
         self._max_tiles_cache: dict = {}
         self._cl_ranges: tuple[torch.Tensor, torch.Tensor] | None = None
         self._has_repl: bool | None = None
+        # decode + optional rotation + scan of a query block: one CUDA graph
+        # replay a dispatch on the card (scan.make_fused_search)
+        self._fused_scan = make_fused_search(
+            rotator.rotate if rotator is not None else None, dim=self.dim
+        )
         # disk-tier scaffolding (mstg/metadata.rs parity); all lists resident
         row_bytes = self.quant_dim * 2 if self._ids.size else 0
         self.directory = PostingListDirectory.from_offsets(self._offsets, row_bytes)
@@ -426,6 +432,7 @@ class MstgIndex:
             self._c_blk = None
             self._max_tiles_cache = {}
             self._cl_ranges = None
+            self._fused_scan.clear()  # the graphs read the old layout's tensors
         return self._layout
 
     def _maybe_downgrade_fused(self) -> None:
@@ -546,18 +553,16 @@ class MstgIndex:
         """Host (q, qscale | None) tensors in the ``upload_dtype`` encoding."""
         return encode_queries(queries, b_pad, self.dim, self.upload_dtype)
 
-    def _scan(self, q, qscale, params: MstgSearchParams, **scan_kw):
-        """Decode and rotate one encoded query block and queue the scan with
-        MSTG's fixed options; ``scan_kw`` holds the per-call ones."""
+    def _scan(self, q, qscale, params: MstgSearchParams, offset=None, sub_block=None, **scan_kw):
+        """Queue the decode, rotation and scan of one encoded query block
+        (the ``sub_block``-row window at ``offset`` where given) through the
+        fused search with MSTG's fixed options; ``scan_kw`` holds the
+        per-call ones."""
         lay = self.layout
         fused = is_fused(self.scan_dtype)
-        q_rot = decode_queries(q, qscale, self.dim)
-        if self.rotator is not None:
-            q_rot = self.rotator.rotate(q_rot)
-        return scan_kernel(
-            q_rot, lay.centroids, lay.binary, lay.ex, lay.f_add, lay.f_rescale, lay.f_error,
-            lay.f_add_ex, lay.f_rescale_ex, lay.cluster_of, lay.valid, lay.ids,
-            nprobe=params.ef_search, prune_epsilon=params.pruning_epsilon,
+        return self._fused_scan(
+            q, lay.centroids, *lay.scan_args(), qscale=qscale, offset=offset,
+            sub_block=sub_block, nprobe=params.ef_search, prune_epsilon=params.pruning_epsilon,
             packed=self._packed if (fused or self.scan_dtype == "packed") else None,
             fused_cblk=self._c_blk if fused else None,
             metric=self.config.metric, ex_bits=self.config.rabitq_bits - 1,
@@ -567,25 +572,28 @@ class MstgIndex:
             **scan_kw,
         )
 
-    def _dispatch_scan(self, q, qscale, params: MstgSearchParams):
-        """Queue the MSTG scan of one encoded query block; returns device
-        (ids [B, top_k], dists). With replicas the scan returns the whole
-        re-ranked candidate set (``rerank``, at least top_k times the
-        replication factor + 16, so that top_k distinct ids survive) and the
-        device dedup cuts it to top_k; without, the scan extracts top_k."""
+    def _dispatch_scan(self, q, qscale, params: MstgSearchParams, offset=None, sub_block=None):
+        """Queue the MSTG scan of one encoded query block (the window at
+        ``offset`` with ``sub_block``); returns device (ids [B, top_k],
+        dists). With replicas the scan returns the whole re-ranked candidate
+        set (``rerank``, at least top_k times the replication factor + 16,
+        so that top_k distinct ids survive) and the device dedup cuts it to
+        top_k after the scan; without, the scan extracts top_k."""
         gather_rows = self._gather_budget(params.ef_search)
         cl_starts = cl_sizes = max_tiles = None
         if gather_rows is not None:
             cl_starts, cl_sizes = self._cluster_ranges()
         else:
-            max_tiles = self._fused_max_tiles(params.ef_search, batch=q.shape[0])
+            b = q.shape[0] if sub_block is None else sub_block
+            max_tiles = self._fused_max_tiles(params.ef_search, batch=b)
         dedup = self._has_replicas()
         rerank = max(
             params.resolved_rerank(),
             int(np.ceil(params.top_k * self.replication_factor())) + 16,
         )
         ids, dists = self._scan(
-            q, qscale, params, cl_starts=cl_starts, cl_sizes=cl_sizes, gather_rows=gather_rows,
+            q, qscale, params, offset=offset, sub_block=sub_block, cl_starts=cl_starts,
+            cl_sizes=cl_sizes, gather_rows=gather_rows,
             top_k=rerank if dedup else params.top_k, rerank=rerank, max_tiles=max_tiles,
             fused_exact=self._fused_exact_ok(),
             # dedup path: keep the kernel's best-first candidate order through
@@ -688,7 +696,8 @@ class MstgIndex:
         self, qcache, params: MstgSearchParams, batch_size: int = 256
     ) -> list[list[SearchResult]]:
         """``batch_search`` over an ``upload_queries`` handle: each dispatch
-        scans a ``batch_size`` slice of the resident block."""
+        scans the ``batch_size``-row window of the resident block at its
+        offset."""
         if self.total_rows == 0:
             raise EmptyIndex()
         q, qscale, b_total = qcache
@@ -697,9 +706,7 @@ class MstgIndex:
         self._scan_planes()
         bs = _pad_pow2(min(batch_size, q.shape[0]))
         pending = [
-            self._dispatch_scan(
-                q[off : off + bs], None if qscale is None else qscale[off : off + bs], params
-            )
+            self._dispatch_scan(q, qscale, params, offset=off, sub_block=bs)
             for off in range(0, b_total, bs)
         ]
         ids, dists = _fetch(pending, b_total)
@@ -709,7 +716,8 @@ class MstgIndex:
         self._scan_planes()
         return serve_pipelined(
             queries, batch_size, upload_block, self._encode_queries, self.device,
-            lambda q, qscale: self._dispatch_scan(q, qscale, params),
+            lambda q, qscale, off, bs: self._dispatch_scan(
+                q, qscale, params, offset=off, sub_block=bs),
         )
 
     def batch_search_pipelined(

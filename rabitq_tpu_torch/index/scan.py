@@ -18,17 +18,34 @@ Per query block, :func:`scan_kernel` ranks the centroids, marks the first
   survivor cut (:func:`_gather_scan`).
 
 The products, gathers and selections outside the kernels are torch ops, as
-they are XLA ops in the reference.
+they are XLA ops in the reference. :func:`make_fused_search` is what the
+indexes call: query decode, rotation and :func:`scan_kernel` as one search,
+one CUDA graph replay a dispatch on the card (the reference's one jitted
+program).
 """
 
 from __future__ import annotations
+
+import inspect
+import time
 
 import numpy as np
 import torch
 
 from ..ops import estimator as est_ops
-from ..ops.fused_scan import BIG, fused_select
-from ..ops.packed_scan import packed_lb_plane, permute_query
+from ..ops.fht import fht_kernel
+from ..ops.fused_scan import (
+    BIG,
+    fused_bin_scan_cuda,
+    fused_bin_scan_packed_cuda,
+    fused_select,
+)
+from ..ops.packed_scan import (
+    packed_lb_plane,
+    packed_lb_plane_cuda,
+    packed_lb_scan_cuda,
+    permute_query,
+)
 from ..types import Metric
 
 SCAN_DTYPES = ("f32", "bf16", "int8", "packed", "fused", "fused8")
@@ -140,12 +157,13 @@ def decode_queries(q: torch.Tensor, qscale: torch.Tensor | None, dim: int) -> to
 
 
 def serve_pipelined(queries, batch_size, upload_block, pad_queries, device, dispatch):
-    """Queue ``dispatch(q, qscale)`` over fixed-size blocks of ``queries``
-    and fetch the results once: each upload block (``upload_block`` rows,
-    >= ``batch_size``; None: one per scan block) is encoded by
-    ``pad_queries``, copied from pinned host memory without blocking, and
-    its ``batch_size`` scan blocks are queued behind the copy. Returns host
-    (ids, dists) trimmed to the queries."""
+    """Queue ``dispatch(q, qscale, offset, sub_block)`` over fixed-size
+    blocks of ``queries`` and fetch the results once: each upload block
+    (``upload_block`` rows, >= ``batch_size``; None: one per scan block) is
+    encoded by ``pad_queries``, copied from pinned host memory without
+    blocking, and its ``batch_size`` scan blocks are queued behind the copy,
+    each the ``sub_block``-row window at ``offset`` of the upload block.
+    Returns host (ids, dists) trimmed to the queries."""
     b_total = queries.shape[0]
     bs = _pad_pow2(min(batch_size, _pad_pow2(b_total)))
     ub = bs if upload_block is None else _pad_pow2(min(max(upload_block, bs), _pad_pow2(b_total)))
@@ -158,9 +176,7 @@ def serve_pipelined(queries, batch_size, upload_block, pad_queries, device, disp
             staged.append(host)
         q, qscale = (None if h is None else h.to(device, non_blocking=True) for h in host)
         for off in range(0, min(ub, b_total - s), bs):
-            pending.append(
-                dispatch(q[off : off + bs], None if qscale is None else qscale[off : off + bs])
-            )
+            pending.append(dispatch(q, qscale, off, bs))
     return _fetch(pending, b_total)
 
 
@@ -585,3 +601,208 @@ def _stage2_rerank(
     result_rows = torch.gather(rows, 1, pos)
     result_ids = torch.where(torch.isfinite(result_dist), ids[result_rows], -1)
     return _pad_results(result_ids, result_dist, top_k)
+
+
+# ----------------------------------------------------------------------
+# the one-dispatch search (``make_fused_search``)
+# ----------------------------------------------------------------------
+
+_SCAN_PARAMS = inspect.signature(scan_kernel).parameters
+_SCAN_NAMES = tuple(_SCAN_PARAMS)[1:]  # the arguments after q_rot
+_SCAN_DEFAULTS = {
+    name: p.default for name, p in _SCAN_PARAMS.items()
+    if p.default is not inspect.Parameter.empty
+}
+# tensors a graph reads from its own buffers, copied in at every call; every
+# other tensor is read at the address it had when the graph was captured
+_COPIED_IN = ("q", "qscale", "row_allowed")
+
+
+def _fused_body(rotate_fn, dim, q, *args, qscale=None, offset=None, sub_block=None, **kwargs):
+    """Decode, scale, rotate and scan one encoded query block, op by op, as
+    the program of the JAX package's ``make_fused_search`` does: the
+    ``sub_block`` rows at ``offset`` where given, int4 nibble pairs decoded
+    to ``dim`` columns, f32 with the per-query scale applied, ``rotate_fn``
+    (None: the queries are already in the index's space), then
+    :func:`scan_kernel` with the remaining arguments. What a CPU tensor
+    runs, what a CUDA graph records, and the eager witness the graphs are
+    held against on the card."""
+    if sub_block is not None:
+        q = q[offset : offset + sub_block]
+        if qscale is not None:
+            qscale = qscale[offset : offset + sub_block]
+    if q.dtype == torch.uint8 and dim is None:
+        raise ValueError("int4 uploads need make_fused_search(dim=)")
+    q = decode_queries(q, qscale, dim)
+    q_rot = rotate_fn(q) if rotate_fn is not None else q
+    return scan_kernel(q_rot, *args, **kwargs)
+
+
+def _launch_counters():
+    """(dict, key) of every kernel wrapper's launch counter."""
+    slots = [
+        (vars(fht_kernel), "launches"),
+        (vars(fused_bin_scan_cuda), "dense_launches"),
+        (vars(fused_bin_scan_cuda), "compact_launches"),
+        (vars(packed_lb_scan_cuda), "launches"),
+        (vars(packed_lb_plane_cuda), "launches"),
+    ]
+    return slots + [(fused_bin_scan_packed_cuda.launches, k)
+                    for k in fused_bin_scan_packed_cuda.launches]
+
+
+def _read_launches() -> list[int]:
+    return [d[k] for d, k in _launch_counters()]
+
+
+def _add_launches(deltas, sign: int = 1) -> None:
+    for (d, k), n in zip(_launch_counters(), deltas):
+        d[k] += sign * n
+
+
+def _graph_key(q, qscale, scan: dict) -> tuple:
+    """Everything a captured graph freezes: each Python argument's value,
+    and each tensor's shape, strides, type and device, with its address
+    where the graph reads it in place (the index's resident tensors)."""
+
+    def part(name, v):
+        if isinstance(v, torch.Tensor):
+            ptr = None if name in _COPIED_IN else v.data_ptr()
+            return (name, tuple(v.shape), v.stride(), v.dtype, v.device, ptr)
+        return (name, v)
+
+    return (part("q", q), part("qscale", qscale)) + tuple(
+        part(name, scan[name]) for name in _SCAN_NAMES)
+
+
+class _Graph:
+    """One captured search: its input buffers, its outputs and the kernel
+    launches one replay makes."""
+
+    def __init__(self, graph, inputs: dict, outputs, launches):
+        self.graph = graph
+        self.inputs = inputs
+        self.outputs = outputs
+        self.launches = launches
+
+    def run(self, q, qscale, row_allowed):
+        self.inputs["q"].copy_(q)
+        if qscale is not None:
+            self.inputs["qscale"].copy_(qscale)
+        self.inputs["row_allowed"].copy_(row_allowed)
+        self.graph.replay()
+        _add_launches(self.launches)
+        # the next replay writes the same buffers: each call gets its own copy
+        return tuple(o.clone() for o in self.outputs)
+
+
+class FusedSearch:
+    """The search :func:`make_fused_search` returns (one per index).
+
+    A CPU tensor runs :func:`_fused_body`. On the card every key is one CUDA
+    graph that replays decode, rotation (the FHT kernel) and the whole scan
+    (the bin scans, the packed lower-bound kernel and the torch ops around
+    them) as one launch. The key (:func:`_graph_key`) holds the static
+    options, the Python scalars the body reads on the host (``nprobe``,
+    ``prune_epsilon``, ``rerank``, ``probe_k``, the tile and gather budgets),
+    the shape and type of every tensor, the address of every tensor the
+    graph reads in place, and which optional tensors are given. The first
+    call of a key runs the body once on the capture stream (it builds the
+    kernels' libraries and fills the caches they read at first use) and
+    captures it; each call copies the query window, its scale and the row
+    mask into the graph's buffers, replays it and clones its outputs. The
+    graphs of one index share one memory pool: replays run in one stream
+    order, so the pool holds the largest capture's memory, not the sum.
+
+    A graph reads the index's tensors at their captured addresses, so the
+    index calls :meth:`clear` whenever it replaces one (a new layout, the
+    packed plane, the tile windows, the cluster ranges); the addresses in the
+    key keep a replaced tensor from ever meeting an old graph. The kernel
+    wrappers count their launches in Python, which a replay does not run:
+    each graph adds the counts its capture made at every replay instead.
+    On the card a failed capture or replay raises; nothing falls back to the
+    eager body."""
+
+    def __init__(self, rotate_fn, dim: int | None = None):
+        self.rotate_fn = rotate_fn
+        self.dim = dim
+        self._graphs: dict = {}
+        self._pool = None
+        self._stream = None
+        # seconds of each capture (warm-up included), replays, and the bytes
+        # the graphs' pool holds now and at most
+        self.stats = {"capture_s": [], "replays": 0, "pool_bytes": 0, "pool_peak": 0}
+
+    def clear(self) -> None:
+        """Drop every graph: the index replaced a tensor they read."""
+        self._graphs.clear()
+        self.stats["pool_bytes"] = 0
+
+    def eager(self, q, *args, **kwargs):
+        """:func:`_fused_body` with this search's rotation: the eager witness."""
+        return _fused_body(self.rotate_fn, self.dim, q, *args, **kwargs)
+
+    def __call__(self, q, *args, qscale=None, offset=None, sub_block=None, **kwargs):
+        if not q.is_cuda:
+            return self.eager(q, *args, qscale=qscale, offset=offset, sub_block=sub_block,
+                              **kwargs)
+        if sub_block is not None:
+            q = q[offset : offset + sub_block]
+            if qscale is not None:
+                qscale = qscale[offset : offset + sub_block]
+        scan = {**_SCAN_DEFAULTS, **dict(zip(_SCAN_NAMES, args)), **kwargs}
+        key = _graph_key(q, qscale, scan)
+        graph = self._graphs.get(key)
+        if graph is None:
+            graph = self._graphs[key] = self._capture(q, qscale, scan)
+        self.stats["replays"] += 1
+        return graph.run(q, qscale, scan["row_allowed"])
+
+    def _capture(self, q, qscale, scan: dict) -> _Graph:
+        dev = q.device
+        t0 = time.perf_counter()
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._stream = torch.cuda.Stream(dev)
+        inputs = {
+            "q": q.clone(memory_format=torch.contiguous_format),
+            "qscale": None if qscale is None else qscale.clone(),
+            "row_allowed": scan["row_allowed"].clone(),
+        }
+        kw = {**scan, "row_allowed": inputs["row_allowed"]}
+
+        def body():
+            return self.eager(inputs["q"], qscale=inputs["qscale"], **kw)
+
+        self._stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(self._stream):
+            body()  # the warm-up: first-use work must not happen inside the capture
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        before = _read_launches()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._pool, stream=self._stream):
+            outputs = body()
+        # the capture counted launches it only recorded: they count at replays
+        launches = [a - b for a, b in zip(_read_launches(), before)]
+        _add_launches(launches, -1)
+        st = self.stats
+        st["pool_bytes"] += torch.cuda.memory_reserved(dev) - reserved
+        st["pool_peak"] = max(st["pool_peak"], st["pool_bytes"])
+        st["capture_s"].append(time.perf_counter() - t0)
+        return _Graph(graph, inputs, tuple(outputs), launches)
+
+
+def make_fused_search(rotate_fn, dim: int | None = None) -> FusedSearch:
+    """One search per index with the rotation fused into the scan (the JAX
+    package's ``make_fused_search``): ``fused(q, *args, qscale=None,
+    offset=None, sub_block=None, **kwargs)`` decodes an encoded query block
+    (f32, bf16, symmetric int8 or int4 nibble pairs, with ``qscale`` for the
+    last two), rotates it with ``rotate_fn`` (None for indexes that quantize
+    in the original space, MSTG's default) and runs :func:`scan_kernel` with
+    ``args`` / ``kwargs``; with ``sub_block`` it scans the ``sub_block``-row
+    window at ``offset`` of ``q`` (an upload superblock). ``dim``, the raw
+    query width, is needed to decode int4 uploads. On the card each call is
+    one CUDA graph replay (:class:`FusedSearch`)."""
+    return FusedSearch(rotate_fn, dim)

@@ -77,6 +77,7 @@ class StreamedIvfIndex:
         # index's own re-layout)
         index._layout = None
         index._packed = None
+        index._fused_scan.clear()
 
     @property
     def n_chunks(self) -> int:

@@ -500,7 +500,9 @@ def test_gather_scan_on_the_card_matches_the_cpu(cuda, monkeypatch):
     assert card._gather_budget(4) == cpu._gather_budget(4) is not None
     g_ids, g_d = card.batch_search_arrays(data[:64], params)
     c_ids, c_d = cpu.batch_search_arrays(data[:64], params)
-    assert len(calls) == 2
+    # the CPU's search, and on the card the warm-up and the capture of the
+    # graph that served the block
+    assert len(calls) == 3
     assert np.mean([len(set(g_ids[i]) & set(c_ids[i])) / 10 for i in range(64)]) >= 0.99
     assert np.all(g_ids[:, 0] == np.arange(64))
     for i in range(64):
@@ -770,3 +772,189 @@ def test_sharded_mstg_rotates_on_the_card(cuda):
     assert [[h.id for h in row] for row in one] == want
     four = ShardedMstgIndex(card, devices=[cuda] * 4).batch_search(queries, params)
     assert np.mean([len({h.id for h in a} & set(b)) / 10 for a, b in zip(four, want)]) >= 0.98
+
+
+# ----------------------------------------------------------------------
+# the fused search as CUDA graphs: every serving dispatch one replay
+# ----------------------------------------------------------------------
+
+
+class _Eager:
+    """An index's fused search run as its eager body (no graph): the witness
+    the graphs are held against."""
+
+    def __init__(self, fused):
+        self.fused = fused
+
+    def __call__(self, *a, **k):
+        return self.fused.eager(*a, **k)
+
+    def clear(self):
+        self.fused.clear()
+
+
+def _eagerly(index, run):
+    """``run()`` with the index's searches served by the eager body."""
+    fused = index._fused_scan
+    index._fused_scan = _Eager(fused)
+    try:
+        return run()
+    finally:
+        index._fused_scan = fused
+
+
+def _entries_during(run, monkeypatch):
+    """(run()'s result, how many kernel launches the wrappers made in it):
+    every wrapper looks its kernel up in ``_cuda.entry`` just before it
+    launches, which a replay never does."""
+    from rabitq_tpu_torch.ops import _cuda
+
+    calls = []
+    real = _cuda.entry
+    monkeypatch.setattr(_cuda, "entry", lambda name: calls.append(name) or real(name))
+    out = run()
+    torch.cuda.synchronize()
+    monkeypatch.setattr(_cuda, "entry", real)
+    return out, len(calls)
+
+
+def _ivf_case(cuda, total_bits, scan_dtype, nprobe):
+    data, _, card = _cpu_and_card_indexes(cuda, total_bits, scan_dtype)
+    card.upload_dtype = "int8"
+    params = SearchParams(top_k=10, nprobe=nprobe)
+    queries = data[:128] + 0.01
+    return card, lambda: card.batch_search_arrays_pipelined(
+        queries, params, batch_size=32, upload_block=64)
+
+
+def _bf_case(cuda):
+    from rabitq_tpu_torch import BruteForceRabitqIndex, BruteForceSearchParams
+
+    data = _bridged_rows()
+    card = BruteForceRabitqIndex.train(data, total_bits=7, seed=3, use_faster_config=True,
+                                       scan_dtype="packed", device=cuda)
+    params = BruteForceSearchParams(top_k=10)
+
+    def run():
+        hits = card.batch_search(data[:64] + 0.01, params)
+        return (np.array([[h.id for h in row] for row in hits]),
+                np.array([[h.score for h in row] for row in hits]))
+
+    return card, run
+
+
+def _mstg_case(cuda):
+    from rabitq_tpu_torch import MstgConfig, MstgIndex, MstgSearchParams
+
+    data = _bridged_rows()
+    cfg = MstgConfig(max_posting_size=200, faster_config=True, use_rotator=True,
+                     closure_epsilon=0.9)
+    card = MstgIndex.build(data, cfg, seed=3, scan_dtype="fused8", device=cuda)
+    assert card._has_replicas()
+    card.upload_dtype = "int8"
+    queries = np.concatenate([data[:48], data[-16:]]) + 0.01
+    params = MstgSearchParams(top_k=10, ef_search=12, pruning_epsilon=0.8)
+    return card, lambda: card.batch_search_arrays_pipelined(
+        queries, params, batch_size=32, upload_block=64)
+
+
+@pytest.mark.parametrize("case", ["ivf7_compacted", "ivf7_dense", "ivf8_fused8", "ivf8_packed",
+                                  "brute_force_packed", "mstg_dedup"])
+def test_graphs_equal_the_eager_body(cuda, case, monkeypatch):
+    """Each serving path on the card through its CUDA graphs equals the eager
+    body on the same blocks, ids and distances; once its keys are captured,
+    a run launches no kernel outside a graph (one replay a block)."""
+    if case == "ivf7_compacted":
+        monkeypatch.setenv("RABITQ_FUSED_COMPACT", "force")
+        index, run = _ivf_case(cuda, 7, "fused8", 4)
+    elif case == "ivf7_dense":
+        index, run = _ivf_case(cuda, 7, "fused8", 40)
+    elif case == "ivf8_fused8":
+        index, run = _ivf_case(cuda, 8, "fused8", 4)
+    elif case == "ivf8_packed":
+        index, run = _ivf_case(cuda, 8, "packed", 40)
+    elif case == "brute_force_packed":
+        index, run = _bf_case(cuda)
+    else:
+        index, run = _mstg_case(cuda)
+    first = run()  # captures
+    fused = index._fused_scan
+    replays = fused.stats["replays"]
+    got, entries = _entries_during(run, monkeypatch)
+    assert entries == 0 and fused.stats["replays"] > replays and fused._graphs
+    want = _eagerly(index, run)
+    for g, f, w in zip(got, first, want):
+        np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(f, w)
+    if case == "ivf7_compacted":
+        assert fs.fused_bin_scan_cuda.compact_launches > 0
+
+
+def test_graph_outputs_survive_later_replays(cuda):
+    """Six blocks served under one key before a single fetch: each keeps its
+    own results (the outputs are cloned before the next replay)."""
+    data, _, card = _cpu_and_card_indexes(cuda)
+    params = SearchParams(top_k=10, nprobe=8)
+    queries = data[:192] + 0.01
+    ids, d = card.batch_search_arrays_pipelined(queries, params, batch_size=32)
+    assert len(card._fused_scan._graphs) == 1 and card._fused_scan.stats["replays"] == 6
+    w_ids, w_d = _eagerly(card, lambda: card.batch_search_arrays_pipelined(
+        queries, params, batch_size=32))
+    np.testing.assert_array_equal(ids, w_ids)
+    np.testing.assert_array_equal(d, w_d)
+    assert np.all(ids[:, 0] == np.arange(192))
+
+
+def test_two_filters_in_a_row_under_one_key(cuda):
+    """The row mask is an input copied into the graph at each call: two
+    filters in a row under one key each hold."""
+    data, _, card = _cpu_and_card_indexes(cuda)
+    params = SearchParams(top_k=10, nprobe=80)
+    for keep in (0, 1):
+        allowed = np.arange(keep, 4000, 2)
+        ids, d = card.batch_search_arrays(data[:64], params, filter_ids=allowed)
+        assert (ids >= 0).all() and (ids % 2 == keep).all()
+        w_ids, w_d = _eagerly(card, lambda: card.batch_search_arrays(
+            data[:64], params, filter_ids=allowed))
+        np.testing.assert_array_equal(ids, w_ids)
+        np.testing.assert_array_equal(d, w_d)
+    assert len(card._fused_scan._graphs) == 1
+
+
+def test_relayout_then_search_reads_the_new_layout(cuda):
+    """A search, a re-layout (scan_dtype to "packed" and back): the graphs are
+    dropped with the old layout and the next search captures against the
+    new tensors, equal to the eager body."""
+    data, _, card = _cpu_and_card_indexes(cuda, 8, "fused8")
+    params = SearchParams(top_k=10, nprobe=8)
+    before, _ = card.batch_search_arrays(data[:64], params)
+    for scan_dtype in ("packed", "fused8"):
+        card.scan_dtype = scan_dtype
+        ids, d = card.batch_search_arrays(data[:64], params)
+        assert len(card._fused_scan._graphs) == 1
+        w_ids, w_d = _eagerly(card, lambda: card.batch_search_arrays(data[:64], params))
+        np.testing.assert_array_equal(ids, w_ids)
+        np.testing.assert_array_equal(d, w_d)
+    assert len(card._fused_scan.stats["capture_s"]) == 3  # one a layout
+    np.testing.assert_array_equal(ids, before)
+
+
+def test_launch_counters_count_replays(cuda):
+    """A replay adds the launches its capture recorded: N replays of one key
+    add N times the graph's counts, the capture adds none of its own."""
+    from rabitq_tpu_torch.index import scan
+
+    data, _, card = _cpu_and_card_indexes(cuda)
+    params = SearchParams(top_k=10, nprobe=8)
+    queries = data[:128] + 0.01
+    start = scan._read_launches()
+    card.batch_search_arrays_pipelined(queries[:32], params, batch_size=32)  # warm-up + capture
+    (graph,) = card._fused_scan._graphs.values()
+    per_replay = graph.launches
+    assert per_replay[0] > 0 and per_replay[1] + per_replay[2] == 1  # FHT; one bin scan
+    after_first = scan._read_launches()
+    # the warm-up launched once, the capture recorded once and ran once at its replay
+    assert [a - s for a, s in zip(after_first, start)] == [2 * n for n in per_replay]
+    card.batch_search_arrays_pipelined(queries, params, batch_size=32)
+    assert [a - b for a, b in zip(scan._read_launches(), after_first)] == [
+        4 * n for n in per_replay]

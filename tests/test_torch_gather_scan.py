@@ -20,7 +20,6 @@ import torch
 import rabitq_tpu as jr
 import rabitq_tpu.index.scan as jscan
 import rabitq_tpu_torch as tr
-import rabitq_tpu_torch.index.ivf as tivf
 import rabitq_tpu_torch.index.scan as tscan
 
 N, DIM, NLIST = 4000, 64, 64
@@ -184,8 +183,9 @@ def test_switches_take_the_jax_path(l2_pair, monkeypatch, env):
         if env.get("RABITQ_FUSED_COMPACT") == "force":
             assert t_tiles == j_tiles == 8  # every 512-row tile of 4000 rows
     seen = []
-    real = tivf.scan_kernel
-    monkeypatch.setattr(tivf, "scan_kernel", lambda *a, **k: seen.append(k) or real(*a, **k))
+    # the index's fused search calls the scan module's scan_kernel
+    real = tscan.scan_kernel
+    monkeypatch.setattr(tscan, "scan_kernel", lambda *a, **k: seen.append(k) or real(*a, **k))
     j, t = _search(jidx, tidx, data[:16] + 0.01, 10, nprobe)
     assert seen[0]["locality_depth"] == int(env.get("RABITQ_LOCALITY", "1"))
     assert seen[0]["fused_exact"] == (env.get("RABITQ_FUSED_EXACT") != "0")
