@@ -125,6 +125,30 @@ no phase before or after it serves with less memory than it would alone:
      and the packed lower-bound kernel checked on shard 0's inputs).
 Each of these paths zeroes the launch counters just before it and reads
 them just after; every kernel it runs must have launched.
+The JAX-shaped calls: the JAX package's call shapes, none naming a device
+(the card is the default), on each index while it is alive, each path's
+launch counters zeroed before it and read after, any mismatch failing the
+run (``phase seconds: JAX-shaped calls``):
+  IVF (after the sharded IVF check, the 7-bit index's last phase):
+     IvfRabitqIndex(dim, padded_dim, metric, rotator, ex_bits, index.host,
+     "fused8") laid out from the host copy (seconds beside load_index's),
+     served at nprobe 16 and 64 with ids and distances equal to the index's
+     on all queries, QPS beside the index's, and the direct bin kernel
+     against its plain version at nprobe 64 (dense); run_kmeans(data_np,
+     4096, ..., data_dev=data) with centroids and assignments equal to
+     run_kmeans(data, 4096, ...) at the same seed; upload_dataset(rows,
+     "f32", 262_144) on cuda:0 equal to the rows; assemble_host_chunks with
+     zero_f_error and row_pad given, its slabs equal to the streamed tier's;
+  brute force (after the RBF1 round trip): a BruteForceRabitqIndex made
+     without codes and given the trained index's host, its packed serving
+     (the FHT and the packed lower-bound kernel) returning the trained
+     index's ids;
+  MSTG (on the headline index, after its sharded check):
+     hierarchical_cluster and closure_assign given the rows as a host array,
+     their lists equal to those of the device-tensor calls MstgIndex.build
+     makes; then index.host = index.host, len unchanged and ef 8 ids equal.
+  The k-means and clustering pairs run with deterministic CUDA reductions,
+  so that both calls of a pair do the same sums in the same order.
 Every search of the IVF, brute-force and MSTG indexes goes through the
 index's fused search (rabitq_tpu_torch.index.scan.make_fused_search): on the
 card one CUDA graph replay a dispatch, captured at a key's first call, with
@@ -154,6 +178,7 @@ Usage: python3 chip_smoke.py (no arguments; one card).
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import math
@@ -819,7 +844,8 @@ def check_persistence(index, queries_np, data):
     load_index with scan_dtype fused8, serve at nprobe 64 through the EXACT
     scan with ids and distances equal to the index's before the save, and
     fetch_embedding of a few ids against the raw rows. The files go to a
-    temporary directory inside the checkout and are deleted."""
+    temporary directory inside the checkout and are deleted. Returns (the
+    reload's launches, load_index's seconds)."""
     import tempfile
 
     import numpy as np
@@ -865,7 +891,7 @@ def check_persistence(index, queries_np, data):
         f"{', '.join(f'{e:.4f}' for e in errs)}")
     if max(errs) > 0.05:
         raise AssertionError(f"fetch_embedding off by {max(errs):.4f} of the row's norm")
-    return launches
+    return launches, load_s
 
 
 def check_resident(index, queries_np):
@@ -1000,6 +1026,239 @@ def log_pool(label, index):
         f"{st['replays']} replays")
 
 
+@contextlib.contextmanager
+def deterministic_reductions():
+    """CUDA reductions without float atomics (``index_add_`` sorts its
+    indices first) while two calls that must agree bitwise run, so that
+    both do the same sums in the same order."""
+    import torch
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def require_equal(what, got, want):
+    """Fails unless the arrays are equal, naming how many entries differ
+    and the largest difference."""
+    import numpy as np
+
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: shape {got.shape}, expected {want.shape}")
+    if np.array_equal(got, want):
+        return
+    diff = np.abs(got.astype(np.float64) - want.astype(np.float64))
+    raise AssertionError(f"{what}: {int((got != want).sum())} of {want.size} entries differ, "
+                         f"largest difference {np.nanmax(diff):.6g}")
+
+
+def check_jax_shaped_ivf(index, data, data_np, queries_np, load_s):
+    """The JAX package's call shapes on the 7-bit index, its last phase,
+    each naming no device (the card is the default). The index made as the
+    JAX package makes one over codes it holds, ``IvfRabitqIndex(dim,
+    padded_dim, metric, rotator, ex_bits, host, "fused8")``: laid out from
+    the host copy (seconds beside load_index's), served at nprobe 16 and 64
+    (its path: launch counters zeroed before, read after) with ids and
+    distances equal to the index's on every query, QPS beside the index's
+    (median of 3, in turns), and K1 against its plain version at nprobe 64
+    (dense). Then ``run_kmeans(data_np, NLIST, ..., data_dev=data)`` against
+    ``run_kmeans(data, NLIST, ...)`` at the same seed (centroids and
+    assignments equal, both under deterministic reductions);
+    ``upload_dataset(rows, "f32", 262_144)`` (on cuda:0, equal to the rows);
+    and ``assemble_host_chunks`` with ``zero_f_error`` and ``row_pad`` given
+    (the slabs equal to the streamed tier's, which releases the index's
+    layout). Returns (launches, K1 check)."""
+    import numpy as np
+    import torch
+    from rabitq_tpu_torch import IvfRabitqIndex, StreamedIvfIndex
+    from rabitq_tpu_torch.index.layout import assemble_host_chunks
+    from rabitq_tpu_torch.ops.kmeans import run_kmeans
+    from rabitq_tpu_torch.utils.transfer import upload_dataset
+
+    host = index.host
+    made = IvfRabitqIndex(index.dim, index.padded_dim, index.metric, index.rotator,
+                          index.ex_bits, host, "fused8")
+    made.upload_dtype = index.upload_dtype
+    t0 = time.perf_counter()
+    made.layout  # noqa: B018  (laid out from the host copy)
+    torch.cuda.synchronize()
+    layout_s = time.perf_counter() - t0
+    want = {nprobe: serve(index, queries_np, nprobe) for nprobe in (16, 64)}
+    zero_launches()
+    got = {nprobe: serve(made, queries_np, nprobe) for nprobe in (16, 64)}
+    launches = read_launches("JAX-shaped IVF", (
+        "fht", "fused_bin_scan_compact", "fused_bin_scan_dense"))
+    qps = {}
+    for nprobe in (16, 64):
+        require_equal(f"JAX-shaped IVF nprobe={nprobe} ids", got[nprobe][0], want[nprobe][0])
+        require_equal(f"JAX-shaped IVF nprobe={nprobe} distances", got[nprobe][1],
+                      want[nprobe][1])
+        runs = {"made": [], "index": []}
+        for _ in range(3):
+            for name, idx in (("made", made), ("index", index)):
+                t1 = time.perf_counter()
+                serve(idx, queries_np, nprobe)
+                runs[name].append(len(queries_np) / (time.perf_counter() - t1))
+        qps[nprobe] = {k: float(np.median(v)) for k, v in runs.items()}
+    log(f"JAX-shaped IVF (IvfRabitqIndex(..., index.host, \"fused8\"), no device): laid out "
+        f"from the host copy in {layout_s:.2f} s (load_index {load_s:.2f} s); ids and distances "
+        f"equal to the index's on all {len(queries_np)} queries at nprobe 16 and 64; pipelined "
+        f"int8 QPS (median of 3, in turns) nprobe 16 {qps[16]['made']:.0f} (index "
+        f"{qps[16]['index']:.0f}), nprobe 64 {qps[64]['made']:.0f} (index "
+        f"{qps[64]['index']:.0f}); K1 and K2 launches {launches}")
+    k1 = check_bin_scan(made, queries_np, 64, "dense")
+    del made
+    torch.cuda.empty_cache()
+
+    km, km_s = {}, {}
+    with deterministic_reductions():
+        for name, call in (
+            ("host rows, data_dev", lambda: run_kmeans(data_np, NLIST, 25, 42, data_dev=data,
+                                                       assign_dtype="bf16", tol=1e-3)),
+            ("device rows", lambda: run_kmeans(data, NLIST, 25, 42, assign_dtype="bf16",
+                                               tol=1e-3)),
+        ):
+            t0 = time.perf_counter()
+            km[name] = call()
+            torch.cuda.synchronize()
+            km_s[name] = time.perf_counter() - t0
+    a, b = km.values()
+    require_equal("run_kmeans(data_np, data_dev=data) centroids", a.centroids.cpu(),
+                  b.centroids.cpu())
+    require_equal("run_kmeans(data_np, data_dev=data) assignments", a.assignments, b.assignments)
+
+    t0 = time.perf_counter()
+    rows, report = upload_dataset(data_np, "f32", 262_144)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    if rows.device != torch.device("cuda", 0) or not torch.equal(rows, data):
+        raise AssertionError(f"upload_dataset(rows, 'f32', 262_144): on {rows.device}, equal to "
+                             f"the rows {torch.equal(rows, data) if rows.is_cuda else False}")
+    del rows
+
+    t0 = time.perf_counter()
+    tier = StreamedIvfIndex(index, chunk_rows=STREAM_CHUNK_ROWS)
+    tier_s = time.perf_counter() - t0
+    h = index.host
+    t0 = time.perf_counter()
+    slabs = assemble_host_chunks(
+        n=len(index), ex_bits=index.ex_bits, binary=h.binary_bits, ex=h.ex_codes,
+        f_add=h.f_add, f_rescale=h.f_rescale, f_error=h.f_error, f_add_ex=h.f_add_ex,
+        f_rescale_ex=h.f_rescale_ex, cluster_sizes=np.diff(h.cluster_offsets), ids=h.ids,
+        chunk_rows=tier.chunk_rows, zero_f_error=False, row_pad=128, fused=tier._fused)
+    chunks_s = time.perf_counter() - t0
+    if len(slabs) != tier.n_chunks:
+        raise AssertionError(f"assemble_host_chunks: {len(slabs)} slabs, tier {tier.n_chunks}")
+    for i, (slab, chunk) in enumerate(zip(slabs, tier._chunks)):
+        if sorted(slab) != sorted(chunk):
+            raise AssertionError(f"slab {i}: keys {sorted(slab)} != {sorted(chunk)}")
+        for key, arr in slab.items():
+            require_equal(f"assemble_host_chunks slab {i} {key}", arr, chunk[key].numpy())
+    n_slabs = len(slabs)
+    del tier, slabs
+    log(f"JAX-shaped k-means (run_kmeans(data_np, {NLIST}, 25, 42, data_dev=data) against "
+        f"run_kmeans(data, ...), deterministic reductions): centroids and assignments equal "
+        f"({a.iters} iterations; {' s / '.join(f'{v:.2f}' for v in km_s.values())} s); "
+        f"upload_dataset(rows, "
+        f"'f32', 262_144): cuda:0, equal to the rows, {report['bytes']} bytes in "
+        f"{upload_s:.2f} s; assemble_host_chunks(zero_f_error=False, row_pad=128): {n_slabs} "
+        f"slabs equal to the streamed tier's ({chunks_s:.2f} s on the host; the tier "
+        f"{tier_s:.2f} s)")
+    return launches, k1
+
+
+def check_jax_shaped_brute_force(index, queries_np, params, want_ids):
+    """A brute-force index made in the JAX package's shape with no codes
+    and no device, ``BruteForceRabitqIndex(dim, padded_dim, metric, rotator,
+    ex_bits, None, "packed")``, given the trained index's ``host`` (the JAX
+    attribute): its first searches lay it out and serve ``packed`` (the
+    FHT and K4; launch counters zeroed before, read after) with the trained
+    index's ids. Returns the launches."""
+    import torch
+    from rabitq_tpu_torch import BruteForceRabitqIndex
+
+    fresh = BruteForceRabitqIndex(index.dim, index.padded_dim, index.metric, index.rotator,
+                                  index.ex_bits, None, "packed")
+    fresh.host = index.host
+    zero_launches()
+    t0 = time.perf_counter()
+    ids = bf_ids(fresh, queries_np, params)
+    first_s = time.perf_counter() - t0
+    launches = read_launches("JAX-shaped brute force", ("fht", "packed_lb_plane"))
+    require_equal("JAX-shaped brute force packed ids", ids, want_ids)
+    log(f"JAX-shaped brute force (host assigned to BruteForceRabitqIndex(..., None, "
+        f"\"packed\")): {len(fresh)} rows; layout and the first packed run {first_s:.2f} s; "
+        f"ids equal to the trained index's on all {len(queries_np)} queries; K4 launches "
+        f"{launches['packed_lb_plane']}")
+    del fresh
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_jax_shaped_mstg(index, data, data_np, queries_np):
+    """On the MSTG headline index: ``hierarchical_cluster`` and
+    ``closure_assign`` given the rows as a host array (the JAX package's
+    shape, no device) against the device-tensor calls ``MstgIndex.build``
+    makes (``data_dev=data``), in the build's configuration, both under
+    deterministic reductions: the lists equal. Then ``index.host =
+    index.host`` (the JAX setter): ``len`` unchanged, and an ef 8 serving
+    run (its path: launch counters zeroed before, read after) returns the
+    ids it returned before. Returns the launches."""
+    import torch
+    from rabitq_tpu_torch.index.mstg.closure import closure_assign
+    from rabitq_tpu_torch.index.mstg.clustering import hierarchical_cluster
+    from rabitq_tpu_torch.ops.kmeans import auto_assign_dtype
+
+    cfg = index.config
+    kw = dict(max_cluster_size=cfg.max_posting_size, branching_factor=cfg.branching_factor,
+              balance_weight=cfg.balance_weight, seed=42, refine_iters=cfg.refine_iters,
+              assign_dtype=auto_assign_dtype(*data.shape))
+    seconds, out = {}, {}
+    with deterministic_reductions():
+        for name, call in (
+            ("clusters host", lambda: hierarchical_cluster(data_np, **kw)),
+            ("clusters device", lambda: hierarchical_cluster(data, data_dev=data, **kw)),
+            ("closure host", lambda: closure_assign(
+                data_np, out["clusters device"].centroids, cfg.closure_epsilon,
+                cfg.max_replicas)),
+            ("closure device", lambda: closure_assign(
+                data, out["clusters device"].centroids, cfg.closure_epsilon, cfg.max_replicas,
+                data_dev=data)),
+        ):
+            t0 = time.perf_counter()
+            out[name] = call()
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t0
+    for what, a, b in (
+        ("hierarchical_cluster", out["clusters host"].members, out["clusters device"].members),
+        ("closure_assign", out["closure host"], out["closure device"]),
+    ):
+        if len(a) != len(b):
+            raise AssertionError(f"{what} on host rows: {len(a)} lists, device rows {len(b)}")
+        for i, (x, y) in enumerate(zip(a, b)):
+            require_equal(f"{what} on host rows, list {i}", x, y)
+    members = out["closure device"]
+    want_ids, _ = serve_mstg(index, queries_np, 8)
+    n = len(index)
+    index.host = index.host
+    zero_launches()
+    ids, _ = serve_mstg(index, queries_np, 8)
+    launches = read_launches("JAX-shaped MSTG ef=8", ("fht", "fused_bin_scan"))
+    if len(index) != n:
+        raise AssertionError(f"MSTG host setter: len {len(index)} != {n}")
+    require_equal("MSTG ef=8 ids after the host setter", ids, want_ids)
+    log(f"JAX-shaped MSTG: hierarchical_cluster on host rows {seconds['clusters host']:.2f} s, "
+        f"on the device rows (data_dev) {seconds['clusters device']:.2f} s: "
+        f"{len(out['clusters device'].members)} lists, equal; closure_assign "
+        f"{seconds['closure host']:.2f} s / {seconds['closure device']:.2f} s: "
+        f"{sum(m.size for m in members)} memberships, equal; index.host = index.host: len {n} "
+        f"unchanged, ef 8 ids equal; launches {launches}")
+    return launches
+
+
 def bf_arrays(index, queries_np, params):
     """Brute-force search of the queries in blocks of 256 (one dispatch
     each) as (ids, scores) arrays."""
@@ -1024,7 +1283,9 @@ def check_brute_force(data, queries_np, gt):
     serve through "packed" (the FHT and the packed lower-bound kernel at
     C = 1) and "bf16" with recall@10 and QPS, hold the kernel against its
     plain version on the packed path's own inputs, profile one packed run,
-    and round-trip the index through RBF1 with equal ids."""
+    round-trip the index through RBF1 with equal ids, and last the
+    JAX-shaped host assignment (check_jax_shaped_brute_force). Returns
+    (launches, K4 check, the JAX-shaped path's launches and seconds)."""
     import tempfile
 
     import numpy as np
@@ -1082,7 +1343,9 @@ def check_brute_force(data, queries_np, gt):
         raise AssertionError(f"RBF1 reload: ids equal on {np.mean(ids == ids_of['packed']):.5f}")
     log(f"RBF1: {size} bytes; save {save_s:.2f} s (host copy included), load_index and one "
         f"packed serving run {load_s:.2f} s; ids equal after the reload")
-    return launches, k4
+    t0 = time.perf_counter()
+    jax_shaped = check_jax_shaped_brute_force(index, queries_np, params, ids_of["packed"])
+    return launches, k4, jax_shaped, time.perf_counter() - t0
 
 
 def bridged_workload(data, queries, centers, seed=99):
@@ -1269,7 +1532,7 @@ def mstg_recall_witness(index, queries_np, gt):
             f"{g_recall[2]:.4f}")
 
 
-def check_mstg(data, queries, centers):
+def check_mstg(data, data_np, queries, centers):
     """The MSTG phase: the headline variant on the 1M rows and a profile of
     one serving run, saved to a native file for the front-end phase, then
     the headline sharded (check_sharded_mstg), then the replicated variant
@@ -1277,7 +1540,9 @@ def check_mstg(data, queries, centers):
     MSTG_BUILD_CUT_S) and its recall witness. Returns ({(variant, "build" |
     ef): launches}, {(variant, ef): K1 check}, the headline file's path, in
     a temporary directory of the checkout, the sharded headline's launches
-    and that check's seconds)."""
+    and that check's seconds, and the JAX-shaped calls' launches and
+    seconds: check_jax_shaped_mstg on the headline index, after its
+    sharded check)."""
     import tempfile
 
     import torch
@@ -1295,6 +1560,9 @@ def check_mstg(data, queries, centers):
     sharded = check_sharded_mstg(index, queries_np, gt)
     sharded_s = time.perf_counter() - t0
     log(f"phase seconds: sharded MSTG {sharded_s:.1f}")
+    t0 = time.perf_counter()
+    jax_shaped = check_jax_shaped_mstg(index, data, data_np, queries_np)
+    jax_shaped_s = time.perf_counter() - t0
     del index
     torch.cuda.empty_cache()
     rows = data.shape[0]
@@ -1314,7 +1582,7 @@ def check_mstg(data, queries, centers):
     launches.update({("replicated", k): v for k, v in repl.items()})
     k1 = {("headline", k): v for k, v in k1_head.items()}
     k1.update({("replicated", k): v for k, v in k1_repl.items()})
-    return launches, k1, mstg_path, sharded, sharded_s
+    return launches, k1, mstg_path, sharded, sharded_s, jax_shaped, jax_shaped_s
 
 
 def intervals_union(spans):
@@ -2097,7 +2365,7 @@ def main() -> int:
     # ---- the same 7-bit index saved and loaded, served from resident
     # queries and through the gather scan; then the brute-force index
     t0 = time.perf_counter()
-    persist = check_persistence(index, queries_np, data)
+    persist, load_s = check_persistence(index, queries_np, data)
     log(f"phase seconds: RBQ1 round trip {time.perf_counter() - t0:.1f}")
     t0 = time.perf_counter()
     resident = check_resident(index, queries_np)
@@ -2113,17 +2381,25 @@ def main() -> int:
     sharded, k1_sharded, single = check_sharded_ivf(index, data, queries_np, gt, one_batch_qps)
     sharded_s = {"IVF": time.perf_counter() - t0}
     log(f"phase seconds: sharded IVF {sharded_s['IVF']:.1f}")
+    # the JAX package's call shapes, on each index while it is alive
+    t0 = time.perf_counter()
+    data_np = data.cpu().numpy()  # the rows as the host array a JAX-shaped call passes
+    jax_ivf, k1_jax = check_jax_shaped_ivf(index, data, data_np, queries_np, load_s)
+    jax_s = {"IVF": time.perf_counter() - t0}
     del index
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    brute, k4_bf = check_brute_force(data, queries_np, gt)
+    brute, k4_bf, jax_bf, jax_s["brute force"] = check_brute_force(data, queries_np, gt)
     torch.cuda.empty_cache()
-    log(f"phase seconds: brute force {time.perf_counter() - t0:.1f}")
+    log(f"phase seconds: brute force {time.perf_counter() - t0 - jax_s['brute force']:.1f}")
     t0 = time.perf_counter()
-    mstg, k1_mstg, mstg_path, sharded["MSTG"], sharded_s["MSTG"] = check_mstg(
-        data, queries, centers)
-    log(f"phase seconds: MSTG {time.perf_counter() - t0 - sharded_s['MSTG']:.1f} (without the "
-        f"sharded MSTG check)")
+    (mstg, k1_mstg, mstg_path, sharded["MSTG"], sharded_s["MSTG"], jax_mstg,
+     jax_s["MSTG"]) = check_mstg(data, data_np, queries, centers)
+    del data_np
+    log(f"phase seconds: MSTG {time.perf_counter() - t0 - sharded_s['MSTG'] - jax_s['MSTG']:.1f} "
+        f"(without the sharded MSTG check and the JAX-shaped calls)")
+    log(f"phase seconds: JAX-shaped calls {sum(jax_s.values()):.1f} ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in jax_s.items()) + ")")
     t0 = time.perf_counter()
     try:
         front = check_front_ends(data, queries, gt, mstg_path)
@@ -2235,7 +2511,8 @@ def main() -> int:
     scan_src = "rabitq_tpu_torch/csrc/fused_bin_scan.cu"
     scan_tpu = "rabitq_tpu/ops/pallas_fused_scan.py:497"
     packed_src = "rabitq_tpu_torch/csrc/packed_bin_scan.cu"
-    paths = ((launches, launches8, persist, resident, gather, brute, streamed)
+    paths = ((launches, launches8, persist, resident, gather, brute, streamed, jax_ivf, jax_bf,
+              jax_mstg)
              + tuple(mstg.values()) + tuple(front.values()) + tuple(sharded.values()))
     kernels = [
         entry("fht", "rabitq_tpu_torch/csrc/fht.cu", "rabitq_tpu/ops/pallas_fht.py:49",
@@ -2262,7 +2539,10 @@ def main() -> int:
         entry("packed_lb_scan", "rabitq_tpu_torch/csrc/packed_lb_scan.cu",
               "rabitq_tpu/ops/pallas_scan.py:141", g_plane_launches, lb["scan"]),
         entry("packed_lb_plane_brute_force", "rabitq_tpu_torch/csrc/packed_lb_scan.cu",
-              "rabitq_tpu/ops/pallas_scan.py:141", brute["packed_lb_plane"], k4_bf),
+              "rabitq_tpu/ops/pallas_scan.py:141",
+              brute["packed_lb_plane"] + jax_bf["packed_lb_plane"], k4_bf),
+        entry("fused_bin_scan_jax_shaped_dense", scan_src, scan_tpu,
+              jax_ivf["fused_bin_scan_dense"], k1_jax),
     ]
     kernels += [
         entry(f"fused_bin_scan_mstg_{variant}_ef{ef}", scan_src, scan_tpu,

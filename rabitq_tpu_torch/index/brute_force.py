@@ -178,6 +178,14 @@ class BruteForceRabitqIndex:
             self._residual_norm = None
         return self._host
 
+    @host.setter
+    def host(self, value: BruteForceHost) -> None:
+        """Replace the codes. An index not laid out yet lays itself out
+        from them at its first search; a layout already built stays as it
+        is (the JAX package's ``host`` is a plain attribute)."""
+        self._host = value
+        self._n = int(value.binary_bits.shape[0])
+
     def __len__(self) -> int:
         return self._n
 

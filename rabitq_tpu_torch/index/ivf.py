@@ -116,10 +116,15 @@ class IvfRabitqIndex:
         metric: Metric,
         rotator: Rotator,
         ex_bits: int,
-        device: "str | torch.device | None" = None,
+        host: HostCodes | None = None,
         scan_dtype: str = "bf16",
         approx_topk: bool | None = None,
+        *,
+        device: "str | torch.device | None" = None,
     ):
+        """An index over ``host`` codes (laid out on ``device`` at first use;
+        ``None``: the card), or an empty one that ``train`` / ``_build``
+        fills."""
         self.dim = dim
         self.padded_dim = padded_dim
         self.metric = metric
@@ -134,8 +139,9 @@ class IvfRabitqIndex:
         # a quarter of the bytes) or "int4" (nibble pairs, an eighth)
         self.upload_dtype: str = "f32"
         self.build_report: dict | None = None
-        self._ids: np.ndarray | None = None  # [N] original ids, cluster-sorted
-        self._offsets: np.ndarray | None = None  # [C+1] cluster row ranges
+        # [N] original ids, cluster-sorted; [C+1] cluster row ranges
+        self._ids: np.ndarray | None = host.ids if host is not None else None
+        self._offsets: np.ndarray | None = host.cluster_offsets if host is not None else None
         self._layout: DeviceLayout | None = None
         self._layout_mode_built: str | None = None  # see _layout_mode
         self._packed: torch.Tensor | None = None  # bit planes ("packed" and fused)
@@ -143,7 +149,7 @@ class IvfRabitqIndex:
         self._geometry_ok: bool | None = None  # fused_geometry_ok of the clusters
         self._max_tiles_cache: dict = {}
         self._cl_ranges: tuple[torch.Tensor, torch.Tensor] | None = None
-        self._host: HostCodes | None = None  # see host
+        self._host: HostCodes | None = host  # see host
         # decode + rotation + scan of a query block: one CUDA graph replay a
         # dispatch on the card (scan.make_fused_search)
         self._fused_scan = make_fused_search(self.rotator.rotate, dim=self.dim)
@@ -179,7 +185,7 @@ class IvfRabitqIndex:
         n, dim = data.shape
         cls._validate_train_args(data, nlist, total_bits)
         t0 = time.perf_counter()
-        data_dev, upload_report = upload_dataset(data, data_upload, dev)
+        data_dev, upload_report = upload_dataset(data, data_upload, device=dev)
         t_upload = time.perf_counter()
         if kmeans_dtype == "auto":
             kmeans_dtype = kmeans_ops.auto_assign_dtype(n, dim)
@@ -297,7 +303,7 @@ class IvfRabitqIndex:
                 use_t_const=use_faster_config, t_const=t_const, t_rows=t_rows,
                 order=order,
             )
-        index = cls(dim, padded_dim, metric, rotator, ex_bits, device=dev, scan_dtype=scan_dtype)
+        index = cls(dim, padded_dim, metric, rotator, ex_bits, None, scan_dtype, device=dev)
         index._set_layout(
             ids=order.astype(np.int64), offsets=offsets, centroids=rotated_centroids,
             binary=codes["binary"], ex=codes["ex"], f_add=codes["f_add"],
@@ -338,26 +344,20 @@ class IvfRabitqIndex:
         carried across so both packages search the same codes, in the same
         device row order (the permuted layouts share the permutation)."""
         rotator = deserialize_rotator(dim, padded_dim, rotator_type, rotator_bytes)
-        index = cls(
-            dim, padded_dim, metric, rotator, ex_bits, device=device,
-            scan_dtype=scan_dtype, approx_topk=approx_topk,
-        )
-        offsets = np.asarray(cluster_offsets, np.int64)
-        index._set_layout(
-            ids=np.asarray(ids, np.int64), offsets=offsets,
-            centroids=np.asarray(centroids, np.float32), binary=binary_bits,
-            ex=ex_codes, f_add=f_add, f_rescale=f_rescale, f_error=f_error,
-            f_add_ex=f_add_ex, f_rescale_ex=f_rescale_ex, delta=delta, vl=vl,
-        )
-        index._host = HostCodes(
+        host = HostCodes(
             binary_bits=np.asarray(binary_bits, np.uint8), ex_codes=np.asarray(ex_codes, np.uint16),
             f_add=np.asarray(f_add, np.float32), f_rescale=np.asarray(f_rescale, np.float32),
             f_error=np.asarray(f_error, np.float32), f_add_ex=np.asarray(f_add_ex, np.float32),
             f_rescale_ex=np.asarray(f_rescale_ex, np.float32),
             delta=np.asarray(delta, np.float32), vl=np.asarray(vl, np.float32),
-            ids=index._ids, cluster_offsets=offsets,
+            ids=np.asarray(ids, np.int64), cluster_offsets=np.asarray(cluster_offsets, np.int64),
             centroids=np.asarray(centroids, np.float32),
         )
+        index = cls(
+            dim, padded_dim, metric, rotator, ex_bits, host, scan_dtype, approx_topk,
+            device=device,
+        )
+        index._rematerialize()
         return index
 
     def _set_layout(self, *, ids, offsets, centroids, **planes) -> None:

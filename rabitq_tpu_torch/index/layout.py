@@ -19,6 +19,7 @@ import torch
 
 from ..ops.fused_scan import TN, tile_cluster_blocks
 from ..ops.packed_scan import pack_bitplanes, pack_bitplanes_np
+from ..utils.device import resolve_device
 from .scan import device_row_permutation, ex_plane_is_total, make_refine_plane
 
 _ROW_PAD = 128  # default device row padding multiple
@@ -136,11 +137,11 @@ def assemble_device_layout(
     permute: bool = True,
     keep_binary: bool = False,  # keep the dense binary plane in fused layouts
     # too (with stage-2 refinement off, the 1-bit re-score reads it)
-    device: "torch.device | str" = "cpu",
+    device: "torch.device | str | None" = None,
 ) -> DeviceLayout:
     """Build the padded (and, with ``permute``, scattered) device layout
-    from cluster-sorted rows."""
-    device = torch.device(device)
+    from cluster-sorted rows, on ``device`` (``None``: the card)."""
+    device = resolve_device(device)
     n_pad = pad_rows(n, row_pad)
     perm = (
         device_row_permutation(n, n_pad) if permute else np.arange(n_pad, dtype=np.int64)
@@ -209,6 +210,8 @@ def assemble_host_chunks(
     cluster_sizes: np.ndarray,
     ids: np.ndarray,
     chunk_rows: int,
+    zero_f_error: bool = False,
+    row_pad: int = _ROW_PAD,
     fused: bool = False,
 ) -> list[dict]:
     """The device layout as host slabs of ``chunk_rows`` rows (numpy arrays,
@@ -221,12 +224,13 @@ def assemble_host_chunks(
     kernels' ``TN`` row tiles, and each
     carries its ``packed`` 1-bit planes and ``cblk`` cluster windows; where
     the refine plane holds TOTAL codes the dense binary plane is left out
-    (stage 2 never reads it, and the tier pays for every uploaded byte)."""
+    (stage 2 never reads it, and the tier pays for every uploaded byte).
+    ``zero_f_error`` zeroes the ``f_error`` slab (MSTG's scan wants none);
+    ``row_pad`` pads the dense scans' slabs."""
     if fused:
         row_pad = TN
         perm = np.arange(n, dtype=np.int64)
     else:
-        row_pad = _ROW_PAD
         perm = device_row_permutation(n, n)[:n]
     cluster_of = cluster_of_rows(cluster_sizes, n)[perm]
     ids_p = np.asarray(ids).astype(np.int32)[perm]
@@ -236,7 +240,9 @@ def assemble_host_chunks(
     scal = {
         "f_add": np.asarray(f_add, np.float32)[perm],
         "f_rescale": np.asarray(f_rescale, np.float32)[perm],
-        "f_error": np.asarray(f_error, np.float32)[perm],
+        "f_error": np.zeros(n, np.float32)
+        if zero_f_error
+        else np.asarray(f_error, np.float32)[perm],
         "f_add_ex": np.asarray(f_add_ex, np.float32)[perm],
         "f_rescale_ex": np.asarray(f_rescale_ex, np.float32)[perm],
     }

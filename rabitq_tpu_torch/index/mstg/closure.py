@@ -19,6 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ...utils.device import rows_on_device
+
 
 def _closure_chunk(
     chunk: torch.Tensor,  # [M, D] vectors
@@ -58,15 +60,20 @@ def _closure_chunk(
 
 
 def closure_assign(
-    data_dev: torch.Tensor,
+    data: "np.ndarray | torch.Tensor",
     centroids: np.ndarray,
     epsilon: float,
     max_replicas: int,
     chunk: int = 8192,
+    data_dev: torch.Tensor | None = None,
+    *,
+    device: "str | torch.device | None" = None,
 ) -> list[np.ndarray]:
     """Per-cluster member lists (row indices, ascending) after closure
-    assignment of the f32 rows of ``data_dev``, on the device that does the
-    work."""
+    assignment of the rows of ``data`` (a host array or a tensor), or of
+    ``data_dev``, the same rows already uploaded, where given. The work runs
+    on ``device``, else the tensor's own, else the card."""
+    data_dev = rows_on_device(data, data_dev, device)
     dev = data_dev.device
     centroids = np.ascontiguousarray(centroids, np.float32)
     n = data_dev.shape[0]

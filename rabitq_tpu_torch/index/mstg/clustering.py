@@ -38,6 +38,7 @@ from ...ops.kmeans import (
     _grouped_assign_blocks,
     _kmeans_device,
 )
+from ...utils.device import rows_on_device
 from ...utils.logging import get_logger
 from ..scan import _pad_pow2
 
@@ -68,17 +69,23 @@ def _partition_means(data_dev: torch.Tensor, parts: list[np.ndarray]) -> torch.T
 
 
 def hierarchical_cluster(
-    data_dev: torch.Tensor,
+    data: "np.ndarray | torch.Tensor",
     max_cluster_size: int,
     branching_factor: int,
     balance_weight: float = 1.0,
     kmeans_iters: int = 25,
     seed: int = 42,
+    data_dev: torch.Tensor | None = None,
     refine_iters: int = 12,
     assign_dtype: str = "f32",
+    *,
+    device: "str | torch.device | None" = None,
 ) -> ClusterSet:
-    """Cluster the f32 rows of ``data_dev``, on the device that does the
-    work, into lists of at most ``max_cluster_size`` rows."""
+    """Cluster the rows of ``data`` (a host array or a tensor), or of
+    ``data_dev``, the same rows already uploaded, where given, into lists of
+    at most ``max_cluster_size`` rows. The work runs on ``device``, else the
+    tensor's own, else the card."""
+    data_dev = rows_on_device(data, data_dev, device)
     n, d = data_dev.shape
     if n == 0:
         return ClusterSet(members=[], centroids=np.zeros((0, d), np.float32))

@@ -157,8 +157,7 @@ class MstgIndex:
             self._centroids_np = _meta["centroids"]
             self._small = _meta["small"]  # [R] per-row fields for MstgHost
         self._codes_dev = _codes_dev
-        # distinct vectors: the largest id + 1 (read at every dispatch)
-        self._n_vectors = int(self._ids.max()) + 1 if self._ids.size else 0
+        self._derive_from_lists()
         self.scan_dtype = scan_dtype
         self.approx_topk = approx_topk if approx_topk is not None else scan_dtype != "f32"
         # query upload encoding for serving, as IvfRabitqIndex.upload_dtype
@@ -171,12 +170,17 @@ class MstgIndex:
         self._geometry_ok: bool | None = None
         self._max_tiles_cache: dict = {}
         self._cl_ranges: tuple[torch.Tensor, torch.Tensor] | None = None
-        self._has_repl: bool | None = None
         # decode + optional rotation + scan of a query block: one CUDA graph
         # replay a dispatch on the card (scan.make_fused_search)
         self._fused_scan = make_fused_search(
             rotator.rotate if rotator is not None else None, dim=self.dim
         )
+
+    def _derive_from_lists(self) -> None:
+        """What the index derives from its ids and list offsets."""
+        # distinct vectors: the largest id + 1 (read at every dispatch)
+        self._n_vectors = int(self._ids.max()) + 1 if self._ids.size else 0
+        self._has_repl: bool | None = None  # see _has_replicas
         # disk-tier scaffolding (mstg/metadata.rs parity); all lists resident
         row_bytes = self.quant_dim * 2 if self._ids.size else 0
         self.directory = PostingListDirectory.from_offsets(self._offsets, row_bytes)
@@ -188,6 +192,16 @@ class MstgIndex:
         if self._host is None:
             self._host = self._download_host()
         return self._host
+
+    @host.setter
+    def host(self, value: MstgHost) -> None:
+        """Replace the host arrays and what is derived from them; a device
+        layout already built stays as it is (as in the JAX package)."""
+        self._host = value
+        self._ids = value.ids
+        self._offsets = value.list_offsets
+        self._centroids_np = value.centroids
+        self._derive_from_lists()
 
     def _download_host(self) -> MstgHost:
         """MstgHost from the device layout: the big code planes through the
@@ -229,7 +243,7 @@ class MstgIndex:
             raise InvalidConfig("cannot build index from empty data")
         n, orig_dim = data.shape
         t0 = time.perf_counter()
-        data_dev, upload_report = upload_dataset(data, config.data_upload, dev)
+        data_dev, upload_report = upload_dataset(data, config.data_upload, device=dev)
         t_upload = time.perf_counter()
         rotator = None
         if config.use_rotator:
@@ -241,9 +255,9 @@ class MstgIndex:
         # step 1: hierarchical balanced clustering
         with timed(f"hierarchical clustering n={n}", _log):
             clusters = hierarchical_cluster(
-                data_dev, max_cluster_size=config.max_posting_size,
+                data, max_cluster_size=config.max_posting_size,
                 branching_factor=config.branching_factor,
-                balance_weight=config.balance_weight, seed=seed,
+                balance_weight=config.balance_weight, seed=seed, data_dev=data_dev,
                 refine_iters=config.refine_iters, assign_dtype=auto_assign_dtype(n, orig_dim),
             )
         t_cluster = time.perf_counter()
@@ -251,7 +265,8 @@ class MstgIndex:
         # step 2: closure assignment with the RNG rule
         with timed(f"closure assignment C={len(clusters.centroids)}", _log):
             members = closure_assign(
-                data_dev, clusters.centroids, config.closure_epsilon, config.max_replicas
+                data, clusters.centroids, config.closure_epsilon, config.max_replicas,
+                data_dev=data_dev,
             )
         t_closure = time.perf_counter()
 

@@ -24,7 +24,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..utils.device import resolve_device, synchronize
+from ..utils.device import rows_on_device, synchronize
 
 RESEED_CANDIDATES = 8  # kmeans.rs:9
 DEFAULT_MAX_POINTS_PER_CENTROID = 256  # kmeans.rs:10
@@ -251,21 +251,21 @@ def run_kmeans(
     nredo: int = 1,
     spherical: bool = False,
     max_points_per_centroid: int = DEFAULT_MAX_POINTS_PER_CENTROID,
+    data_dev: torch.Tensor | None = None,
     n_valid: int | None = None,
     assign_dtype: str = "f32",
     tol: float = 0.0,
     with_report: bool = False,
+    *,
     device: "str | torch.device | None" = None,
 ) -> KMeansResult:
     """Run k-means on ``data`` [N, D] (a host array, or a tensor already on
-    its device; ``device`` defaults to the tensor's, else the card). Rows
+    its device), or on ``data_dev``, the same rows already uploaded, where
+    given; ``device`` defaults to the tensor's, else the card. Rows
     ``>= n_valid`` are padding and never trained on or assigned.
     Deterministic for a given seed on a given device."""
-    if isinstance(data, torch.Tensor) and device is None:
-        dev = data.device
-    else:
-        dev = resolve_device(device)
-    data = torch.as_tensor(data, dtype=torch.float32, device=dev)
+    data = rows_on_device(data, data_dev, device)
+    dev = data.device
     n_rows, dim = data.shape
     n = n_rows if n_valid is None else n_valid
     if not 0 < k <= n:

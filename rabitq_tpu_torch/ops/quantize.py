@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..types import Metric
+from ..utils.device import resolve_device
 
 # Constants from quantizer.rs:8-11.
 K_TIGHT_START = (0.0, 0.15, 0.20, 0.52, 0.59, 0.71, 0.75, 0.77, 0.81)
@@ -133,16 +134,16 @@ def best_rescale_factor_exact(
 
 def compute_const_scaling_factor(
     dim: int, ex_bits: int, seed: int, grid: int = 1024,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> float:
     """Average optimal t over 100 random Gaussian directions
-    (``quantizer.rs:563-592``); the directions come from numpy with the JAX
-    package's seed."""
+    (``quantizer.rs:563-592``) on ``device`` (``None``: the card); the
+    directions come from numpy with the JAX package's seed."""
     rng = np.random.default_rng(seed)
     vecs = rng.standard_normal((100, dim)).astype(np.float32)
     norms = np.linalg.norm(vecs, axis=-1, keepdims=True)
     o_abs = np.abs(vecs / np.maximum(norms, F32_EPS))
-    ts = grid_best_t(torch.from_numpy(o_abs).to(device), ex_bits, grid=grid)
+    ts = grid_best_t(torch.from_numpy(o_abs).to(resolve_device(device)), ex_bits, grid=grid)
     return float(torch.mean(ts))
 
 

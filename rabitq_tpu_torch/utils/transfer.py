@@ -52,17 +52,18 @@ def resolve_encoding(data, encoding: str = "auto") -> str:
 
 
 def upload_dataset(
-    data, encoding: str = "auto", device: "str | torch.device" = "cpu",
-    chunk_rows: int = 262_144,
+    data, encoding: str = "auto", chunk_rows: int = 262_144, *,
+    device: "str | torch.device | None" = None,
 ) -> tuple[torch.Tensor, dict]:
-    """Upload [N, dim] rows to ``device``; returns (f32 tensor, report dict
-    with ``encoding``, ``bytes``, ``seconds``, ``mb_per_s``).
+    """Upload [N, dim] rows to ``device`` (``None``: the card); returns (f32
+    tensor, report dict with ``encoding``, ``bytes``, ``seconds``,
+    ``mb_per_s``).
 
     Host rows are converted and copied ``chunk_rows`` at a time, which bounds
     the host memory an mmap-backed input costs. A tensor already on
     ``device`` is returned as it is (f32), with ``encoding`` "resident" and
     no bytes sent."""
-    device = torch.device(device)
+    device = resolve_device(device)
     if isinstance(data, torch.Tensor):
         if device.type == "cuda" and device.index is None and data.is_cuda:
             device = torch.device("cuda", torch.cuda.current_device())  # "cuda": this card

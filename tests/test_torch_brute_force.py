@@ -11,10 +11,13 @@ equal). The "packed" scan runs the packed
 lower-bound kernel's plain version at one cluster in the port and
 ``packed_lb_scan`` in interpret mode in the JAX package; their survivor
 sets come from bf16 planes, so there the top-10 lists must agree on >= 9
-ids a query and >= 0.98 on average.
+ids a query and >= 0.98 on average. An index given a host by assignment
+(the JAX package's ``host`` is a plain attribute) serves as the JAX index.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -24,6 +27,7 @@ import rabitq_tpu.ops.quantize as jq
 import rabitq_tpu_torch as tr
 from rabitq_tpu_torch.index import brute_force as tbf
 from rabitq_tpu_torch.index import scan as tscan
+from rabitq_tpu_torch.ops.rotation import deserialize_rotator
 
 N, DIM = 1000, 64
 FIELDS = ("delta", "vl", "f_add", "f_rescale", "f_error", "residual_norm", "f_add_ex",
@@ -130,6 +134,32 @@ def test_packed_scan_matches_jax(metric, monkeypatch):
     assert t._packed is not None and t._packed.shape[1] == 128
     overlaps = [len(set(a) & set(b)) / 10 for a, b in zip(t_ids, j_ids)]
     assert min(overlaps) >= 0.9 and np.mean(overlaps) >= 0.98, overlaps
+
+
+def test_host_assignment_matches_jax():
+    """The JAX package's ``host`` is a plain attribute. A port index made in
+    the JAX shape with no codes, then given the JAX index's host, lays
+    itself out from it at its first search and returns the JAX index's ids
+    and scores (f32, exact selection). A later assignment leaves the built
+    layout alone, as the JAX attribute does."""
+    data = _data()[:400]
+    j = jr.BruteForceRabitqIndex.train(data, total_bits=7, seed=3, scan_dtype="f32")
+    rotator = deserialize_rotator(j.dim, j.padded_dim, tr.RotatorType(int(
+        j.rotator.rotator_type)), j.rotator.serialize())
+    t = tr.BruteForceRabitqIndex(j.dim, j.padded_dim, tr.Metric.L2, rotator, j.ex_bits,
+                                 None, "f32", device="cpu")
+    assert len(t) == 0
+    t.host = tbf.BruteForceHost(**{f.name: np.array(getattr(j.host, f.name))
+                                   for f in dataclasses.fields(j.host)})
+    assert len(t) == len(j) == 400 and t._layout is None
+    queries = data[:16] + 0.1
+    j_ids, j_s = _hits(j.batch_search(queries, jr.BruteForceSearchParams(top_k=10)))
+    t_ids, t_s = _hits(t.batch_search(queries, tr.BruteForceSearchParams(top_k=10)))
+    assert t_ids == j_ids
+    np.testing.assert_allclose(t_s, j_s, rtol=1e-5, atol=1e-3)
+    layout = t.layout
+    t.host = dataclasses.replace(t.host, vl=t.host.vl * 2)
+    assert t.layout is layout
 
 
 def test_input_errors():

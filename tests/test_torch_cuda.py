@@ -597,7 +597,7 @@ def test_upload_of_a_tensor_on_the_card_is_the_tensor(cuda):
 
     x = torch.randn((1 << 20, 160), device=cuda)  # 640 MB: "auto" would send bf16
     for device in ("cuda", cuda, torch.device("cuda", torch.cuda.current_device())):
-        out, report = upload_dataset(x, "auto", device)
+        out, report = upload_dataset(x, "auto", device=device)
         assert out.data_ptr() == x.data_ptr() and report["encoding"] == "resident"
 
 
@@ -958,3 +958,81 @@ def test_launch_counters_count_replays(cuda):
     card.batch_search_arrays_pipelined(queries, params, batch_size=32)
     assert [a - b for a, b in zip(scan._read_launches(), after_first)] == [
         4 * n for n in per_replay]
+
+
+def test_jax_shaped_index_on_the_card_matches_the_cpu(cuda):
+    """``IvfRabitqIndex(dim, padded_dim, metric, rotator, ex_bits, host)``,
+    the JAX package's shape, on the card over a CPU index's host codes:
+    laid out at its first search, through the FHT and the bin-scan kernels,
+    with ids and distances equal to the same codes carried by
+    ``from_host_arrays`` and top-10 lists as the CPU index's (>= 98%)."""
+    data, cpu, card = _cpu_and_card_indexes(cuda)
+    made = IvfRabitqIndex(cpu.dim, cpu.padded_dim, cpu.metric, cpu.rotator, cpu.ex_bits,
+                          cpu.host, "fused8", device=cuda)
+    assert made._layout is None and made.device.type == "cuda"
+    before = (fht_kernel.launches,
+              fs.fused_bin_scan_cuda.dense_launches + fs.fused_bin_scan_cuda.compact_launches)
+    for nprobe in (2, 40):
+        params = SearchParams(top_k=10, nprobe=nprobe)
+        m_ids, m_d = made.batch_search_arrays_pipelined(data[:64], params, batch_size=32)
+        k_ids, k_d = card.batch_search_arrays_pipelined(data[:64], params, batch_size=32)
+        c_ids, _ = cpu.batch_search_arrays(data[:64], params)
+        np.testing.assert_array_equal(m_ids, k_ids)
+        np.testing.assert_array_equal(m_d, k_d)
+        assert np.mean([len(set(m_ids[i]) & set(c_ids[i])) / 10 for i in range(64)]) >= 0.98
+    after = (fht_kernel.launches,
+             fs.fused_bin_scan_cuda.dense_launches + fs.fused_bin_scan_cuda.compact_launches)
+    assert after[0] > before[0] and after[1] > before[1]
+
+
+def test_mstg_build_steps_take_host_rows_on_the_card(cuda):
+    """``hierarchical_cluster`` and ``closure_assign`` given host rows (the
+    JAX package's shape) on the card: the lists equal those of the same
+    call with the rows on the card. Both run with deterministic CUDA
+    reductions (``index_add_`` without float atomics), so that the two
+    calls do the same sums in the same order."""
+    from rabitq_tpu_torch.index.mstg.closure import closure_assign
+    from rabitq_tpu_torch.index.mstg.clustering import hierarchical_cluster
+
+    data = _bridged_rows()
+    rows = torch.from_numpy(data).to(cuda)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        host = hierarchical_cluster(data, 200, 8, 1.0, 25, 3, None, 4)
+        on_card = hierarchical_cluster(data, 200, 8, 1.0, 25, 3, rows, 4)
+        tensor = hierarchical_cluster(rows, 200, 8, seed=3, refine_iters=4)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for got in (host, on_card):
+        assert len(got.members) == len(tensor.members) > 1
+        for a, b in zip(got.members, tensor.members):
+            np.testing.assert_array_equal(a, b)
+    lists = [closure_assign(data, tensor.centroids, 0.9, 8),
+             closure_assign(data, tensor.centroids, 0.9, 8, 8192, rows),
+             closure_assign(rows, tensor.centroids, 0.9, 8)]
+    assert sum(m.size for m in lists[0]) > data.shape[0]  # the bridges replicate
+    for got in lists[:2]:
+        for a, b in zip(got, lists[2]):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_brute_force_on_the_card_after_a_host_assignment(cuda):
+    """A brute-force index made on the card without codes and given a CPU
+    index's host (the JAX package assigns the attribute) lays itself out at
+    its first search and serves ``packed`` through the lower-bound kernel:
+    top-10 lists as the CPU index's (>= 98%)."""
+    from rabitq_tpu_torch import BruteForceRabitqIndex, BruteForceSearchParams
+
+    data = _bridged_rows()
+    cpu = BruteForceRabitqIndex.train(data, total_bits=7, seed=3, use_faster_config=True,
+                                      scan_dtype="packed", device="cpu")
+    card = BruteForceRabitqIndex(cpu.dim, cpu.padded_dim, cpu.metric, cpu.rotator, cpu.ex_bits,
+                                 None, "packed", device=cuda)
+    card.host = cpu.host
+    assert len(card) == len(cpu) and card._layout is None
+    before = ps.packed_lb_plane_cuda.launches
+    params = BruteForceSearchParams(top_k=10)
+    g = [[h.id for h in row] for row in card.batch_search(data[:64] + 0.01, params)]
+    c = [[h.id for h in row] for row in cpu.batch_search(data[:64] + 0.01, params)]
+    assert ps.packed_lb_plane_cuda.launches > before
+    assert np.mean([len(set(a) & set(b)) / 10 for a, b in zip(g, c)]) >= 0.98

@@ -81,6 +81,25 @@ def test_entry_points_refuse_a_missing_card():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(["info", "--index", str(ROOT / "tests" / "golden" / "tiny_ivf.rbq")])
     on_cpu = IvfRabitqIndex.train(data, nlist=4, total_bits=7, device="cpu")
+    # the JAX package's call shapes, which name no device
+    from rabitq_tpu_torch.index.layout import assemble_device_layout
+    from rabitq_tpu_torch.ops.quantize import compute_const_scaling_factor
+    from rabitq_tpu_torch.utils.transfer import upload_dataset
+
+    h = on_cpu.host
+    for make in (
+        lambda: upload_dataset(data),
+        lambda: assemble_device_layout(
+            n=600, ex_bits=6, binary=h.binary_bits, ex=h.ex_codes, f_add=h.f_add,
+            f_rescale=h.f_rescale, f_add_ex=h.f_add_ex, f_rescale_ex=h.f_rescale_ex,
+            f_error=h.f_error, cluster_sizes=np.diff(h.cluster_offsets), ids=h.ids,
+            centroids=h.centroids),
+        lambda: compute_const_scaling_factor(128, 6, 42),
+        lambda: IvfRabitqIndex(on_cpu.dim, on_cpu.padded_dim, on_cpu.metric, on_cpu.rotator,
+                               on_cpu.ex_bits, h),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
     on_cpu.device = torch.device("cuda")  # as if trained on a card that is gone
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         StreamedIvfIndex(on_cpu, chunk_rows=256)

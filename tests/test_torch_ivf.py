@@ -5,10 +5,15 @@ port with ``from_host_arrays``; both then search the same codes.
 Tolerances: per query the top-10 overlap is >= 9/10 and the mean >= 0.98;
 distances of common ids agree to rtol 1e-3 (the f32 dot sums in another
 order). Then an index built by the port alone must clear the recall bar
-``tests/test_fused_exact.py`` sets against its naive-scan oracle.
+``tests/test_fused_exact.py`` sets against its naive-scan oracle. An index
+made in the JAX package's shape, ``IvfRabitqIndex(..., ex_bits, host)``,
+serves as the JAX index made the same way (ids equal on the f32 oracle
+configuration).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -16,7 +21,9 @@ import torch
 
 import rabitq_tpu as jr
 import rabitq_tpu_torch as tr
+from rabitq_tpu_torch.index.ivf import HostCodes
 from rabitq_tpu_torch.index.scan import ex_plane_is_total
+from rabitq_tpu_torch.ops.rotation import deserialize_rotator
 
 N, DIM, NLIST = 3000, 128, 48
 PARAMS = (10, 6)  # top_k, nprobe
@@ -158,6 +165,56 @@ def _port_naive(index, data, query, top_k, nprobe):
         out += list(zip(lay.ids.numpy()[s:e].tolist(), dist.tolist()))
     out.sort(key=lambda t: t[1])
     return out[:top_k]
+
+
+def _jax_shaped(jidx, scan_dtype) -> tr.IvfRabitqIndex:
+    """The port's index made as the JAX package makes one over codes it
+    already holds (``io/persistence.py``, ``parallel/sharding.py``):
+    ``IvfRabitqIndex(dim, padded_dim, metric, rotator, ex_bits, host,
+    scan_dtype)``, the JAX index's ``HostCodes`` carried across as numpy."""
+    h = jidx.host
+    host = HostCodes(**{f.name: np.array(getattr(h, f.name)) for f in dataclasses.fields(h)})
+    rotator = deserialize_rotator(
+        jidx.dim, jidx.padded_dim, tr.RotatorType(int(jidx.rotator.rotator_type)),
+        jidx.rotator.serialize())
+    return tr.IvfRabitqIndex(
+        jidx.dim, jidx.padded_dim, tr.Metric.from_str(jidx.metric.value), rotator,
+        jidx.ex_bits, host, scan_dtype, device="cpu")
+
+
+def test_jax_shaped_constructor_serves_the_host_codes(pair):
+    """The carried-state configuration (7 bits, fused8): an index made over
+    the JAX index's host codes lays itself out at its first search and
+    serves as the JAX index made the same way does (the tolerance above),
+    with ids and distances equal to the carried index's."""
+    data, jidx, tidx = pair
+    made = _jax_shaped(jidx, "fused8")
+    assert made._layout is None and len(made) == len(jidx)
+    assert made.cluster_count() == jidx.cluster_count()
+    jmade = jr.IvfRabitqIndex(jidx.dim, jidx.padded_dim, jidx.metric, jidx.rotator,
+                              jidx.ex_bits, jidx.host, "fused8")
+    params = (jr.SearchParams(*PARAMS), tr.SearchParams(*PARAMS))
+    j_ids, j_d = jmade.batch_search_arrays(data[:24], params[0])
+    t_ids, t_d = made.batch_search_arrays(data[:24], params[1])
+    assert made.layout is not None and made.host is made._host
+    _agree(j_ids, j_d, t_ids, t_d)
+    c_ids, c_d = tidx.batch_search_arrays(data[:24], params[1])
+    np.testing.assert_array_equal(t_ids, c_ids)
+    np.testing.assert_array_equal(t_d, c_d)
+
+
+def test_jax_shaped_constructor_f32_oracle():
+    """The f32 oracle configuration (exact selection): ids equal to the JAX
+    index's, distances to rtol 1e-5 (f32 sums in another order)."""
+    data = _data()[:800, :64]
+    jidx = jr.IvfRabitqIndex.train(data, nlist=8, total_bits=7, seed=3, scan_dtype="f32")
+    made = _jax_shaped(jidx, "f32")
+    assert not made.approx_topk
+    params = (jr.SearchParams(10, 4), tr.SearchParams(10, 4))
+    j_ids, j_d = jidx.batch_search_arrays(data[:32] + 0.05, params[0])
+    t_ids, t_d = made.batch_search_arrays(data[:32] + 0.05, params[1])
+    np.testing.assert_array_equal(t_ids, j_ids)
+    np.testing.assert_allclose(t_d, j_d, rtol=1e-5, atol=1e-4)
 
 
 def test_port_alone_matches_naive_oracle():

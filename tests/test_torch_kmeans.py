@@ -69,3 +69,21 @@ def test_run_kmeans_objective_matches_jax():
     assert tk._init_rows_cap(4096, 1_000_000) == jk._init_rows_cap(4096, 1_000_000)
     assert tk.auto_assign_dtype(1_000_000, 960) == jk.auto_assign_dtype(1_000_000, 960) == "bf16"
     assert tk._block_size(4096) == jk._block_size(4096)
+
+
+def test_run_kmeans_takes_data_dev_in_the_jax_shape():
+    """``data_dev`` at the JAX package's position 7: the rows already on
+    the device are what k-means runs on (``data`` is not read), the same
+    result as those rows passed as ``data``; ``n_valid`` after it."""
+    data, _ = _blobs(4, n=1500, k=8)
+    rows = torch.from_numpy(data)
+    want = tk.run_kmeans(rows, 8, niter=10, seed=3)
+    for got in (tk.run_kmeans(data, 8, 10, 3, 1, False, 256, rows),
+                tk.run_kmeans(None, 8, niter=10, seed=3, data_dev=rows)):
+        np.testing.assert_array_equal(got.centroids.numpy(), want.centroids.numpy())
+        np.testing.assert_array_equal(got.assignments, want.assignments)
+        assert got.objective == want.objective
+    part = tk.run_kmeans(data, 8, 10, 3, 1, False, 256, rows, 1000)
+    assert part.assignments.shape == (1000,)
+    j = jk.run_kmeans(data, 8, 10, 3, 1, False, 256, jnp.asarray(data), 1000)
+    assert np.asarray(j.assignments).shape == part.assignments.shape

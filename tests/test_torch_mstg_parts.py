@@ -3,9 +3,13 @@ package's on the same inputs: centroid scalar quantization (byte-equal),
 the group-restricted assignment (equal), one polish step (assignments equal,
 centroids atol 1e-5), closure assignment (member lists equal), the rebalance
 (equal moves) and, since the split k-means seeds differ, the whole
-hierarchical clustering by its invariants and objective (within 3%)."""
+hierarchical clustering by its invariants and objective (within 3%). Then
+the JAX package's call shapes: clustering and closure given host rows and
+``data_dev``, and the ``MstgIndex.host`` setter."""
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -15,11 +19,13 @@ import jax.numpy as jnp
 
 from rabitq_tpu.index.mstg import clustering as jcl
 from rabitq_tpu.index.mstg import closure as jclo
+from rabitq_tpu.index.mstg import index as jmi
 from rabitq_tpu.index.mstg import scalar_quant as jsq
 from rabitq_tpu.index.mstg.config import ScalarPrecision as JPrec
 from rabitq_tpu.ops import kmeans as jk
 from rabitq_tpu_torch.index.mstg import clustering as tcl
 from rabitq_tpu_torch.index.mstg import closure as tclo
+from rabitq_tpu_torch.index.mstg import index as tmi
 from rabitq_tpu_torch.index.mstg import scalar_quant as tsq
 from rabitq_tpu_torch.index import scan as tscan
 from rabitq_tpu_torch.index.mstg.config import ScalarPrecision as TPrec
@@ -178,3 +184,68 @@ def test_hierarchical_cluster_against_jax(refine_iters):
     assert len(t.members) == pytest.approx(len(j.members), rel=0.25)
     empty = tcl.hierarchical_cluster(torch.zeros((0, 8)), 10, 4)
     assert empty.members == [] and empty.centroids.shape == (0, 8)
+
+
+def test_closure_assign_takes_host_rows_in_the_jax_shape():
+    """Host rows, and the JAX package's ``data_dev`` in its position: the
+    same lists as the rows given as a tensor, and as the JAX function's."""
+    data, cents = _bridged(n_bridge=120, per=100)
+    j = jclo.closure_assign(data, cents, 0.9, 4, 256, jnp.asarray(data))
+    host = tclo.closure_assign(data, cents, 0.9, 4, 256, device="cpu")
+    on_dev = tclo.closure_assign(data, cents, 0.9, 4, 256, torch.from_numpy(data))
+    tensor = tclo.closure_assign(torch.from_numpy(data), cents, 0.9, 4, 256)
+    for lists in (host, on_dev):
+        assert len(lists) == len(tensor) == len(j)
+        for a, b, c in zip(lists, tensor, j):
+            np.testing.assert_array_equal(a, b)
+            np.testing.assert_array_equal(a, c)
+
+
+def test_hierarchical_cluster_takes_host_rows_in_the_jax_shape():
+    """Host rows, and ``data_dev`` at the JAX package's position 6: the
+    same clusters as the rows given as a tensor; against the JAX function's
+    as the whole clustering is held above (objective within 3%)."""
+    data = _blobs(1200, 32, centers=10, sigma=0.8)
+    args = (data, 150, 4, 1.0, 25, 5)
+    j = jcl.hierarchical_cluster(*args, None, 2)
+    host = tcl.hierarchical_cluster(*args, None, 2, device="cpu")
+    on_dev = tcl.hierarchical_cluster(*args, torch.from_numpy(data), 2)
+    tensor = tcl.hierarchical_cluster(torch.from_numpy(data), *args[1:], refine_iters=2)
+    for got in (host, on_dev):
+        assert len(got.members) == len(tensor.members)
+        for a, b in zip(got.members, tensor.members):
+            np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(got.centroids, tensor.centroids)
+    assert _objective(data, host.members) == pytest.approx(_objective(data, j.members), rel=0.03)
+
+
+def test_mstg_host_setter_matches_jax():
+    """The same host assigned to both packages' indexes: ``len``, the host
+    ids and list offsets and the directory equal, and a layout already
+    built stays (as the JAX setter leaves it). Then lists of another index:
+    the port's ``len``, directory and replica test follow them (the JAX
+    package's directory keeps its first lists)."""
+    j = jmi.MstgIndex.build(_blobs(500, 32, seed=4),
+                            jmi.MstgConfig(max_posting_size=64, faster_config=True), seed=4,
+                            scan_dtype="f32")
+    h = j.host
+    host = tmi.MstgHost(**{f.name: None if getattr(h, f.name) is None else np.array(getattr(h, f.name))
+                           for f in dataclasses.fields(h)})
+    t = tmi.MstgIndex(tmi.MstgConfig(max_posting_size=64, faster_config=True), j.dim, host,
+                      "f32", device="cpu")
+    layout = t.layout
+    new_j = dataclasses.replace(j.host, ids=np.asarray(j.host.ids) * 3 + 2)
+    new_t = dataclasses.replace(t.host, ids=np.asarray(t.host.ids) * 3 + 2)
+    j.host, t.host = new_j, new_t
+    assert len(t) == len(j) == 3 * 499 + 3 and t.total_rows == j.total_rows
+    np.testing.assert_array_equal(t.host.ids, j.host.ids)
+    np.testing.assert_array_equal(t.host.list_offsets, j.host.list_offsets)
+    assert [dataclasses.astuple(e) for e in t.directory.entries] == [
+        dataclasses.astuple(e) for e in j.directory.entries]
+    assert t.layout is layout and not t._has_replicas()
+    other = tmi.MstgIndex.build(
+        _bridged(per=40, n_bridge=60)[0][:, :32],
+        tmi.MstgConfig(max_posting_size=32, closure_epsilon=0.9), seed=1, device="cpu")
+    t.host = other.host
+    assert len(t) == len(other) and t.posting_list_count() == other.posting_list_count()
+    assert t.directory == other.directory and t._has_replicas() and other._has_replicas()

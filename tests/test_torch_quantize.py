@@ -89,7 +89,7 @@ def _objective(o, t, ex_bits):
 
 
 def test_rescale_factors_match_jax():
-    assert tq.compute_const_scaling_factor(128, 6, 42) == pytest.approx(
+    assert tq.compute_const_scaling_factor(128, 6, 42, device="cpu") == pytest.approx(
         jq.compute_const_scaling_factor(128, 6, 42), rel=1e-3
     )
     o = np.abs(np.random.default_rng(3).standard_normal((50, 64)))

@@ -99,6 +99,32 @@ def test_assemble_host_chunks_matches_jax(jax_index, fused, total_bits):
             np.testing.assert_array_equal(g[key], np.asarray(w[key]), err_msg=key)
 
 
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("zero_f_error,row_pad", [(True, 128), (False, 256), (True, 64)])
+def test_assemble_host_chunks_keywords_match_jax(jax_index, zero_f_error, row_pad, fused):
+    """The JAX package's ``zero_f_error`` and ``row_pad`` keywords: the same
+    slabs (``fused=True`` pads to the bin kernels' row tiles whatever
+    ``row_pad`` says, as in the JAX package)."""
+    _, get = jax_index
+    h = get(7, "l2").host
+    kw = dict(
+        n=N, ex_bits=6, binary=h.binary_bits, ex=h.ex_codes, f_add=h.f_add,
+        f_rescale=h.f_rescale, f_error=h.f_error, f_add_ex=h.f_add_ex,
+        f_rescale_ex=h.f_rescale_ex, cluster_sizes=np.diff(h.cluster_offsets), ids=h.ids,
+        chunk_rows=900, zero_f_error=zero_f_error, row_pad=row_pad, fused=fused,
+    )
+    want = jlayout.assemble_host_chunks(**kw)
+    got = tlayout.assemble_host_chunks(**kw)
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        assert sorted(g) == sorted(w)
+        assert g["valid"].shape[0] % (tlayout.TN if fused else row_pad) == 0
+        assert (g["f_error"] == 0).all() == zero_f_error
+        for key in w:
+            assert g[key].dtype == np.asarray(w[key]).dtype, key
+            np.testing.assert_array_equal(g[key], np.asarray(w[key]), err_msg=key)
+
+
 @pytest.mark.parametrize("metric", ["l2", "ip"])
 @pytest.mark.parametrize("scan_dtype", SCAN_DTYPES)
 def test_streamed_search_matches_jax(jax_index, scan_dtype, metric):

@@ -6,6 +6,8 @@ those values."""
 
 from __future__ import annotations
 
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -25,13 +27,30 @@ def _rows(n=1500, dim=48, seed=5):
 def test_upload_decodes_as_jax(encoding):
     data = _rows()
     j_dev, j_rep = jt.upload_dataset(data, encoding, chunk_rows=512)
-    t_dev, t_rep = tt.upload_dataset(data, encoding, "cpu", chunk_rows=512)
+    t_dev, t_rep = tt.upload_dataset(data, encoding, chunk_rows=512, device="cpu")
     assert t_dev.dtype == torch.float32 and t_dev.shape == data.shape
     np.testing.assert_array_equal(t_dev.numpy(), np.asarray(j_dev))
     assert set(t_rep) == set(j_rep)
     assert t_rep["encoding"] == j_rep["encoding"] and t_rep["bytes"] == j_rep["bytes"]
     if encoding in ("auto", "f32"):
         np.testing.assert_array_equal(t_dev.numpy(), data)
+
+
+def test_upload_in_the_jax_shape():
+    """``upload_dataset(data, encoding, chunk_rows)``, positionally as the
+    JAX package takes it: the chunk size lands in ``chunk_rows``, the rows
+    decode as the JAX package's, on the device asked for (the card where
+    none is named)."""
+    data = _rows(700, 16)
+    j_dev, j_rep = jt.upload_dataset(data, "int8", 256)
+    t_dev, t_rep = tt.upload_dataset(data, "int8", 256, device="cpu")
+    assert t_dev.device == torch.device("cpu")
+    np.testing.assert_array_equal(t_dev.numpy(), np.asarray(j_dev))
+    assert t_rep["bytes"] == j_rep["bytes"] == 700 * 16
+    params = inspect.signature(tt.upload_dataset).parameters
+    assert list(params)[:3] == list(inspect.signature(jt.upload_dataset).parameters)
+    assert params["device"].kind is inspect.Parameter.KEYWORD_ONLY
+    assert params["device"].default is None
 
 
 def test_resolve_encoding_matches_jax():
@@ -48,9 +67,9 @@ def test_resolve_encoding_matches_jax():
 
 def test_resident_tensor_is_used_as_is():
     t = torch.from_numpy(_rows(64))
-    out, rep = tt.upload_dataset(t, "int8", "cpu")
+    out, rep = tt.upload_dataset(t, "int8", device="cpu")
     assert out.data_ptr() == t.data_ptr() and rep["bytes"] == 0 and rep["encoding"] == "resident"
-    empty, rep = tt.upload_dataset(np.zeros((0, 8), np.float32), "bf16", "cpu")
+    empty, rep = tt.upload_dataset(np.zeros((0, 8), np.float32), "bf16", device="cpu")
     assert empty.shape == (0, 8) and rep["bytes"] == 0
 
 
