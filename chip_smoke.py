@@ -147,8 +147,29 @@ run (``phase seconds: JAX-shaped calls``):
      hierarchical_cluster and closure_assign given the rows as a host array,
      their lists equal to those of the device-tensor calls MstgIndex.build
      makes; then index.host = index.host, len unchanged and ef 8 ids equal.
-  The k-means and clustering pairs run with deterministic CUDA reductions,
-  so that both calls of a pair do the same sums in the same order.
+  The k-means and clustering pairs agree without any deterministic switch:
+  every segment sum adds in one fixed order.
+The reproducible builds: one seed gives one index, each build run a second
+time while its first index is alive and freed before the next phase
+(``phase seconds: reproducible builds``):
+  IVF (after the RBQ1 round trip): the segment-sum kernel at the k-means
+     shape (the 1M rows into 4097 segments by the 7-bit index's lists)
+     against its plain version (CPU index_add_, ascending row order),
+     bitwise, timed beside index_add_ on the card and the bound; the
+     running-sum kernel at the k-means++ init's shape (262,144 weights)
+     against its plain version, bitwise, beside a 1-D torch.cumsum on the
+     card (and how often that one's bits vary) and the bound; then the
+     7-bit headline train again: every host array bitwise equal, its RBQ1
+     file byte-identical to the persistence phase's, nprobe 16 ids and
+     distances equal, both trains' seconds by phase;
+  picks: a k-means++ init on the card and on the CPU from one key on
+     integer-valued rows (4096 x 32 in [-4, 4], k 64): the same rows;
+  MSTG (on the headline index, after its JAX-shaped calls): the segment sum
+     at the polish shape, then the headline build again: the same list
+     count, every list's members and every host array bitwise equal, both
+     builds' seconds by phase;
+  sharded train (after the first one): ShardedIvfIndex.train again,
+     centroids and row ids bitwise equal.
 Every search of the IVF, brute-force and MSTG indexes goes through the
 index's fused search (rabitq_tpu_torch.index.scan.make_fused_search): on the
 card one CUDA graph replay a dispatch, captured at a key's first call, with
@@ -178,7 +199,6 @@ Usage: python3 chip_smoke.py (no arguments; one card).
 
 from __future__ import annotations
 
-import contextlib
 import itertools
 import json
 import math
@@ -808,6 +828,7 @@ def zero_launches():
     """Set every kernel's launch counter to 0."""
     from rabitq_tpu_torch.ops.fht import fht_kernel
     from rabitq_tpu_torch.ops.fused_scan import fused_bin_scan_cuda, fused_bin_scan_packed_cuda
+    from rabitq_tpu_torch.ops.kmeans import running_sum_kernel, segment_sum_kernel
     from rabitq_tpu_torch.ops.packed_scan import packed_lb_plane_cuda, packed_lb_scan_cuda
 
     fht_kernel.launches = 0
@@ -815,6 +836,7 @@ def zero_launches():
     for key in fused_bin_scan_packed_cuda.launches:
         fused_bin_scan_packed_cuda.launches[key] = 0
     packed_lb_scan_cuda.launches = packed_lb_plane_cuda.launches = 0
+    segment_sum_kernel.launches = running_sum_kernel.launches = 0
 
 
 def read_launches(path, needed):
@@ -822,9 +844,11 @@ def read_launches(path, needed):
     ``needed`` never ran on it."""
     from rabitq_tpu_torch.ops.fht import fht_kernel
     from rabitq_tpu_torch.ops.fused_scan import fused_bin_scan_cuda, fused_bin_scan_packed_cuda
+    from rabitq_tpu_torch.ops.kmeans import running_sum_kernel, segment_sum_kernel
     from rabitq_tpu_torch.ops.packed_scan import packed_lb_plane_cuda
 
-    counts = {"fht": fht_kernel.launches,
+    counts = {"fht": fht_kernel.launches, "segment_sum": segment_sum_kernel.launches,
+              "running_sum": running_sum_kernel.launches,
               "fused_bin_scan_dense": fused_bin_scan_cuda.dense_launches,
               "fused_bin_scan_compact": fused_bin_scan_cuda.compact_launches,
               "fused_bin_scan": fused_bin_scan_cuda.dense_launches
@@ -845,7 +869,7 @@ def check_persistence(index, queries_np, data):
     scan with ids and distances equal to the index's before the save, and
     fetch_embedding of a few ids against the raw rows. The files go to a
     temporary directory inside the checkout and are deleted. Returns (the
-    reload's launches, load_index's seconds)."""
+    reload's launches, load_index's seconds, the file's sha256)."""
     import tempfile
 
     import numpy as np
@@ -862,7 +886,8 @@ def check_persistence(index, queries_np, data):
         index.save_to_path(path)
         save_s = time.perf_counter() - t0
         index.save_to_path(again)
-        identical = file_digest(path) == file_digest(again)
+        digest = file_digest(path)
+        identical = digest == file_digest(again)
         size = os.path.getsize(path)
         os.remove(again)
         t0 = time.perf_counter()
@@ -891,7 +916,7 @@ def check_persistence(index, queries_np, data):
         f"{', '.join(f'{e:.4f}' for e in errs)}")
     if max(errs) > 0.05:
         raise AssertionError(f"fetch_embedding off by {max(errs):.4f} of the row's norm")
-    return launches, load_s
+    return launches, load_s, digest
 
 
 def check_resident(index, queries_np):
@@ -1026,20 +1051,6 @@ def log_pool(label, index):
         f"{st['replays']} replays")
 
 
-@contextlib.contextmanager
-def deterministic_reductions():
-    """CUDA reductions without float atomics (``index_add_`` sorts its
-    indices first) while two calls that must agree bitwise run, so that
-    both do the same sums in the same order."""
-    import torch
-
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        yield
-    finally:
-        torch.use_deterministic_algorithms(False)
-
-
 def require_equal(what, got, want):
     """Fails unless the arrays are equal, naming how many entries differ
     and the largest difference."""
@@ -1055,6 +1066,262 @@ def require_equal(what, got, want):
                          f"largest difference {np.nanmax(diff):.6g}")
 
 
+def require_bitwise(what, got, want):
+    """Fails unless the arrays have one dtype and shape and the same bytes
+    (so -0.0 is not 0.0), naming how many entries differ."""
+    import numpy as np
+
+    got, want = np.ascontiguousarray(got), np.ascontiguousarray(want)
+    if got.dtype != want.dtype:
+        raise AssertionError(f"{what}: dtype {got.dtype}, expected {want.dtype}")
+    require_equal(what, got, want)
+    if got.tobytes() != want.tobytes():
+        raise AssertionError(f"{what}: equal values with other bits (signed zeros)")
+
+
+# seconds of each part of the reproducible-builds phase, which runs on each
+# index while it is alive
+REPRO_S: dict = {}
+
+
+def segment_ids_of_lists(ids, offsets, n_rows):
+    """[n_rows] int64: the list of each row, from an index's row ids in list
+    order and its list offsets (-1 for a row in no list)."""
+    import numpy as np
+
+    seg = np.full(n_rows, -1, np.int64)
+    seg[np.asarray(ids)] = np.repeat(np.arange(len(offsets) - 1), np.diff(offsets))
+    return seg
+
+
+def check_segment_sum(data, seg_np, segments, label):
+    """The segment-sum kernel at one of the build's shapes: the rows
+    ``data`` [N, D] f32 on the card into ``segments`` segments by
+    ``seg_np``. Its sums against the plain version (CPU ``index_add_``,
+    ascending row order) on the same inputs, bitwise; device times (CUDA
+    events, mean of 5 after a warm-up) of the wrapper (stable sort of the
+    ids, segment offsets, kernel) and of its sort alone, beside
+    ``index_add_`` on the card (the library yardstick: float atomics, which
+    the port never calls) and the bound (rows and ids read once, sums
+    written once, over HBM); the plain version's host time. The check's
+    launches count on no path. Returns the kernel-line numbers."""
+    import numpy as np
+    import torch
+    from rabitq_tpu_torch.ops.kmeans import segment_sum_kernel, segment_sum_plain
+
+    n, d = data.shape
+    ids = torch.from_numpy(seg_np).to(data.device)
+    before = segment_sum_kernel.launches
+    got, counts = segment_sum_kernel(data, ids, segments)
+    ms = cuda_ms(lambda: segment_sum_kernel(data, ids, segments), 5)
+    sort_ms = cuda_ms(lambda: torch.sort(ids, stable=True), 5)
+
+    def library():
+        return torch.zeros((segments, d), device=data.device).index_add_(0, ids, data)
+
+    lib = library().cpu()
+    library_ms = cuda_ms(library, 5)
+    segment_sum_kernel.launches = before
+    rows_cpu, ids_cpu = data.cpu(), ids.cpu()
+    t0 = time.perf_counter()
+    want = segment_sum_plain(rows_cpu, ids_cpu, segments)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got = got.cpu()
+    err = float((got.double() - want.double()).abs().max())
+    lib_diff = int((lib != want).sum())
+    counts = counts.cpu().numpy()
+    bound_ms = (n * d * 4 + n * 8 + segments * d * 4) / HBM_BYTES_PER_S * 1e3
+    log(f"segment sum, {label}: [{n}, {d}] f32 rows into {segments} segments (rows a segment "
+        f"max {counts.max()}, median {np.median(counts):.0f}, {int((counts == 0).sum())} empty): "
+        f"the card's sums equal the CPU form's bitwise {torch.equal(got, want)} (max |diff| "
+        f"{err:.3g}); wrapper {ms:.3f} ms (its stable sort of the ids {sort_ms:.3f} ms), "
+        f"index_add_ on the card {library_ms:.3f} ms ({lib_diff} of {want.numel()} sums differ "
+        f"from the fixed order's), bound {bound_ms:.3f} ms (bytes); the plain version (CPU "
+        f"index_add_, host clock) {plain_ms:.1f} ms")
+    require_bitwise(f"segment sum, {label}", got.numpy(), want.numpy())
+    del rows_cpu, ids_cpu
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": library_ms}
+
+
+def check_running_sum(data):
+    """The running-sum kernel at the k-means++ init's shape on the main
+    path: the weights of one init step (the squared distances of the
+    init's 262,144 rows to row 0). Its sums against the plain version (CPU,
+    the same chunks and order), bitwise; device time (CUDA events, mean of
+    20 after a warm-up) beside a 1-D ``torch.cumsum`` on the card (the
+    library yardstick, which the port never calls: how many of 20 of its
+    runs differ from its first is printed) and the bound (weights read
+    once, sums written once, over HBM); the plain version's host time. The
+    check's launches count on no path. Returns the kernel-line numbers."""
+    import torch
+    from rabitq_tpu_torch.ops.kmeans import (
+        _init_rows_cap,
+        running_sum_kernel,
+        running_sum_plain,
+    )
+
+    n = _init_rows_cap(NLIST, data.shape[0])
+    w = torch.sum((data[:n] - data[0]) ** 2, dim=1)
+    before = running_sum_kernel.launches
+    got = running_sum_kernel(w)
+    ms = cuda_ms(lambda: running_sum_kernel(w), 20)
+    running_sum_kernel.launches = before
+    library_ms = cuda_ms(lambda: torch.cumsum(w, 0), 20)
+    first = torch.cumsum(w, 0)
+    varies = sum(not torch.equal(torch.cumsum(w, 0), first) for _ in range(20))
+    w_cpu = w.cpu()
+    t0 = time.perf_counter()
+    want = running_sum_plain(w_cpu)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got = got.cpu()
+    err = float((got.double() - want.double()).abs().max())
+    bound_ms = 2 * n * 4 / HBM_BYTES_PER_S * 1e3
+    log(f"running sum, the k-means++ init's shape: {n} f32 weights: the card's sums equal the "
+        f"CPU form's bitwise {torch.equal(got, want)} (max |diff| {err:.3g}); kernel {ms:.4f} "
+        f"ms, 1-D torch.cumsum on the card {library_ms:.4f} ms ({varies} of 20 of its runs "
+        f"differ from its first), bound {bound_ms:.5f} ms (bytes); the plain version (CPU, "
+        f"host clock) {plain_ms:.2f} ms")
+    require_bitwise("running sum", got.numpy(), want.numpy())
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": library_ms}
+
+
+def check_kmeanspp_picks():
+    """A k-means++ init on the card and on the CPU from one key, on
+    integer-valued rows that keep every distance and running sum exact in
+    f32 (4096 x 32, coordinates in [-4, 4], k = 64, TF32 off as by
+    default): the picked rows must be equal. Two seeds."""
+    import numpy as np
+    import torch
+    from rabitq_tpu_torch.ops.kmeans import _kmeanspp_init
+    from rabitq_tpu_torch.ops.prng import PRNGKey
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 products are on: the picks' sums would not be exact")
+    t0 = time.perf_counter()
+    for seed in (0, 42):
+        rows = np.random.default_rng(seed).integers(-4, 5, (4096, 32)).astype(np.float32)
+        key = PRNGKey(seed * 1_000_003)
+        on_card = _kmeanspp_init(torch.from_numpy(rows).cuda(), key, 64, 4096).cpu().numpy()
+        on_cpu = _kmeanspp_init(torch.from_numpy(rows), key, 64, 4096).numpy()
+        require_bitwise(f"k-means++ picks, seed {seed}: card against CPU", on_card, on_cpu)
+    REPRO_S["picks"] = time.perf_counter() - t0
+    log("reproducible picks: a k-means++ init (4096 x 32 integer rows in [-4, 4], k 64) from "
+        "PRNGKey(seed * 1_000_003), seeds 0 and 42: the card picks the CPU's 64 rows")
+
+
+def check_reproducible_ivf(index, data, queries_np, digest, first):
+    """The 7-bit headline train a second time from the same rows and seed:
+    the segment-sum kernel first at the k-means shape (the rows into
+    NLIST + 1 segments by the index's assignments) and the running-sum
+    kernel at the k-means++ init's, then the train (its
+    path: launch counters zeroed before, read after), every host array
+    bitwise equal to the index's (the centroids among them), its RBQ1 file
+    byte-identical to the persistence phase's (``digest``), and ids and
+    distances at nprobe 16 equal. ``first``: (seconds, build report) of the
+    first train. Returns (launches, segment-sum check, running-sum check)."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from rabitq_tpu_torch import IvfRabitqIndex, Metric, RotatorType
+
+    t_all = time.perf_counter()
+    h = index.host
+    seg = segment_ids_of_lists(h.ids, h.cluster_offsets, data.shape[0])
+    kernel = check_segment_sum(data, seg, NLIST + 1, "k-means shape (the 7-bit index's lists)")
+    scan = check_running_sum(data)
+    zero_launches()
+    t0 = time.perf_counter()
+    again = IvfRabitqIndex.train(
+        data, nlist=NLIST, total_bits=7, metric=Metric.L2,
+        rotator_type=RotatorType.FhtKacRotator, seed=42, use_faster_config=True,
+        scan_dtype="fused8", device=data.device,
+    )
+    torch.cuda.synchronize()
+    again_s = time.perf_counter() - t0
+    launches = read_launches("7-bit train, second run", ("fht", "segment_sum", "running_sum"))
+    h2 = again.host
+    # the k-means result first, so that a failure names the earliest stage
+    names = ["centroids", "cluster_offsets", "ids"]
+    names += [f.name for f in dataclasses.fields(h) if f.name not in names]
+    for name in names:
+        require_bitwise(f"second 7-bit train: host.{name}", getattr(h2, name), getattr(h, name))
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        path = os.path.join(tmp, "again.rbq")
+        again.save_to_path(path)
+        if file_digest(path) != digest:
+            raise AssertionError("second 7-bit train: its RBQ1 file differs from the first's")
+    again.upload_dtype = index.upload_dtype
+    want_ids, want_d = serve(index, queries_np, 16)
+    ids, dists = serve(again, queries_np, 16)
+    require_equal("second 7-bit train: nprobe 16 ids", ids, want_ids)
+    require_equal("second 7-bit train: nprobe 16 distances", dists, want_d)
+    again_report = again.build_report
+    del again, h2
+    torch.cuda.empty_cache()
+    log(f"reproducible IVF: the 7-bit headline train run again: {again_s:.2f} s (report "
+        f"{json.dumps(again_report)}) against the first's {first[0]:.2f} s (report "
+        f"{json.dumps(first[1])}); "
+        f"every host array bitwise equal (centroids, codes, factors, ids, offsets), RBQ1 file "
+        f"byte-identical to the first save (sha256), nprobe 16 ids and distances equal on all "
+        f"{len(queries_np)} queries; launches {launches}")
+    REPRO_S["IVF"] = time.perf_counter() - t_all
+    return launches, kernel, scan
+
+
+def check_reproducible_mstg(index, data, build_s):
+    """The MSTG headline build a second time from the same rows and seed:
+    the segment-sum kernel first at the polish shape (the rows into the
+    padded list count + 1 segments by the headline's lists), then the build
+    (its path: launch counters zeroed before, read after), with the same
+    list count and every host array bitwise equal (each list's members
+    after closure, codes, factors, centroids). Seconds by phase of both
+    builds. Returns (launches, segment-sum check)."""
+    import dataclasses
+
+    import torch
+    from rabitq_tpu_torch import MstgIndex
+    from rabitq_tpu_torch.index.scan import _pad_pow2
+
+    t_all = time.perf_counter()
+    h = index.host
+    seg = segment_ids_of_lists(h.ids, h.list_offsets, data.shape[0])
+    c_pad = _pad_pow2(index.posting_list_count(), floor=8)
+    kernel = check_segment_sum(data, seg, c_pad + 1, "MSTG polish shape (the headline's lists)")
+    zero_launches()
+    t0 = time.perf_counter()
+    again = MstgIndex.build(data, index.config, seed=42, scan_dtype="fused8", device="cuda")
+    torch.cuda.synchronize()
+    again_s = time.perf_counter() - t0
+    launches = read_launches("MSTG headline build, second run", ("fht", "segment_sum", "running_sum"))
+    if again.posting_list_count() != index.posting_list_count():
+        raise AssertionError(f"second MSTG build: {again.posting_list_count()} lists, the first "
+                             f"{index.posting_list_count()}")
+    h2 = again.host
+    names = ["list_offsets", "ids", "centroids"]  # the clustering first
+    names += [f.name for f in dataclasses.fields(h) if f.name not in names]
+    for name in names:
+        a, b = getattr(h2, name), getattr(h, name)
+        if a is None or b is None:
+            if (a is None) != (b is None):
+                raise AssertionError(f"second MSTG build: host.{name} is None on one side")
+            continue
+        require_bitwise(f"second MSTG build: host.{name}", a, b)
+    reports = [index.build_report, again.build_report]
+    del again, h2
+    torch.cuda.empty_cache()
+    phases = [f"clustering {r['clustering_s']} s (levels {r['clustering']['levels_s']}, polish "
+              f"and means {r['clustering']['polish_s']} s), closure {r['closure_s']} s, quantize "
+              f"{r['quantize_s']} s, upload {r['upload_s']} s" for r in reports]
+    log(f"reproducible MSTG: the headline build run again: {again_s:.2f} s ({phases[1]}) against "
+        f"the first's {build_s:.2f} s ({phases[0]}); {index.posting_list_count()} lists in both, "
+        f"every list's members and every host array bitwise equal; launches {launches}")
+    REPRO_S["MSTG"] = time.perf_counter() - t_all
+    return launches, kernel
+
+
 def check_jax_shaped_ivf(index, data, data_np, queries_np, load_s):
     """The JAX package's call shapes on the 7-bit index, its last phase,
     each naming no device (the card is the default). The index made as the
@@ -1066,7 +1333,7 @@ def check_jax_shaped_ivf(index, data, data_np, queries_np, load_s):
     (median of 3, in turns), and K1 against its plain version at nprobe 64
     (dense). Then ``run_kmeans(data_np, NLIST, ..., data_dev=data)`` against
     ``run_kmeans(data, NLIST, ...)`` at the same seed (centroids and
-    assignments equal, both under deterministic reductions);
+    assignments equal: the segment sums add in one fixed order);
     ``upload_dataset(rows, "f32", 262_144)`` (on cuda:0, equal to the rows);
     and ``assemble_host_chunks`` with ``zero_f_error`` and ``row_pad`` given
     (the slabs equal to the streamed tier's, which releases the index's
@@ -1114,17 +1381,15 @@ def check_jax_shaped_ivf(index, data, data_np, queries_np, load_s):
     torch.cuda.empty_cache()
 
     km, km_s = {}, {}
-    with deterministic_reductions():
-        for name, call in (
-            ("host rows, data_dev", lambda: run_kmeans(data_np, NLIST, 25, 42, data_dev=data,
-                                                       assign_dtype="bf16", tol=1e-3)),
-            ("device rows", lambda: run_kmeans(data, NLIST, 25, 42, assign_dtype="bf16",
-                                               tol=1e-3)),
-        ):
-            t0 = time.perf_counter()
-            km[name] = call()
-            torch.cuda.synchronize()
-            km_s[name] = time.perf_counter() - t0
+    for name, call in (
+        ("host rows, data_dev", lambda: run_kmeans(data_np, NLIST, 25, 42, data_dev=data,
+                                                   assign_dtype="bf16", tol=1e-3)),
+        ("device rows", lambda: run_kmeans(data, NLIST, 25, 42, assign_dtype="bf16", tol=1e-3)),
+    ):
+        t0 = time.perf_counter()
+        km[name] = call()
+        torch.cuda.synchronize()
+        km_s[name] = time.perf_counter() - t0
     a, b = km.values()
     require_equal("run_kmeans(data_np, data_dev=data) centroids", a.centroids.cpu(),
                   b.centroids.cpu())
@@ -1160,7 +1425,7 @@ def check_jax_shaped_ivf(index, data, data_np, queries_np, load_s):
     n_slabs = len(slabs)
     del tier, slabs
     log(f"JAX-shaped k-means (run_kmeans(data_np, {NLIST}, 25, 42, data_dev=data) against "
-        f"run_kmeans(data, ...), deterministic reductions): centroids and assignments equal "
+        f"run_kmeans(data, ...)): centroids and assignments equal "
         f"({a.iters} iterations; {' s / '.join(f'{v:.2f}' for v in km_s.values())} s); "
         f"upload_dataset(rows, "
         f"'f32', 262_144): cuda:0, equal to the rows, {report['bytes']} bytes in "
@@ -1202,8 +1467,8 @@ def check_jax_shaped_mstg(index, data, data_np, queries_np):
     """On the MSTG headline index: ``hierarchical_cluster`` and
     ``closure_assign`` given the rows as a host array (the JAX package's
     shape, no device) against the device-tensor calls ``MstgIndex.build``
-    makes (``data_dev=data``), in the build's configuration, both under
-    deterministic reductions: the lists equal. Then ``index.host =
+    makes (``data_dev=data``), in the build's configuration: the lists
+    equal (every segment sum adds in one fixed order). Then ``index.host =
     index.host`` (the JAX setter): ``len`` unchanged, and an ef 8 serving
     run (its path: launch counters zeroed before, read after) returns the
     ids it returned before. Returns the launches."""
@@ -1217,21 +1482,20 @@ def check_jax_shaped_mstg(index, data, data_np, queries_np):
               balance_weight=cfg.balance_weight, seed=42, refine_iters=cfg.refine_iters,
               assign_dtype=auto_assign_dtype(*data.shape))
     seconds, out = {}, {}
-    with deterministic_reductions():
-        for name, call in (
-            ("clusters host", lambda: hierarchical_cluster(data_np, **kw)),
-            ("clusters device", lambda: hierarchical_cluster(data, data_dev=data, **kw)),
-            ("closure host", lambda: closure_assign(
-                data_np, out["clusters device"].centroids, cfg.closure_epsilon,
-                cfg.max_replicas)),
-            ("closure device", lambda: closure_assign(
-                data, out["clusters device"].centroids, cfg.closure_epsilon, cfg.max_replicas,
-                data_dev=data)),
-        ):
-            t0 = time.perf_counter()
-            out[name] = call()
-            torch.cuda.synchronize()
-            seconds[name] = time.perf_counter() - t0
+    for name, call in (
+        ("clusters host", lambda: hierarchical_cluster(data_np, **kw)),
+        ("clusters device", lambda: hierarchical_cluster(data, data_dev=data, **kw)),
+        ("closure host", lambda: closure_assign(
+            data_np, out["clusters device"].centroids, cfg.closure_epsilon,
+            cfg.max_replicas)),
+        ("closure device", lambda: closure_assign(
+            data, out["clusters device"].centroids, cfg.closure_epsilon, cfg.max_replicas,
+            data_dev=data)),
+    ):
+        t0 = time.perf_counter()
+        out[name] = call()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
     for what, a, b in (
         ("hierarchical_cluster", out["clusters host"].members, out["clusters device"].members),
         ("closure_assign", out["closure host"], out["closure device"]),
@@ -1411,7 +1675,7 @@ def mstg_variant(name, data, queries, closure_epsilon=None):
     index = MstgIndex.build(data, cfg, seed=42, scan_dtype="fused8", device="cuda")
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    launches = {"build": read_launches(f"MSTG {name} build", ("fht",))}
+    launches = {"build": read_launches(f"MSTG {name} build", ("fht", "segment_sum", "running_sum"))}
     r = index.build_report
     sizes = np.diff(index._offsets)
     c = r["clustering"]
@@ -1542,7 +1806,8 @@ def check_mstg(data, data_np, queries, centers):
     a temporary directory of the checkout, the sharded headline's launches
     and that check's seconds, and the JAX-shaped calls' launches and
     seconds: check_jax_shaped_mstg on the headline index, after its
-    sharded check)."""
+    sharded check; then the second headline build's launches and the
+    segment-sum check at the polish shape: check_reproducible_mstg)."""
     import tempfile
 
     import torch
@@ -1563,6 +1828,7 @@ def check_mstg(data, data_np, queries, centers):
     t0 = time.perf_counter()
     jax_shaped = check_jax_shaped_mstg(index, data, data_np, queries_np)
     jax_shaped_s = time.perf_counter() - t0
+    repro, seg_polish = check_reproducible_mstg(index, data, build_s)
     del index
     torch.cuda.empty_cache()
     rows = data.shape[0]
@@ -1582,7 +1848,8 @@ def check_mstg(data, data_np, queries, centers):
     launches.update({("replicated", k): v for k, v in repl.items()})
     k1 = {("headline", k): v for k, v in k1_head.items()}
     k1.update({("replicated", k): v for k, v in k1_repl.items()})
-    return launches, k1, mstg_path, sharded, sharded_s, jax_shaped, jax_shaped_s
+    return (launches, k1, mstg_path, sharded, sharded_s, jax_shaped, jax_shaped_s, repro,
+            seg_polish)
 
 
 def intervals_union(spans):
@@ -2024,8 +2291,9 @@ def check_sharded_train(data, queries_np, gt, single):
     run while the rows are on the card: seconds by phase, the k-means
     objective beside the single-card train's (``single``, from
     check_sharded_ivf), recall@10 at nprobe 64 (floor 0.90). The train and
-    its serving are one path for the launch counters. Returns the
-    launches."""
+    its serving are one path for the launch counters. Then the train a
+    second time (the reproducible-builds phase): centroids and row ids
+    bitwise equal. Returns the launches."""
     import torch
     from rabitq_tpu_torch import SearchParams
     from rabitq_tpu_torch.parallel import sharding
@@ -2044,7 +2312,7 @@ def check_sharded_train(data, queries_np, gt, single):
     params = SearchParams(top_k=10, nprobe=64)
     ids, d = serve_blocks(lambda q: trained.batch_search_arrays(q, params), queries_np)
     launches = read_launches(f"sharded train ({SHARDS} shards) and its serving",
-                             ("fht", "fused_bin_scan"))
+                             ("fht", "fused_bin_scan", "segment_sum", "running_sum"))
     recall = check_served("sharded train nprobe=64", ids, d, n, gt, RECALL_FLOOR)
     obj, obj_single = nearest_objective(trained.index, data), single["objective"]
     log(f"sharded train {SHARDS} shards ({ROWS} x {DIM}, nlist {NLIST}, 7 bits, faster config, "
@@ -2054,6 +2322,24 @@ def check_sharded_train(data, queries_np, gt, single):
         f"nearest-centroid objective {obj:.6g} against the single-card train's {obj_single:.6g} "
         f"(ratio {obj / obj_single:.4f}); recall@10 at nprobe 64 {recall:.4f} (single card "
         f"{single['recall64']:.4f})")
+    t1 = time.perf_counter()
+    again = sharding.ShardedIvfIndex.train(
+        data, nlist=NLIST, total_bits=7, mesh=sharding.make_mesh(devices=[cuda] * SHARDS),
+        seed=42, use_faster_config=True, kmeans_iters=25, scan_dtype="fused8",
+    )
+    torch.cuda.synchronize()
+    again_s = time.perf_counter() - t1
+    rep2 = again.index.build_report
+    require_bitwise("second sharded train: centroids", again.index.layout.centroids.cpu().numpy(),
+                    trained.index.layout.centroids.cpu().numpy())
+    require_bitwise("second sharded train: row ids", again.index.layout.ids.cpu().numpy(),
+                    trained.index.layout.ids.cpu().numpy())
+    del again
+    REPRO_S["sharded train"] = time.perf_counter() - t1
+    log(f"reproducible sharded train: run again, {again_s:.2f} s (k-means with its init "
+        f"{rep2['kmeans_s']} s, build codes {rep2['codes_s']} s, layout and wrap "
+        f"{rep2['layout_s']} s) against the first's {train_s:.2f} s: centroids and row ids "
+        f"bitwise equal")
     del trained
     torch.cuda.empty_cache()
     return launches
@@ -2261,6 +2547,7 @@ def main() -> int:
             fused_bin_scan_cuda,
             fused_bin_scan_packed_cuda,
         )
+        from rabitq_tpu_torch.ops.kmeans import running_sum_kernel, segment_sum_kernel
         from rabitq_tpu_torch.ops.packed_scan import packed_lb_plane_cuda, packed_lb_scan_cuda
     except ImportError as e:
         print(f"chip_smoke: the rabitq_tpu_torch package is missing ({e})", file=sys.stderr)
@@ -2279,7 +2566,8 @@ def main() -> int:
                        "rows of 32768 and more": (32768,)},
                "fused_bin_scan": {"direct": ()},
                "packed_bin_scan": {"bits_bf16": (0,), "bits_s8": (1,)},
-               "packed_lb_scan": {"both epilogues": ()}}
+               "packed_lb_scan": {"both epilogues": ()},
+               "build_sums": {}}
     for name, text in build_logs.items():
         for k in _cuda.ptxas_report(text):
             log(f"  {name}: {k['kernel']}: {k['registers']} registers, {k['smem']} bytes static "
@@ -2289,7 +2577,8 @@ def main() -> int:
                 raise AssertionError(f"{name}: kernel {k['kernel']} spills registers")
         sizes = ", ".join(f"{m} {_cuda.dynamic_shared_memory(name, *a)}"
                           for m, a in dynamic[name].items())
-        log(f"  {name}: dynamic shared memory a block, bytes (as the library says): {sizes}")
+        log(f"  {name}: dynamic shared memory a block, bytes (as the library says): "
+            f"{sizes or 'none'}")
 
     fht_rows = check_fht()
 
@@ -2347,6 +2636,8 @@ def main() -> int:
         "fht": fht_kernel.launches,
         "fused_bin_scan_dense": fused_bin_scan_cuda.dense_launches,
         "fused_bin_scan_compact": fused_bin_scan_cuda.compact_launches,
+        "segment_sum": segment_sum_kernel.launches,  # the train's k-means
+        "running_sum": running_sum_kernel.launches,  # its k-means++ init
     }
     log(f"launches on the main path: {launches}")
     log(f"phase seconds: 7-bit serving {time.perf_counter() - t0_serve:.1f}")
@@ -2365,8 +2656,12 @@ def main() -> int:
     # ---- the same 7-bit index saved and loaded, served from resident
     # queries and through the gather scan; then the brute-force index
     t0 = time.perf_counter()
-    persist, load_s = check_persistence(index, queries_np, data)
+    persist, load_s, digest = check_persistence(index, queries_np, data)
     log(f"phase seconds: RBQ1 round trip {time.perf_counter() - t0:.1f}")
+    # one seed, one index: the train again, while the first index is alive
+    repro_ivf, seg_kmeans, scan_init = check_reproducible_ivf(
+        index, data, queries_np, digest, (build_s, index.build_report))
+    check_kmeanspp_picks()
     t0 = time.perf_counter()
     resident = check_resident(index, queries_np)
     gather = check_gather(index, queries_np, gt)
@@ -2394,10 +2689,11 @@ def main() -> int:
     log(f"phase seconds: brute force {time.perf_counter() - t0 - jax_s['brute force']:.1f}")
     t0 = time.perf_counter()
     (mstg, k1_mstg, mstg_path, sharded["MSTG"], sharded_s["MSTG"], jax_mstg,
-     jax_s["MSTG"]) = check_mstg(data, data_np, queries, centers)
+     jax_s["MSTG"], repro_mstg, seg_polish) = check_mstg(data, data_np, queries, centers)
     del data_np
-    log(f"phase seconds: MSTG {time.perf_counter() - t0 - sharded_s['MSTG'] - jax_s['MSTG']:.1f} "
-        f"(without the sharded MSTG check and the JAX-shaped calls)")
+    mstg_s = time.perf_counter() - t0 - sharded_s["MSTG"] - jax_s["MSTG"] - REPRO_S["MSTG"]
+    log(f"phase seconds: MSTG {mstg_s:.1f} (without the sharded MSTG check, the JAX-shaped "
+        f"calls and the second build)")
     log(f"phase seconds: JAX-shaped calls {sum(jax_s.values()):.1f} ("
         + ", ".join(f"{k} {v:.1f}" for k, v in jax_s.items()) + ")")
     t0 = time.perf_counter()
@@ -2410,8 +2706,11 @@ def main() -> int:
 
     t0 = time.perf_counter()
     sharded["train"] = check_sharded_train(data, queries_np, gt, single)
-    sharded_s["train"] = time.perf_counter() - t0
-    log(f"phase seconds: sharded train {sharded_s['train']:.1f}")
+    sharded_s["train"] = time.perf_counter() - t0 - REPRO_S["sharded train"]
+    log(f"phase seconds: sharded train {sharded_s['train']:.1f} (without the second train)")
+    log(f"phase seconds: reproducible builds {sum(REPRO_S.values()):.1f} ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in REPRO_S.items())
+        + "; IVF with the k-means-shape segment sum, MSTG with the polish-shape one)")
 
     # ---- two-stage and dense paths: total_bits=8 keeps raw ex codes, so the
     # fused scans run two-stage through the packed bin kernel
@@ -2457,6 +2756,8 @@ def main() -> int:
                  for k, v in fused_bin_scan_packed_cuda.launches.items()}
     launches8["packed_lb_plane"] = packed_lb_plane_cuda.launches
     launches8["fht"] = fht_kernel.launches
+    launches8["segment_sum"] = segment_sum_kernel.launches  # the 8-bit train's k-means
+    launches8["running_sum"] = running_sum_kernel.launches
     # the TPU contract's epilogue is on no path (the sharded "packed" scan
     # takes G_TABLE, as the in-memory one does)
     g_plane_launches = packed_lb_scan_cuda.launches
@@ -2512,7 +2813,7 @@ def main() -> int:
     scan_tpu = "rabitq_tpu/ops/pallas_fused_scan.py:497"
     packed_src = "rabitq_tpu_torch/csrc/packed_bin_scan.cu"
     paths = ((launches, launches8, persist, resident, gather, brute, streamed, jax_ivf, jax_bf,
-              jax_mstg)
+              jax_mstg, repro_ivf, repro_mstg)
              + tuple(mstg.values()) + tuple(front.values()) + tuple(sharded.values()))
     kernels = [
         entry("fht", "rabitq_tpu_torch/csrc/fht.cu", "rabitq_tpu/ops/pallas_fht.py:49",
@@ -2543,6 +2844,21 @@ def main() -> int:
               brute["packed_lb_plane"] + jax_bf["packed_lb_plane"], k4_bf),
         entry("fused_bin_scan_jax_shaped_dense", scan_src, scan_tpu,
               jax_ivf["fused_bin_scan_dense"], k1_jax),
+        # a build kernel, not a TPU kernel's counterpart: it stands where the
+        # JAX package calls jax.ops.segment_sum (an XLA op) in its builds
+        entry("segment_sum", "rabitq_tpu_torch/csrc/build_sums.cu",
+              "rabitq_tpu/ops/kmeans.py:214",
+              sum(p["segment_sum"] for p in (launches, launches8, sharded["train"], repro_ivf)),
+              seg_kmeans),
+        entry("segment_sum_mstg_polish", "rabitq_tpu_torch/csrc/build_sums.cu",
+              "rabitq_tpu/index/mstg/clustering.py:198",
+              sum(mstg[(v, "build")]["segment_sum"] for v in ("headline", "replicated"))
+              + repro_mstg["segment_sum"], seg_polish),
+        entry("running_sum", "rabitq_tpu_torch/csrc/build_sums.cu",
+              "rabitq_tpu/ops/kmeans.py:176",
+              sum(p["running_sum"] for p in (launches, launches8, sharded["train"], repro_ivf))
+              + sum(mstg[(v, "build")]["running_sum"] for v in ("headline", "replicated"))
+              + repro_mstg["running_sum"], scan_init),
     ]
     kernels += [
         entry(f"fused_bin_scan_mstg_{variant}_ef{ef}", scan_src, scan_tpu,

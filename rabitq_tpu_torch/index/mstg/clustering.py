@@ -17,11 +17,15 @@ that does the work. The JAX module reads its host rows in three places (the
 rebalance's distances and the two leaf-centroid means); here those read the
 tensor too, so a dataset drawn on the card needs no host copy.
 
-Seeds: split ``r`` (counted from 1 across the levels) trains with a
-``torch.Generator`` seeded ``(seed + r) * 1_000_003``, where the JAX package
-seeds its key, and the sampled subsets come from numpy's ``seed`` as there.
-So the hierarchy differs from the JAX package's, while each step computes
-the same function.
+Seeds: split ``r`` (counted from 1 across the levels) trains with the JAX
+package's key ``PRNGKey((seed + r) * 1_000_003)`` (``ops/prng.py``: the same
+draws), and the sampled subsets come from numpy's ``seed`` as there. Every
+centroid sum adds its rows in ascending row order
+(``ops.kmeans.segment_sum``), so one seed gives one clustering on every run
+of a device. The JAX package's products and cumulative sums round otherwise,
+so its hierarchy can part from the port's once a k-means++ draw or an
+assignment lands within rounding of a boundary; each step computes the same
+function.
 """
 
 from __future__ import annotations
@@ -37,7 +41,10 @@ from ...ops.kmeans import (
     _block_size,
     _grouped_assign_blocks,
     _kmeans_device,
+    segment_sum,
+    segment_sum_counts,
 )
+from ...ops.prng import PRNGKey
 from ...utils.device import rows_on_device
 from ...utils.logging import get_logger
 from ..scan import _pad_pow2
@@ -62,8 +69,7 @@ def _partition_means(data_dev: torch.Tensor, parts: list[np.ndarray]) -> torch.T
     dev = data_dev.device
     part_of = np.empty(data_dev.shape[0], np.int64)
     part_of[np.concatenate(parts)] = np.repeat(np.arange(len(parts)), [p.size for p in parts])
-    sums = torch.zeros((len(parts), data_dev.shape[1]), dtype=torch.float32, device=dev)
-    sums.index_add_(0, torch.from_numpy(part_of).to(dev), data_dev)
+    sums = segment_sum(data_dev, torch.from_numpy(part_of).to(dev), len(parts))
     counts = torch.tensor([p.size for p in parts], dtype=torch.float32, device=dev)
     return sums / counts[:, None]
 
@@ -115,10 +121,9 @@ def hierarchical_cluster(
             target = max(min(m, k * DEFAULT_MAX_POINTS_PER_CENTROID), k)
             sel = idx[rng.permutation(m)[:target]]
             train = data_dev.index_select(0, torch.from_numpy(sel).to(dev))
-            gen = torch.Generator(device=dev)
-            gen.manual_seed((seed + split_round) * 1_000_003)
+            key = PRNGKey((seed + split_round) * 1_000_003)
             cent, _ = _kmeans_device(
-                train, gen, k, kmeans_iters, _block_size(k), target, False,
+                train, key, k, kmeans_iters, _block_size(k), target, False,
                 assign_dtype=assign_dtype,
             )
             cents.append(cent)
@@ -179,17 +184,13 @@ def hierarchical_cluster(
 def _polish_step(data, centroids, cent_group, row_group, block, assign_dtype="f32"):
     """One global Lloyd iteration over the LEAF centroids: grouped
     assignment (padded centroid slots carry group -2 and match no row) and
-    a segment-sum update. Empty slots keep their old centroid (no reseed:
-    the polish must not invent new lists). Returns (assign [N] int32,
-    new centroids)."""
-    n = data.shape[0]
+    a segment-sum update (``ops.kmeans.segment_sum``). Empty slots keep their
+    old centroid (no reseed: the polish must not invent new lists). Returns
+    (assign [N] int32, new centroids)."""
     c_pad = centroids.shape[0]
     assign = _grouped_assign_blocks(data, centroids, cent_group, row_group, block, assign_dtype)
     seg = torch.where(row_group == 0, assign.to(torch.int64), c_pad)  # padding rows -> scratch
-    sums = torch.zeros((c_pad + 1, data.shape[1]), dtype=torch.float32, device=data.device)
-    sums.index_add_(0, seg, data)
-    counts = torch.zeros(c_pad + 1, dtype=torch.float32, device=data.device)
-    counts.index_add_(0, seg, torch.ones(n, dtype=torch.float32, device=data.device))
+    sums, counts = segment_sum_counts(data, seg, c_pad + 1)
     sums, counts = sums[:c_pad], counts[:c_pad]
     new_c = torch.where(
         counts[:, None] > 0, sums / torch.clamp_min(counts, 1.0)[:, None], centroids

@@ -25,7 +25,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("fht", "fused_bin_scan", "packed_bin_scan", "packed_lb_scan")
+SOURCES = ("fht", "fused_bin_scan", "packed_bin_scan", "packed_lb_scan", "build_sums")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,6 +43,8 @@ _SIGNATURES = {
     "packed_lb_plane": (
         "packed_lb_scan", "rabitq_packed_lb_plane", (_P,) * 11 + (_L, _I, _I, _I, _P),
     ),
+    "segment_sum": ("build_sums", "rabitq_segment_sum", (_P,) * 4 + (_L, _L, _I, _P)),
+    "running_sum": ("build_sums", "rabitq_running_sum", (_P, _P, _L, _P)),
 }
 
 _entries: dict = {}  # kernel name -> (library, entry point)

@@ -39,8 +39,9 @@ from ..index.build import build_codes_device, exact_t_rows
 from ..index.ivf import IvfRabitqIndex
 from ..index.scan import _pad_pow2, is_fused, probe_k_bucket, scan_kernel
 from ..ops.fused_scan import TB, TN, sliced_max_tiles, tile_cluster_blocks
-from ..ops.kmeans import KMeansResult, _assign_blocks, _kmeanspp_init
+from ..ops.kmeans import KMeansResult, _assign_blocks, _kmeanspp_init, segment_sum_counts
 from ..ops.packed_scan import _KERNEL_RU, pack_bitplanes
+from ..ops.prng import PRNGKey
 from ..ops.quantize import compute_const_scaling_factor
 from ..ops.rotation import make_rotator
 from ..types import Metric, RotatorType, SearchParams
@@ -475,11 +476,11 @@ class ShardedMstgIndex(_ShardedLayout):
 
 def sharded_kmeans_step(data, centroids, valid=None, *, mesh: Mesh, k: int, block: int):
     """One data-parallel Lloyd iteration: on each shard the blockwise
-    nearest-centroid assignment (``ops/kmeans._assign_blocks``) and
-    ``index_add_`` segment sums into ``k + 1`` segments (``valid`` False
-    routes a padding row to the scratch one), then the partials summed on
-    the first device. ``data`` and ``valid`` are sharded, ``centroids``
-    replicated. Returns (sums [k, D], counts [k] f32, both on the first
+    nearest-centroid assignment (``ops/kmeans._assign_blocks``) and segment
+    sums into ``k + 1`` segments (``ops/kmeans.segment_sum``: ascending row
+    order, no float atomics; ``valid`` False routes a padding row to the
+    scratch one), then the partials summed on the first device in shard
+    order. ``data`` and ``valid`` are sharded, ``centroids`` replicated. Returns (sums [k, D], counts [k] f32, both on the first
     device; the shards' assignments, int64)."""
     sums, counts, assigns = [], [], []
     for i, dev in enumerate(mesh.devices):
@@ -487,10 +488,7 @@ def sharded_kmeans_step(data, centroids, valid=None, *, mesh: Mesh, k: int, bloc
         with _on(dev):
             assign, _ = _assign_blocks(x, centroids[i], block)
             seg = assign if valid is None else torch.where(valid[i], assign, k)
-            s = torch.zeros((k + 1, x.shape[1]), dtype=torch.float32, device=dev)
-            s.index_add_(0, seg, x.to(torch.float32))
-            c = torch.zeros((k + 1,), dtype=torch.float32, device=dev)
-            c.index_add_(0, seg, torch.ones((x.shape[0],), dtype=torch.float32, device=dev))
+            s, c = segment_sum_counts(x.to(torch.float32), seg, k + 1)
         sums.append(s[:k])
         counts.append(c[:k])
         assigns.append(assign)
@@ -527,10 +525,10 @@ def sharded_kmeans(
     The subsample for the init (``rng.permutation``) and the empty-cluster
     reseed (``rng.integers``) are the JAX package's host draws from
     ``np.random.default_rng(seed)``. The k-means++ init on the subsample
-    (``ops/kmeans._kmeanspp_init``) draws from a ``torch.Generator`` seeded
-    with ``seed * 1_000_003`` on the first device, so it cannot pick the
-    JAX package's seeds (``jax.random``): runs agree by objective, not
-    centroid for centroid. Returns ``ops.kmeans.KMeansResult`` (centroids on
+    (``ops/kmeans._kmeanspp_init``, on the first device) draws from the
+    JAX package's key ``PRNGKey(seed * 1_000_003)`` (``ops/prng.py``), so it
+    picks the JAX package's rows wherever its sums are exact, and one seed
+    gives one result on every run. Returns ``ops.kmeans.KMeansResult`` (centroids on
     the first device, the objective of the final centroids against the
     last assignment)."""
     src = _tensor(data).to(torch.float32)
@@ -548,9 +546,7 @@ def sharded_kmeans(
     pick = torch.from_numpy(rng.permutation(n)[:target]).to(src.device)
     with _on(dev):
         sub_pad = _pad_to(src.index_select(0, pick).to(dev), -(-target // 256) * 256)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed * 1_000_003)
-        centroids = _kmeanspp_init(sub_pad, gen, k, target)
+        centroids = _kmeanspp_init(sub_pad, PRNGKey(seed * 1_000_003), k, target)
 
     assign_sh = None
     for _ in range(niter):

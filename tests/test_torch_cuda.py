@@ -988,21 +988,17 @@ def test_jax_shaped_index_on_the_card_matches_the_cpu(cuda):
 def test_mstg_build_steps_take_host_rows_on_the_card(cuda):
     """``hierarchical_cluster`` and ``closure_assign`` given host rows (the
     JAX package's shape) on the card: the lists equal those of the same
-    call with the rows on the card. Both run with deterministic CUDA
-    reductions (``index_add_`` without float atomics), so that the two
-    calls do the same sums in the same order."""
+    call with the rows on the card. Every segment sum adds in one fixed
+    order (the segment-sum kernel), so the calls agree without any
+    deterministic-algorithms switch."""
     from rabitq_tpu_torch.index.mstg.closure import closure_assign
     from rabitq_tpu_torch.index.mstg.clustering import hierarchical_cluster
 
     data = _bridged_rows()
     rows = torch.from_numpy(data).to(cuda)
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        host = hierarchical_cluster(data, 200, 8, 1.0, 25, 3, None, 4)
-        on_card = hierarchical_cluster(data, 200, 8, 1.0, 25, 3, rows, 4)
-        tensor = hierarchical_cluster(rows, 200, 8, seed=3, refine_iters=4)
-    finally:
-        torch.use_deterministic_algorithms(False)
+    host = hierarchical_cluster(data, 200, 8, 1.0, 25, 3, None, 4)
+    on_card = hierarchical_cluster(data, 200, 8, 1.0, 25, 3, rows, 4)
+    tensor = hierarchical_cluster(rows, 200, 8, seed=3, refine_iters=4)
     for got in (host, on_card):
         assert len(got.members) == len(tensor.members) > 1
         for a, b in zip(got.members, tensor.members):
@@ -1036,3 +1032,118 @@ def test_brute_force_on_the_card_after_a_host_assignment(cuda):
     c = [[h.id for h in row] for row in cpu.batch_search(data[:64] + 0.01, params)]
     assert ps.packed_lb_plane_cuda.launches > before
     assert np.mean([len(set(a) & set(b)) / 10 for a, b in zip(g, c)]) >= 0.98
+
+
+# ----------------------------------------------------------------------
+# one seed, one build: the segment-sum kernel and the JAX package's draws
+# ----------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n,dim,segments", [(20000, 960, 257), (5000, 33, 7), (3000, 32, 4097),
+                                            (1, 4, 1), (0, 8, 3)])
+def test_segment_sum_kernel_bitwise(cuda, n, dim, segments):
+    """The kernel against its plain version (CPU ``index_add_``, ascending
+    row order): bitwise equal, counts equal, one launch; rows of ~1e3 with
+    mixed signs make any other order show."""
+    from rabitq_tpu_torch.ops import kmeans as km
+
+    rng = np.random.default_rng(n + dim)
+    data = (rng.standard_normal((n, dim)) * rng.exponential(1e3, (n, 1))).astype(np.float32)
+    ids = rng.integers(0, segments, n)
+    before = km.segment_sum_kernel.launches
+    sums, counts = km.segment_sum_kernel(torch.from_numpy(data).to(cuda),
+                                         torch.from_numpy(ids).to(cuda), segments)
+    assert km.segment_sum_kernel.launches == before + (1 if n else 0)
+    want = km.segment_sum_plain(torch.from_numpy(data), torch.from_numpy(ids), segments)
+    assert torch.equal(sums.cpu(), want)
+    np.testing.assert_array_equal(counts.cpu().numpy(), np.bincount(ids, minlength=segments))
+    # the same through the dispatcher, and on rows that are not 16-byte aligned
+    assert torch.equal(km.segment_sum(torch.from_numpy(data).to(cuda), torch.from_numpy(ids).to(cuda),
+                                      segments).cpu(), want)
+    if n > 1 and dim % 4 == 0:
+        flat = torch.zeros(n * dim + 1, device=cuda)
+        flat[1:] = torch.from_numpy(data).to(cuda).reshape(-1)
+        odd = flat[1:].view(n, dim)
+        assert odd.data_ptr() % 16
+        got = km.segment_sum_kernel(odd, torch.from_numpy(ids).to(cuda), segments)[0]
+        assert torch.equal(got.cpu(), want)
+
+
+def test_segment_sum_kernel_drops_ids_outside_the_segments(cuda):
+    from rabitq_tpu_torch.ops import kmeans as km
+
+    rng = np.random.default_rng(3)
+    data = torch.from_numpy(rng.standard_normal((3000, 64)).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(-3, 12, 3000))
+    sums, counts = km.segment_sum_kernel(data.to(cuda), ids.to(cuda), 9)
+    assert torch.equal(sums.cpu(), km.segment_sum_plain(data, ids, 9))
+    np.testing.assert_array_equal(counts.cpu().numpy(), [int((ids == s).sum()) for s in range(9)])
+
+
+def test_run_kmeans_twice_on_the_card_is_bitwise_equal(cuda):
+    """Two runs of one seed: the same centroids bit for bit and the same
+    assignments; the Lloyd steps went through the segment-sum kernel."""
+    from rabitq_tpu_torch.ops import kmeans as km
+
+    rng = np.random.default_rng(5)
+    centers = rng.standard_normal((40, 128)).astype(np.float32) * 3
+    data = (centers[rng.integers(0, 40, 60000)] + rng.standard_normal((60000, 128))).astype(
+        np.float32)
+    rows = torch.from_numpy(data).to(cuda)
+    before = km.segment_sum_kernel.launches
+    a = km.run_kmeans(rows, 256, niter=10, seed=7, assign_dtype="bf16")
+    assert km.segment_sum_kernel.launches >= before + 10
+    b = km.run_kmeans(rows, 256, niter=10, seed=7, assign_dtype="bf16")
+    assert torch.equal(a.centroids, b.centroids)
+    np.testing.assert_array_equal(a.assignments, b.assignments)
+    assert a.objective == b.objective
+
+
+def test_hierarchical_cluster_twice_on_the_card_gives_equal_lists(cuda):
+    from rabitq_tpu_torch.index.mstg.clustering import hierarchical_cluster
+
+    rows = torch.from_numpy(_bridged_rows()).to(cuda)
+    a = hierarchical_cluster(rows, 200, 8, seed=3, refine_iters=4)
+    b = hierarchical_cluster(rows, 200, 8, seed=3, refine_iters=4)
+    assert len(a.members) == len(b.members) > 1
+    for x, y in zip(a.members, b.members):
+        np.testing.assert_array_equal(x, y)
+    np.testing.assert_array_equal(a.centroids, b.centroids)
+
+
+@pytest.mark.parametrize("n", [1, 1000, 1025, 262_147, 1_000_003])
+def test_running_sum_kernel_bitwise(cuda, n):
+    """The k-means++ init's running-sum kernel against its plain version
+    (CPU, the same tiles and order): bitwise equal, one launch, the same
+    bits in ten runs (a 1-D ``torch.cumsum`` on the card is not), and the
+    same from a start that is not 16-byte aligned."""
+    from rabitq_tpu_torch.ops import kmeans as km
+
+    w = torch.from_numpy(np.random.default_rng(n).exponential(1.0, n).astype(np.float32))
+    before = km.running_sum_kernel.launches
+    first = km.running_sum_kernel(w.to(cuda))
+    assert km.running_sum_kernel.launches == before + 1
+    assert torch.equal(first.cpu(), km.running_sum_plain(w))
+    for _ in range(9):
+        assert torch.equal(km.running_sum(w.to(cuda)), first)
+    # an unaligned start takes the kernel's scalar loads
+    buf = torch.zeros(n + 1, device=cuda)
+    buf[1:] = w.to(cuda)
+    assert torch.equal(km.running_sum_kernel(buf[1:]), first)
+
+
+@pytest.mark.parametrize("seed", [0, 42])
+def test_kmeanspp_picks_on_the_card_equal_the_cpu(cuda, seed):
+    """On integer-valued rows (every distance and running sum exact in f32,
+    TF32 off as by default) the card's k-means++ init picks the CPU's rows:
+    both take their draws from the same key on the host."""
+    from rabitq_tpu_torch.ops import kmeans as km
+    from rabitq_tpu_torch.ops import prng
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    data = torch.from_numpy(
+        np.random.default_rng(seed).integers(-4, 5, (4096, 32)).astype(np.float32))
+    key = prng.PRNGKey(seed * 1_000_003)
+    on_card = km._kmeanspp_init(data.to(cuda), key, 64, 4096)
+    on_cpu = km._kmeanspp_init(data, key, 64, 4096)
+    assert torch.equal(on_card.cpu(), on_cpu)

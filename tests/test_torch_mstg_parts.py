@@ -2,8 +2,11 @@
 package's on the same inputs: centroid scalar quantization (byte-equal),
 the group-restricted assignment (equal), one polish step (assignments equal,
 centroids atol 1e-5), closure assignment (member lists equal), the rebalance
-(equal moves) and, since the split k-means seeds differ, the whole
-hierarchical clustering by its invariants and objective (within 3%). Then
+(equal moves) and, since the packages' f32 products and cumulative sums
+round differently, the whole hierarchical clustering by its invariants and
+objective (within 3%). A split draws from the JAX package's key
+``PRNGKey((seed + r) * 1_000_003)``: on integer-valued rows its k-means++
+init picks the JAX package's rows. Then
 the JAX package's call shapes: clustering and closure given host rows and
 ``data_dev``, and the ``MstgIndex.host`` setter."""
 
@@ -184,6 +187,43 @@ def test_hierarchical_cluster_against_jax(refine_iters):
     assert len(t.members) == pytest.approx(len(j.members), rel=0.25)
     empty = tcl.hierarchical_cluster(torch.zeros((0, 8)), 10, 4)
     assert empty.members == [] and empty.centroids.shape == (0, 8)
+
+
+def test_first_split_picks_the_jax_rows(monkeypatch):
+    """The first split (r = 1) of the same sampled subset, on integer-valued
+    rows where every sum of the k-means++ init is exact: the same picks as
+    the JAX package's from ``PRNGKey((seed + 1) * 1_000_003)``."""
+    data = np.random.default_rng(8).integers(-4, 5, (1500, 32)).astype(np.float32)
+    picks = {"jax": [], "port": []}
+
+    def spy(fn, side):
+        def call(*a, **kw):
+            out = fn(*a, **kw)
+            picks[side].append(np.asarray(out))
+            return out
+        return call
+
+    monkeypatch.setattr(jk, "_kmeanspp_init", spy(jk._kmeanspp_init, "jax"))
+    monkeypatch.setattr(tk, "_kmeanspp_init", spy(tk._kmeanspp_init, "port"))
+    kw = dict(max_cluster_size=600, branching_factor=4, kmeans_iters=1, refine_iters=0)
+    for seed in (2, 3):
+        jcl.hierarchical_cluster(data, seed=seed, **kw)
+        tcl.hierarchical_cluster(data, seed=seed, device="cpu", **kw)
+        assert picks["jax"] and picks["port"]
+        np.testing.assert_array_equal(picks["port"][0], picks["jax"][0])
+        first = picks["port"][0]
+        picks = {"jax": [], "port": []}
+    assert first.shape == (4, 32)
+
+
+def test_hierarchical_cluster_same_seed_same_lists():
+    data = _blobs(2000, 32, centers=10, sigma=0.8)
+    a = tcl.hierarchical_cluster(torch.from_numpy(data), 150, 4, seed=9, refine_iters=2)
+    b = tcl.hierarchical_cluster(torch.from_numpy(data), 150, 4, seed=9, refine_iters=2)
+    assert len(a.members) == len(b.members) > 1
+    for x, y in zip(a.members, b.members):
+        np.testing.assert_array_equal(x, y)
+    np.testing.assert_array_equal(a.centroids, b.centroids)
 
 
 def test_closure_assign_takes_host_rows_in_the_jax_shape():

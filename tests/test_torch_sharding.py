@@ -8,8 +8,11 @@ the port with ``from_host_arrays``, so both shard and search the same codes.
 
 Tolerances. Mesh placement and the k-means step: assignments and counts
 equal, segment sums rtol 1e-4 (atol 1e-3: f32 sums in another order). Whole
-k-means runs: objective within 3% (the port's k-means++ init draws from a
-``torch.Generator``, not ``jax.random``). Built codes: equal except <= 0.1%
+k-means runs: objective within 3% (both draw the k-means++ init from
+``PRNGKey(seed * 1_000_003)``, but the f32 products and cumulative sums
+round otherwise, so runs part once a draw lands within rounding of a
+boundary); on integer-valued rows, where those sums are exact, the init
+picks the JAX package's rows and one step gives its centroids bitwise. Built codes: equal except <= 0.1%
 of entries off by one level (a rotated coordinate on a level boundary moves
 with the f32 summation order); factors rtol 1e-5 on rows whose codes are
 equal, atol 1e-4 (inner-product factors are 1 minus dot products of ~10,
@@ -179,6 +182,34 @@ def test_kmeans_step_matches_numpy_and_jax(padded):
         np.testing.assert_allclose(sums[c].numpy(), data[:n][ref[:n] == c].sum(0),
                                    rtol=1e-4, atol=1e-3)
     np.testing.assert_allclose(sums.numpy(), np.asarray(j_sums), rtol=1e-4, atol=1e-3)
+
+
+def test_kmeans_init_picks_the_jax_rows(monkeypatch):
+    """On integer-valued rows the sharded init draws what the JAX one draws
+    (``PRNGKey(seed * 1_000_003)`` on the same subsample), so it picks the
+    same rows, and one step (integer sums, one division) gives the same
+    centroids bitwise."""
+    from rabitq_tpu.ops import kmeans as jk
+
+    data = np.random.default_rng(4).integers(-4, 5, (4096, 32)).astype(np.float32)
+    picks = {"jax": [], "port": []}
+
+    def spy(fn, side):
+        def call(*a, **kw):
+            out = fn(*a, **kw)
+            picks[side].append(np.asarray(out))
+            return out
+        return call
+
+    monkeypatch.setattr(jk, "_kmeanspp_init", spy(jk._kmeanspp_init, "jax"))
+    monkeypatch.setattr(tsh, "_kmeanspp_init", spy(tsh._kmeanspp_init, "port"))
+    for seed in (5, 6):
+        km = tsh.sharded_kmeans(data, 24, mesh=_mesh(), niter=1, seed=seed)
+        j_km = jsh.sharded_kmeans(data, 24, mesh=jsh.make_mesh(8), niter=1, seed=seed)
+        np.testing.assert_array_equal(picks["port"][-1], picks["jax"][-1])
+        np.testing.assert_array_equal(km.centroids.numpy(), j_km.centroids)
+        np.testing.assert_array_equal(km.assignments, j_km.assignments)
+    assert not np.array_equal(picks["port"][0], picks["port"][1])
 
 
 def test_kmeans_objective_close_to_jax():
