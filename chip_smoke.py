@@ -170,6 +170,14 @@ time while its first index is alive and freed before the next phase
      builds' seconds by phase;
   sharded train (after the first one): ShardedIvfIndex.train again,
      centroids and row ids bitwise equal.
+The selection (after the 8-bit checks, ``phase seconds: selection``): the
+selection kernel (``csrc/select.cu``, every site where the JAX package calls
+lax.top_k) against its plain version, values and indices bitwise, and twice
+with equal bits, on the inputs the 8-bit index gave it: the survivor plane
+of a "packed" search at nprobe 256 in bf16 and in f32, its centroid ranking
+and final top-k, the best bins of a "fused8" search at nprobe 16 and the
+k-means reseed of the 8-bit train; timed beside torch.topk at the same
+(x, k) and the bound. Every path's launch line carries the kernel's count.
 Every search of the IVF, brute-force and MSTG indexes goes through the
 index's fused search (rabitq_tpu_torch.index.scan.make_fused_search): on the
 card one CUDA graph replay a dispatch, captured at a key's first call, with
@@ -184,8 +192,8 @@ scan, a filtered search, resident queries and f32, bf16 and int4 uploads
 MSTG headline and replicated at each ef (after each ef's checks); 8 bits
 fused8, fused, packed and bf16 (after the 8-bit serving). For each: the
 graphs' results against the eager body on the same blocks (ids and
-distances equal; where a torch.topk cut over bf16 lower bounds may break
-ties otherwise, the overlap is measured, floor 0.99), no kernel launched
+distances equal on every path: every selection is the selection kernel,
+which orders ties one way), no kernel launched
 outside a graph and one replay a block, eager and graph QPS paired (medians
 of 5), one profile of each (device busy share, CUDA API kernel and graph
 launches a dispatch, the port's kernels inside the replays), the seconds of
@@ -199,6 +207,7 @@ Usage: python3 chip_smoke.py (no arguments; one card).
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import math
@@ -623,6 +632,93 @@ def check_lb_plane(args, what):
     return out
 
 
+# the selection phase's inputs, by the site and type a search or a train
+# hands the selection kernel: (kernel line entry, the lax.top_k call it stands at)
+SELECT_SITES = {
+    "survivors_bf16": ("select_survivors_bf16", "rabitq_tpu/index/scan.py:552"),
+    "survivors_f32": ("select_survivors_f32", "rabitq_tpu/index/scan.py:558"),
+    "bins_f32": ("select_bins", "rabitq_tpu/ops/pallas_fused_scan.py:664"),
+    "centroids_f32": ("select_centroids", "rabitq_tpu/index/scan.py:289"),
+    "reseed_f32": ("select_reseed", "rabitq_tpu/ops/kmeans.py:221"),
+    "final_f32": ("select_final", "rabitq_tpu/index/scan.py:731"),
+}
+# where the port calls the selection: module, name
+SELECT_CALLERS = (("rabitq_tpu_torch.index.scan", "select_top_k"),
+                  ("rabitq_tpu_torch.ops.fused_scan", "top_k"),
+                  ("rabitq_tpu_torch.ops.kmeans", "top_k"))
+
+
+@contextlib.contextmanager
+def recording_selections(into):
+    """Within the block, keep a copy of the first input (and k) each site
+    and type hands the selection (``"<site>_<f32|bf16>"`` in ``into``); the
+    calls run as they would. A search must run through the eager body: a
+    graph replay runs no Python."""
+    import importlib
+
+    import torch
+
+    def spy_on(real):
+        def spy(x, k, *, site="other"):
+            key = f"{site}_{'bf16' if x.dtype == torch.bfloat16 else 'f32'}"
+            if key not in into:
+                into[key] = (x.clone(), k)
+            return real(x, k, site=site)
+        return spy
+
+    modules = [(importlib.import_module(name), attr) for name, attr in SELECT_CALLERS]
+    reals = [getattr(mod, attr) for mod, attr in modules]
+    for (mod, attr), real in zip(modules, reals):
+        setattr(mod, attr, spy_on(real))
+    try:
+        yield into
+    finally:
+        for (mod, attr), real in zip(modules, reals):
+            setattr(mod, attr, real)
+
+
+def check_selection(inputs):
+    """The selection kernel against its plain version (a stable sort of the
+    ordered key) on inputs the main path gave it: values and indices
+    bitwise equal, two runs equal; the kernel's, the plain version's and
+    torch.topk's device times (torch.topk computes the same set, ties in its
+    own order) beside the bound, one read of the input and one write of the
+    outputs at 3.35 TB/s. Launches made here are not counted."""
+    import torch
+    from rabitq_tpu_torch.ops.select import top_k_cuda, top_k_plain
+
+    def bits(t):
+        return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+    counted = dict(top_k_cuda.launches)
+    out = {}
+    for key in SELECT_SITES:
+        x, k = inputs[key]
+        v, i = top_k_cuda(x, k)
+        v2, i2 = top_k_cuda(x, k)
+        pv, pi = top_k_plain(x, k)
+        if not (torch.equal(bits(v), bits(pv)) and torch.equal(i, pi)):
+            raise AssertionError(f"selection {key}: the kernel differs from its plain version "
+                                 f"(indices equal on {(i == pi).float().mean().item():.6f})")
+        if not (torch.equal(bits(v), bits(v2)) and torch.equal(i, i2)):
+            raise AssertionError(f"selection {key}: two runs of the kernel differ")
+        n_bytes = x.numel() * x.element_size() + v.numel() * (x.element_size() + 4)
+        big = x.numel() * x.element_size() > L2_BYTES
+        reps = 5 if big else 50
+        r = dict(err=0.0, bound_by="bytes", bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3,
+                 ms=cuda_ms(lambda: top_k_cuda(x, k), reps),
+                 plain_ms=cuda_ms(lambda: top_k_plain(x, k), max(reps // 5, 2)),
+                 library_ms=cuda_ms(lambda: torch.topk(x, k, dim=-1), reps))
+        finite = torch.isfinite(x.float()).float().mean().item()
+        log(f"selection {key}: {tuple(x.shape)} {str(x.dtype)[6:]} k={k} ({100 * finite:.2f}% "
+            f"finite, {'above' if big else 'within'} the L2): bitwise equal to its plain version, "
+            f"two runs equal; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, torch.topk "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({n_bytes} bytes)")
+        out[key] = r
+    top_k_cuda.launches.update(counted)
+    return out
+
+
 def check_packed_lb_scan(index, queries_np, nprobe):
     """The packed lower-bound kernel vs its plain versions on the inputs the
     main path (scan_dtype "packed") hands it for one 256-query block: the
@@ -702,7 +798,7 @@ def top_rows(rows, n=8):
     return "; ".join(f"{name[:48]} x{k} {ms:.2f} ms" for ms, name, k in rows[:n])
 
 
-KERNEL_NAMES = ("fht_", "bin_scan_kernel", "packed_lb_kernel")  # the port's kernels by name
+KERNEL_NAMES = ("fht_", "bin_scan_kernel", "packed_lb_kernel", "top_k_select_kernel")  # by name
 
 
 def profile_dispatches(run, dispatches):
@@ -736,16 +832,15 @@ def profile_dispatches(run, dispatches):
                 device_ops=sum(r[2] for r in rows) / dispatches, rows=rows, ours=ours)
 
 
-def check_fused(name, index, run, dispatches, ties=False):
+def check_fused(name, index, run, dispatches):
     """The fused-search phase for one serving configuration. ``run()`` serves
     the queries (``dispatches`` blocks) and returns host (ids, distances).
     After one run that captures every key the configuration needs (the
     seconds of each capture printed), a run must launch no kernel outside a
     graph (no wrapper looks its kernel up) and replay once a block, and its
     results must equal the eager body's on the same blocks, ids and
-    distances; with ``ties`` (a torch.topk survivor cut over bf16 lower
-    bounds) a difference is measured and allowed down to a top-10 overlap
-    of 0.99. Then eager and graph QPS paired (medians of 5, in turns), one
+    distances (every selection orders ties one way: ``ops/select.top_k``).
+    Then eager and graph QPS paired (medians of 5, in turns), one
     profile of each (device busy share, the CUDA API's kernel and graph
     launches a dispatch, the port's kernels inside the replays), and the
     graphs' memory pool."""
@@ -769,12 +864,11 @@ def check_fused(name, index, run, dispatches, ties=False):
         raise AssertionError(f"fused {name}: {len(entries)} kernel launches outside a graph, "
                              f"{replayed} replays for {dispatches} blocks")
     want = eagerly(index, run)
-    ids_equal = float(np.mean(got[0] == want[0]))
-    overlap = float(np.mean([len(set(a.tolist()) & set(b.tolist())) / len(a)
-                             for a, b in zip(got[0], want[0])]))
-    same = ids_equal == 1.0 and np.array_equal(got[1], want[1])
-    d_err = float(np.nanmax(np.abs(got[1] - want[1]))) if got[1].size else 0.0
-    if not same and (not ties or overlap < 0.99):
+    if not (np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])):
+        ids_equal = float(np.mean(got[0] == want[0]))
+        overlap = float(np.mean([len(set(a.tolist()) & set(b.tolist())) / len(a)
+                                 for a, b in zip(got[0], want[0])]))
+        d_err = float(np.nanmax(np.abs(got[1] - want[1]))) if got[1].size else 0.0
         raise AssertionError(f"fused {name}: graph results differ from the eager body's (ids "
                              f"equal {ids_equal:.5f}, overlap {overlap:.5f}, max |d| {d_err:.3g})")
     n = len(got[0])
@@ -787,9 +881,7 @@ def check_fused(name, index, run, dispatches, ties=False):
     prof = {"eager": profile_dispatches(lambda: eagerly(index, run), dispatches),
             "graph": profile_dispatches(run, dispatches)}
     med = {k: float(np.median(v)) for k, v in qps.items()}
-    agree = ("ids and distances equal" if same else
-             f"ids equal {ids_equal:.5f}, top-10 overlap {overlap:.5f}, max |d| {d_err:.3g}")
-    log(f"fused {name}: graph vs eager body on the same {dispatches} blocks: {agree}; QPS "
+    log(f"fused {name}: graph vs eager body on the same {dispatches} blocks: ids and distances equal; QPS "
         f"paired, medians of {QPS_RUNS} [min, max]: eager {med['eager']:.0f} "
         f"[{min(qps['eager']):.0f}, {max(qps['eager']):.0f}], graph {med['graph']:.0f} "
         f"[{min(qps['graph']):.0f}, {max(qps['graph']):.0f}] ({med['graph'] / med['eager']:.2f}x)"
@@ -830,6 +922,7 @@ def zero_launches():
     from rabitq_tpu_torch.ops.fused_scan import fused_bin_scan_cuda, fused_bin_scan_packed_cuda
     from rabitq_tpu_torch.ops.kmeans import running_sum_kernel, segment_sum_kernel
     from rabitq_tpu_torch.ops.packed_scan import packed_lb_plane_cuda, packed_lb_scan_cuda
+    from rabitq_tpu_torch.ops.select import top_k_cuda
 
     fht_kernel.launches = 0
     fused_bin_scan_cuda.dense_launches = fused_bin_scan_cuda.compact_launches = 0
@@ -837,11 +930,24 @@ def zero_launches():
         fused_bin_scan_packed_cuda.launches[key] = 0
     packed_lb_scan_cuda.launches = packed_lb_plane_cuda.launches = 0
     segment_sum_kernel.launches = running_sum_kernel.launches = 0
+    for key in top_k_cuda.launches:
+        top_k_cuda.launches[key] = 0
+
+
+def select_counts():
+    """The selection kernel's launches by site and type
+    (``select_<site>_<f32|bf16>``) and in all (``select``)."""
+    from rabitq_tpu_torch.ops.select import top_k_cuda
+
+    counts = {f"select_{k}": v for k, v in top_k_cuda.launches.items()}
+    counts["select"] = sum(top_k_cuda.launches.values())
+    return counts
 
 
 def read_launches(path, needed):
     """The launch counters after a path's run; fails if a kernel in
-    ``needed`` never ran on it."""
+    ``needed`` never ran on it. The selection kernel's counts by site come
+    back beside ``needed``'s, for the kernel line."""
     from rabitq_tpu_torch.ops.fht import fht_kernel
     from rabitq_tpu_torch.ops.fused_scan import fused_bin_scan_cuda, fused_bin_scan_packed_cuda
     from rabitq_tpu_torch.ops.kmeans import running_sum_kernel, segment_sum_kernel
@@ -856,11 +962,13 @@ def read_launches(path, needed):
               "packed_lb_plane": packed_lb_plane_cuda.launches}
     counts.update({f"fused_bin_scan_packed_{k}": v
                    for k, v in fused_bin_scan_packed_cuda.launches.items()})
+    sites = select_counts()
+    counts.update(sites)
     counts = {k: counts[k] for k in needed}
     log(f"launches on the {path} path: {counts}")
     if min(counts.values()) <= 0:
         raise AssertionError(f"a kernel of the {path} path never ran: {counts}")
-    return counts
+    return {**sites, **counts}
 
 
 def check_persistence(index, queries_np, data):
@@ -900,7 +1008,7 @@ def check_persistence(index, queries_np, data):
     loaded.upload_dtype = index.upload_dtype
     zero_launches()
     ids, dists = serve(loaded, queries_np, 64)
-    launches = read_launches("RBQ1 reload", ("fht", "fused_bin_scan_dense"))
+    launches = read_launches("RBQ1 reload", ("fht", "fused_bin_scan_dense", "select"))
     if not (np.array_equal(ids, want_ids) and np.array_equal(dists, want_d)):
         raise AssertionError(
             f"RBQ1 reload: ids equal {np.mean(ids == want_ids):.5f}, dists equal "
@@ -931,7 +1039,7 @@ def check_resident(index, queries_np):
     zero_launches()
     handle = index.upload_queries(queries_np)
     ids, _ = index.batch_search_resident(handle, params, batch_size=256)
-    launches = read_launches("resident", ("fht", "fused_bin_scan_dense"))
+    launches = read_launches("resident", ("fht", "fused_bin_scan_dense", "select"))
     if not np.array_equal(ids, want_ids):
         raise AssertionError(f"resident ids equal on {np.mean(ids == want_ids):.5f} of entries")
     qps = {"resident": [], "pipelined": []}
@@ -986,7 +1094,7 @@ def check_gather(index, queries_np, gt):
             raise AssertionError("the gather scan's gate declined at nprobe 16")
         zero_launches()
         serve(index, queries_np, nprobe)
-        launches = read_launches("gather", ("fht",))
+        launches = read_launches("gather", ("fht", "select"))
         gather = measure("gather")
     finally:
         del os.environ["RABITQ_GATHER"], os.environ["RABITQ_GATHER_MAX"]
@@ -1241,7 +1349,8 @@ def check_reproducible_ivf(index, data, queries_np, digest, first):
     )
     torch.cuda.synchronize()
     again_s = time.perf_counter() - t0
-    launches = read_launches("7-bit train, second run", ("fht", "segment_sum", "running_sum"))
+    launches = read_launches("7-bit train, second run", ("fht", "segment_sum", "running_sum",
+                                                          "select"))
     h2 = again.host
     # the k-means result first, so that a failure names the earliest stage
     names = ["centroids", "cluster_offsets", "ids"]
@@ -1357,7 +1466,7 @@ def check_jax_shaped_ivf(index, data, data_np, queries_np, load_s):
     zero_launches()
     got = {nprobe: serve(made, queries_np, nprobe) for nprobe in (16, 64)}
     launches = read_launches("JAX-shaped IVF", (
-        "fht", "fused_bin_scan_compact", "fused_bin_scan_dense"))
+        "fht", "fused_bin_scan_compact", "fused_bin_scan_dense", "select"))
     qps = {}
     for nprobe in (16, 64):
         require_equal(f"JAX-shaped IVF nprobe={nprobe} ids", got[nprobe][0], want[nprobe][0])
@@ -1452,7 +1561,7 @@ def check_jax_shaped_brute_force(index, queries_np, params, want_ids):
     t0 = time.perf_counter()
     ids = bf_ids(fresh, queries_np, params)
     first_s = time.perf_counter() - t0
-    launches = read_launches("JAX-shaped brute force", ("fht", "packed_lb_plane"))
+    launches = read_launches("JAX-shaped brute force", ("fht", "packed_lb_plane", "select"))
     require_equal("JAX-shaped brute force packed ids", ids, want_ids)
     log(f"JAX-shaped brute force (host assigned to BruteForceRabitqIndex(..., None, "
         f"\"packed\")): {len(fresh)} rows; layout and the first packed run {first_s:.2f} s; "
@@ -1510,7 +1619,7 @@ def check_jax_shaped_mstg(index, data, data_np, queries_np):
     index.host = index.host
     zero_launches()
     ids, _ = serve_mstg(index, queries_np, 8)
-    launches = read_launches("JAX-shaped MSTG ef=8", ("fht", "fused_bin_scan"))
+    launches = read_launches("JAX-shaped MSTG ef=8", ("fht", "fused_bin_scan", "select"))
     if len(index) != n:
         raise AssertionError(f"MSTG host setter: len {len(index)} != {n}")
     require_equal("MSTG ef=8 ids after the host setter", ids, want_ids)
@@ -1582,12 +1691,11 @@ def check_brute_force(data, queries_np, gt):
         if recall < RECALL_FLOOR:
             raise AssertionError(f"brute force {scan_dtype}: recall@10 {recall:.4f} < "
                                  f"{RECALL_FLOOR}")
-    launches = read_launches("brute-force", ("fht", "packed_lb_plane"))
+    launches = read_launches("brute-force", ("fht", "packed_lb_plane", "select"))
     for scan_dtype in ("packed", "bf16"):
         index.scan_dtype = scan_dtype
         check_fused(f"brute force {scan_dtype}", index,
-                    lambda: bf_arrays(index, queries_np, params), len(queries_np) // 256,
-                    ties=True)
+                    lambda: bf_arrays(index, queries_np, params), len(queries_np) // 256)
     log_pool("brute-force", index)
     index.scan_dtype = "packed"
     args = capture_packed_lb_plane(lambda: index.batch_search(queries_np[:256], params), index)
@@ -1703,7 +1811,7 @@ def mstg_variant(name, data, queries, closure_epsilon=None):
             t0 = time.perf_counter()
             ids, dists = serve_mstg(index, queries_np, ef)
             qps.append(len(queries_np) / (time.perf_counter() - t0))
-        launches[ef] = read_launches(f"MSTG {name} ef={ef}", ("fht", "fused_bin_scan"))
+        launches[ef] = read_launches(f"MSTG {name} ef={ef}", ("fht", "fused_bin_scan", "select"))
         if index.scan_dtype != "fused8":
             raise AssertionError(f"MSTG {name}: fused8 was downgraded to {index.scan_dtype}")
         if ids.shape != (len(queries_np), 10) or (ids < 0).any() or not np.isfinite(dists).all():
@@ -2041,7 +2149,7 @@ def check_streamed(index, queries_np, gt):
             tier.batch_search_arrays(queries_np, params)
             qps[nprobe].append(len(queries_np) / (time.perf_counter() - t0))
     launches = read_launches("streamed", ("fht", "fused_bin_scan_packed_int8_compact",
-                                          "fused_bin_scan_packed_int8_dense"))
+                                          "fused_bin_scan_packed_int8_dense", "select"))
     walks = {16: tier._fused_max_tiles(16, len(queries_np)),
              256: tier._fused_max_tiles(256, len(queries_np))}
     for nprobe in (16, 256):
@@ -2204,7 +2312,7 @@ def check_sharded_ivf(index, data, queries_np, gt, mem_qps):
             lambda: serve_blocks(lambda q: sh.batch_search_arrays(q, params), queries_np),
             n, QPS_RUNS)
     launches = {"IVF": read_launches(f"sharded IVF ({SHARDS} shards)", (
-        "fht", "fused_bin_scan_compact", "fused_bin_scan_dense"))}
+        "fht", "fused_bin_scan_compact", "fused_bin_scan_dense", "select"))}
     for nprobe, ((ids, d), qps) in served.items():
         recall = check_served(f"sharded nprobe={nprobe}", ids, d, n, gt,
                               RECALL_FLOOR if nprobe == 256 else None)
@@ -2261,7 +2369,7 @@ def check_sharded_mstg(mstg, queries_np, gt):
         params = MstgSearchParams(top_k=10, ef_search=ef, pruning_epsilon=MSTG_EPS)
         served[ef] = timed_runs(lambda: serve_blocks(
             lambda q: result_arrays(msh.batch_search(q, params)), queries_np), n, QPS_RUNS)
-    launches = read_launches(f"sharded MSTG ({SHARDS} shards)", ("fht", "fused_bin_scan"))
+    launches = read_launches(f"sharded MSTG ({SHARDS} shards)", ("fht", "fused_bin_scan", "select"))
     for ef, ((ids, scores), qps) in served.items():
         recall = check_served(f"sharded MSTG ef={ef}", ids, scores, n, gt,
                               RECALL_FLOOR if ef == max(MSTG_EFS) else None)
@@ -2312,7 +2420,7 @@ def check_sharded_train(data, queries_np, gt, single):
     params = SearchParams(top_k=10, nprobe=64)
     ids, d = serve_blocks(lambda q: trained.batch_search_arrays(q, params), queries_np)
     launches = read_launches(f"sharded train ({SHARDS} shards) and its serving",
-                             ("fht", "fused_bin_scan", "segment_sum", "running_sum"))
+                             ("fht", "fused_bin_scan", "segment_sum", "running_sum", "select"))
     recall = check_served("sharded train nprobe=64", ids, d, n, gt, RECALL_FLOOR)
     obj, obj_single = nearest_objective(trained.index, data), single["objective"]
     log(f"sharded train {SHARDS} shards ({ROWS} x {DIM}, nlist {NLIST}, 7 bits, faster config, "
@@ -2371,7 +2479,7 @@ def check_sharded_8bit(index8, queries_np, gt):
             lambda: serve_blocks(lambda q: w.batch_search_arrays(q, params), queries_np),
             n, QPS_RUNS_8BIT)
         launches[f"IVF total_bits=8 {scan_dtype}"] = read_launches(
-            f"sharded total_bits=8 {scan_dtype} ({SHARDS} shards)", ("fht", needed))
+            f"sharded total_bits=8 {scan_dtype} ({SHARDS} shards)", ("fht", needed, "select"))
         recall = check_served(f"sharded total_bits=8 {scan_dtype}", ids, d, n, gt)
         log(f"serve sharded {SHARDS} shards total_bits=8 {scan_dtype} nprobe={nprobe}: recall@10 "
             f"{recall:.4f}; QPS over {QPS_RUNS_8BIT} runs (median [min, max]) {np.median(qps):.0f} "
@@ -2449,7 +2557,7 @@ def check_front_ends(data, queries, gt, mstg_path):
     whole_ids, _ = ivf.index.batch_search_arrays(queries_np, params)
     zero_launches()
     res = ivf.batch_query(queries_np, 10, 64)
-    launches["IVF binding"] = read_launches("IVF binding", ("fht", "fused_bin_scan_dense"))
+    launches["IVF binding"] = read_launches("IVF binding", ("fht", "fused_bin_scan_dense", "select"))
     ids = np.stack([r[:, 0].astype(np.int64) for r in res])
     equal = np.array_equal(ids, want_ids) and all(
         np.array_equal(r[:, 1], d) for r, d in zip(res, want_d))
@@ -2473,7 +2581,7 @@ def check_front_ends(data, queries, gt, mstg_path):
     want = mstg.index.batch_search_pipelined(queries_np, params, batch_size=256)
     zero_launches()
     res = mstg.batch_query(queries_np, 10)
-    launches["MSTG binding"] = read_launches("MSTG binding", ("fht",))
+    launches["MSTG binding"] = read_launches("MSTG binding", ("fht", "select"))
     equal = all(np.array_equal(r[:, 0].astype(np.int64), [h.id for h in w])
                 for r, w in zip(res, want))
     ids = np.full((len(res), 10), -1, np.int64)
@@ -2497,7 +2605,7 @@ def check_front_ends(data, queries, gt, mstg_path):
     t0 = time.perf_counter()
     algo.batch_query(queries_np, 10)
     batch_s = time.perf_counter() - t0
-    launches["ann-benchmarks IVF"] = read_launches("ann-benchmarks IVF", ("fht",))
+    launches["ann-benchmarks IVF"] = read_launches("ann-benchmarks IVF", ("fht", "select"))
     ids = np.stack(algo.get_batch_results())
     recall = recall_at(ids, gt, 10)
     log(f"ann-benchmarks {algo} (nlist_4096 group, scan_dtype {algo.index.index.scan_dtype}): "
@@ -2567,7 +2675,7 @@ def main() -> int:
                "fused_bin_scan": {"direct": ()},
                "packed_bin_scan": {"bits_bf16": (0,), "bits_s8": (1,)},
                "packed_lb_scan": {"both epilogues": ()},
-               "build_sums": {}}
+               "build_sums": {}, "select": {}}
     for name, text in build_logs.items():
         for k in _cuda.ptxas_report(text):
             log(f"  {name}: {k['kernel']}: {k['registers']} registers, {k['smem']} bytes static "
@@ -2638,11 +2746,13 @@ def main() -> int:
         "fused_bin_scan_compact": fused_bin_scan_cuda.compact_launches,
         "segment_sum": segment_sum_kernel.launches,  # the train's k-means
         "running_sum": running_sum_kernel.launches,  # its k-means++ init
+        "select": select_counts()["select"],  # centroid ranking, bins; the train's reseed
     }
     log(f"launches on the main path: {launches}")
     log(f"phase seconds: 7-bit serving {time.perf_counter() - t0_serve:.1f}")
     if min(launches.values()) <= 0 or launches["fht"] <= build_fht:
         raise AssertionError(f"a kernel of the main path never ran in serving: {launches}")
+    launches.update(select_counts())
     if recalls[256] < RECALL_FLOOR:
         raise AssertionError(f"recall@10 {recalls[256]:.4f} < {RECALL_FLOOR} at nprobe=256")
 
@@ -2716,11 +2826,13 @@ def main() -> int:
     # fused scans run two-stage through the packed bin kernel
     zero_launches()
     t0 = time.perf_counter()
-    index8 = IvfRabitqIndex.train(
-        data, nlist=NLIST, total_bits=8, metric=Metric.L2,
-        rotator_type=RotatorType.FhtKacRotator, seed=42, use_faster_config=True,
-        scan_dtype="fused8", device=dev,
-    )
+    sel_inputs = {}
+    with recording_selections(sel_inputs):  # the k-means reseed's input
+        index8 = IvfRabitqIndex.train(
+            data, nlist=NLIST, total_bits=8, metric=Metric.L2,
+            rotator_type=RotatorType.FhtKacRotator, seed=42, use_faster_config=True,
+            scan_dtype="fused8", device=dev,
+        )
     torch.cuda.synchronize()
     log(f"train total_bits=8: {time.perf_counter() - t0:.2f} s; report "
         f"{json.dumps(index8.build_report)}; fused EXACT ok {index8._fused_exact_ok()}")
@@ -2758,6 +2870,7 @@ def main() -> int:
     launches8["fht"] = fht_kernel.launches
     launches8["segment_sum"] = segment_sum_kernel.launches  # the 8-bit train's k-means
     launches8["running_sum"] = running_sum_kernel.launches
+    launches8["select"] = select_counts()["select"]
     # the TPU contract's epilogue is on no path (the sharded "packed" scan
     # takes G_TABLE, as the in-memory one does)
     g_plane_launches = packed_lb_scan_cuda.launches
@@ -2765,6 +2878,7 @@ def main() -> int:
         f"on no main path): {g_plane_launches}")
     if min(launches8.values()) <= 0:
         raise AssertionError(f"a kernel of the two-stage or dense path never ran: {launches8}")
+    launches8.update(select_counts())
     log(f"phase seconds: total_bits=8 serving {time.perf_counter() - t0:.1f}")
 
     t0 = time.perf_counter()
@@ -2772,16 +2886,20 @@ def main() -> int:
                                ("packed", 256), ("bf16", 256)):
         index8.scan_dtype = scan_dtype
         check_fused(f"8 bits {scan_dtype} nprobe={nprobe}", index8,
-                    lambda: serve(index8, queries_np, nprobe), len(queries_np) // 256,
-                    ties=scan_dtype in ("packed", "bf16"))
+                    lambda: serve(index8, queries_np, nprobe), len(queries_np) // 256)
     log_pool("8-bit", index8)
     log(f"phase seconds: fused search, 8 bits {time.perf_counter() - t0:.1f}")
 
     t0 = time.perf_counter()
     index8.scan_dtype = "packed"
     lb = check_packed_lb_scan(index8, queries_np, 256)
+    block = queries_np[:256]
+    with recording_selections(sel_inputs):  # survivors, centroid ranking, final top-k
+        eagerly(index8, lambda: index8.batch_search_arrays(block, SearchParams(10, 256)))
     profile_serving(index8, queries_np, 256, label="total_bits=8 packed ")
     index8.scan_dtype = "fused8"  # re-laid back to the cluster-sorted layout
+    with recording_selections(sel_inputs):  # the best bins of the two-stage scan
+        eagerly(index8, lambda: index8.batch_search_arrays(block, SearchParams(10, 16)))
     p_int8_compact = check_bin_scan(index8, queries_np, 16, "compacted")
     p_int8_dense = check_bin_scan(index8, queries_np, 256, "dense")
     profile_serving(index8, queries_np, 16, label="total_bits=8 fused8 ")
@@ -2790,6 +2908,13 @@ def main() -> int:
     p_bf16_dense = check_bin_scan(index8, queries_np, 256, "dense")
     profile_serving(index8, queries_np, 256, label="total_bits=8 fused ")
     log(f"phase seconds: total_bits=8 checks and profiles {time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    # the packed scan's survivor plane in f32: what it selects from with approx_topk=False
+    sel_inputs["survivors_f32"] = (sel_inputs["survivors_bf16"][0].float(),
+                                   sel_inputs["survivors_bf16"][1])
+    selection = check_selection(sel_inputs)
+    del sel_inputs
+    log(f"phase seconds: selection {time.perf_counter() - t0:.1f}")
 
     t0 = time.perf_counter()
     launches_sh8, k3_sharded, k4_sharded = check_sharded_8bit(index8, queries_np, gt)
@@ -2876,6 +3001,13 @@ def main() -> int:
         entry("packed_lb_plane_sharded", "rabitq_tpu_torch/csrc/packed_lb_scan.cu",
               "rabitq_tpu/ops/pallas_scan.py:141",
               sharded["IVF total_bits=8 packed"]["packed_lb_plane"], k4_sharded),
+    ]
+    # not a TPU kernel: it stands where the JAX package calls lax.top_k (an
+    # XLA op); one entry a site and type, launches summed over every path
+    kernels += [
+        entry(name, "rabitq_tpu_torch/csrc/select.cu", replaces,
+              sum(p.get(f"select_{key}", 0) for p in paths), selection[key])
+        for key, (name, replaces) in SELECT_SITES.items()
     ]
     for k in kernels:
         if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms")):

@@ -8,10 +8,11 @@ the Relative-Neighborhood-Graph rule — candidate j is skipped if an
 already-selected centroid i satisfies ``dist(v, j) > dist(c_i, c_j)``.
 
 Per chunk of rows: one [chunk, C] distance product, the ``max_replicas``
-closest centroids by a stable sort (ties to the lower centroid, as
-``lax.top_k`` breaks them), and the RNG rule as an unrolled R-step mask
-update over the [chunk, R, R] candidate-pair distances. The chunks' results
-stay on the device and come to the host once.
+closest centroids by ``ops/select.top_k`` of the negated distances
+(``lax.top_k``'s order: ties to the lower centroid), and the RNG rule as an
+unrolled R-step mask update over the [chunk, R, R] candidate-pair
+distances. The chunks' results stay on the device and come to the host
+once.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ...ops.select import top_k
 from ...utils.device import rows_on_device
 
 
@@ -35,8 +37,8 @@ def _closure_chunk(
     x_sq = torch.sum(chunk * chunk, dim=-1, keepdim=True)
     c_sq = torch.sum(centroids * centroids, dim=-1)[None, :]
     d2 = torch.clamp_min(x_sq + c_sq - 2.0 * (chunk @ centroids.T), 0.0)  # [M, C]
-    cand_d, cand = torch.sort(d2, dim=1, stable=True)  # closest first
-    cand_d, cand = cand_d[:, :r], cand[:, :r]
+    neg_d, cand = top_k(-d2, r, site="closure")  # closest first
+    cand_d, cand = -neg_d, cand.to(torch.int64)
 
     # the threshold factor in f32, as the JAX package computes it
     factor = torch.tensor(epsilon, dtype=torch.float32, device=chunk.device) + 1.0

@@ -46,6 +46,7 @@ from ..ops.packed_scan import (
     packed_lb_scan_cuda,
     permute_query,
 )
+from ..ops.select import top_k as select_top_k, top_k_cuda
 from ..types import Metric
 
 SCAN_DTYPES = ("f32", "bf16", "int8", "packed", "fused", "fused8")
@@ -290,9 +291,10 @@ def scan_kernel(
     lower-bound survivor selection, ``[:, 2]`` extended-code evaluations.
 
     ``approx_topk`` selects survivors from the bf16 plane as the reference
-    does; the selection itself is an exact ``torch.topk`` (the reference's
-    approximate op has no counterpart, and an exact selection is one of its
-    legal outcomes).
+    does; the selection itself is exact (the reference's approximate op has
+    no counterpart, and an exact selection is one of its legal outcomes).
+    Every selection here (centroid ranking, survivors, final top-k) is
+    ``ops/select.top_k``, ``lax.top_k``'s contract: ties to the lower index.
 
     With ``gather_rows`` (a static per-query row budget, cluster-sorted rows
     and the TOTAL refine plane) the gather scan serves the block instead."""
@@ -304,14 +306,13 @@ def scan_kernel(
     qc = est_ops.query_constants(q_rot, ex_bits)
     g_add, g_error, sq_dist, cent_dot = est_ops.g_terms(q_rot, centroids, metric)
 
-    # --- cluster selection (ivf.rs:1782-1835): stable descending order, ties
-    # to the lower cluster id as lax.top_k breaks them; MSTG navigates
-    # centroids by L2 whatever the scan metric
+    # --- cluster selection (ivf.rs:1782-1835): descending, ties to the lower
+    # cluster id; MSTG navigates centroids by L2 whatever the scan metric
     sel = -sq_dist if (centroid_select_l2 or metric is Metric.L2) else cent_dot
     k_sel = n_clusters if probe_k is None else min(probe_k, n_clusters)
     nprobe = min(max(int(nprobe), 1), n_clusters, k_sel)
-    ranked_sel, ranked = torch.sort(sel, dim=1, descending=True, stable=True)
-    ranked_sel, ranked = ranked_sel[:, :k_sel], ranked[:, :k_sel]
+    ranked_sel, ranked = select_top_k(sel, k_sel, site="centroids")
+    ranked = ranked.to(torch.int64)
     within = (torch.arange(k_sel, device=q_rot.device) < nprobe)[None, :].expand(b, k_sel)
     if use_prune_epsilon:
         # MSTG dynamic pruning (mstg/index.rs:349-362) on squared distances
@@ -429,9 +430,8 @@ def scan_kernel(
             neg_lb = neg_lb.to(torch.bfloat16)
 
     # --- survivor selection: a fixed-size replacement of the heap prune
-    top_neg, cand_idx = torch.topk(neg_lb, rerank, dim=1)
+    top_neg, cand_idx = select_top_k(neg_lb, rerank, site="survivors")
     cand_ok = top_neg.to(torch.float32) > -float("inf")
-    cand_idx = cand_idx.to(torch.int32)
 
     result = _stage2_rerank(
         q_rot, qc, g_add, binary, ex, f_add, f_rescale, f_add_ex, f_rescale_ex,
@@ -492,11 +492,11 @@ def _gather_scan(
     ok = valid & row_allowed[row]
     dist = torch.where(ok & torch.isfinite(dist), dist, float("inf"))
 
-    # final top-k: stable, ties to the earlier slot as lax.top_k breaks them
+    # final top-k: ties to the earlier slot
     k = min(top_k, gather_rows)
-    result_dist, pos = torch.sort(dist, dim=1, stable=True)
-    result_dist = _clamp_l2(result_dist[:, :k], metric, clamp_l2)
-    result_rows = torch.gather(row, 1, pos[:, :k])
+    neg_d, pos = select_top_k(-dist, k, site="final")
+    result_dist = _clamp_l2(-neg_d, metric, clamp_l2)
+    result_rows = torch.gather(row, 1, pos.to(torch.int64))
     result_ids = torch.where(torch.isfinite(result_dist), ids[result_rows], -1)
     result = _pad_results(result_ids, result_dist, top_k)
     if not with_diagnostics:
@@ -592,13 +592,11 @@ def _stage2_rerank(
         )
     dist = torch.where(cand_ok & torch.isfinite(dist), dist, float("inf"))
 
-    # final top-k: a stable ascending sort, ties to the earlier survivor as
-    # lax.top_k breaks them
+    # final top-k: ties to the earlier survivor
     k = min(top_k, rerank)
-    result_dist, pos = torch.sort(dist, dim=1, stable=True)
-    result_dist, pos = result_dist[:, :k], pos[:, :k]
-    result_dist = _clamp_l2(result_dist, metric, clamp_l2)
-    result_rows = torch.gather(rows, 1, pos)
+    neg_d, pos = select_top_k(-dist, k, site="final")
+    result_dist = _clamp_l2(-neg_d, metric, clamp_l2)
+    result_rows = torch.gather(rows, 1, pos.to(torch.int64))
     result_ids = torch.where(torch.isfinite(result_dist), ids[result_rows], -1)
     return _pad_results(result_ids, result_dist, top_k)
 
@@ -647,8 +645,8 @@ def _launch_counters():
         (vars(packed_lb_scan_cuda), "launches"),
         (vars(packed_lb_plane_cuda), "launches"),
     ]
-    return slots + [(fused_bin_scan_packed_cuda.launches, k)
-                    for k in fused_bin_scan_packed_cuda.launches]
+    return slots + [(d, k) for d in (fused_bin_scan_packed_cuda.launches, top_k_cuda.launches)
+                    for k in d]
 
 
 def _read_launches() -> list[int]:

@@ -25,7 +25,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("fht", "fused_bin_scan", "packed_bin_scan", "packed_lb_scan", "build_sums")
+SOURCES = (
+    "fht", "fused_bin_scan", "packed_bin_scan", "packed_lb_scan", "build_sums", "select",
+)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,6 +47,7 @@ _SIGNATURES = {
     ),
     "segment_sum": ("build_sums", "rabitq_segment_sum", (_P,) * 4 + (_L, _L, _I, _P)),
     "running_sum": ("build_sums", "rabitq_running_sum", (_P, _P, _L, _P)),
+    "top_k": ("select", "rabitq_top_k", (_P,) * 6 + (_L, _L, _L, _I, _I, _I, _P)),
 }
 
 _entries: dict = {}  # kernel name -> (library, entry point)

@@ -50,6 +50,7 @@ import torch
 
 from . import _cuda
 from .packed_scan import permute_query, unpack_bitplanes
+from .select import top_k
 
 TN = 512  # rows per tile (device layouts for this path pad rows to TN)
 GROUPS = 16  # bin groups: L = GROUPS * TN bins
@@ -648,10 +649,9 @@ def fused_select(
         **extra,
     )
     r = min(rerank, n_bins())
-    # ascending stable sort: ties keep the lower bin, as lax.top_k does
-    vals, pos = torch.sort(bins_val, dim=1, stable=True)
-    vals, pos = vals[:, :r], pos[:, :r]
-    cand_idx = torch.gather(bins_idx, 1, pos)
+    neg, pos = top_k(-bins_val, r, site="bins")  # ties keep the lower bin
+    vals = -neg
+    cand_idx = torch.gather(bins_idx, 1, pos.to(torch.int64))
     cand_ok = (vals < BIG / 2) & (cand_idx >= 0)
     probed = offered.sum(dim=1, dtype=torch.int32)
     if with_values:

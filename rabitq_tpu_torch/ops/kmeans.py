@@ -35,6 +35,7 @@ import torch
 
 from ..utils.device import rows_on_device, synchronize
 from . import _cuda, prng
+from .select import top_k
 
 RESEED_CANDIDATES = 8  # kmeans.rs:9
 DEFAULT_MAX_POINTS_PER_CENTROID = 256  # kmeans.rs:10
@@ -347,7 +348,7 @@ def _lloyd_step(
     new_c = sums / torch.clamp_min(counts, 1.0)[:, None]
     empty = counts == 0
     far_d = torch.where(row_valid, dists, float("-inf"))
-    far_idx = torch.topk(far_d, min(RESEED_CANDIDATES, n)).indices
+    far_idx = top_k(far_d, min(RESEED_CANDIDATES, n), site="reseed")[1].to(torch.int64)
     rank = torch.clamp(torch.cumsum(empty.to(torch.int32), 0) - 1, 0, far_idx.shape[0] - 1)
     reseed = data[far_idx[rank]]
     new_c = torch.where(empty[:, None], reseed, new_c)

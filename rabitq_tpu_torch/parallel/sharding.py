@@ -38,6 +38,7 @@ import torch
 from ..index.build import build_codes_device, exact_t_rows
 from ..index.ivf import IvfRabitqIndex
 from ..index.scan import _pad_pow2, is_fused, probe_k_bucket, scan_kernel
+from ..ops import select
 from ..ops.fused_scan import TB, TN, sliced_max_tiles, tile_cluster_blocks
 from ..ops.kmeans import KMeansResult, _assign_blocks, _kmeanspp_init, segment_sum_counts
 from ..ops.packed_scan import _KERNEL_RU, pack_bitplanes
@@ -130,17 +131,16 @@ def replicate(mesh: Mesh, *arrays):
 
 def _merge_topk(ids, dists, top_k: int, device: torch.device):
     """The final top-k of the shards' ``[B, k]`` candidates on ``device``:
-    their shard-major concatenation sorted ascending by distance with a
-    stable sort, so that ties keep the lower column, as ``lax.top_k``
-    breaks them. One shard's candidates are the result as they are."""
+    ``lax.top_k`` of their shard-major concatenation's negated distances
+    (``ops/select.top_k``), so that ties keep the lower column. One shard's
+    candidates are the result as they are."""
     nb = device.type == "cuda"
     if len(ids) == 1:
         return ids[0].to(device, non_blocking=nb), dists[0].to(device, non_blocking=nb)
     all_ids = torch.cat([t.to(device, non_blocking=nb) for t in ids], dim=1)
     all_d = torch.cat([t.to(device, non_blocking=nb) for t in dists], dim=1)
-    d, pos = torch.sort(all_d, dim=1, stable=True)
-    pos = pos[:, :top_k]
-    return torch.gather(all_ids, 1, pos), d[:, :top_k]
+    neg, pos = select.top_k(-all_d, top_k, site="merge")
+    return torch.gather(all_ids, 1, pos.to(torch.int64)), -neg
 
 
 def sharded_scan(

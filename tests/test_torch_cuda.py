@@ -1147,3 +1147,104 @@ def test_kmeanspp_picks_on_the_card_equal_the_cpu(cuda, seed):
     on_card = km._kmeanspp_init(data.to(cuda), key, 64, 4096)
     on_cpu = km._kmeanspp_init(data, key, 64, 4096)
     assert torch.equal(on_card.cpu(), on_cpu)
+
+
+def _tied_plane(shape, dtype, cuda, seed, masked=0.0):
+    """Values with very many ties (quarters in [-50, 50), then rounded to
+    ``dtype``), about 1% each of +0.0, -0.0, +inf and -inf, and where
+    ``masked`` is given that share of -inf, as a probe mask leaves a
+    survivor plane."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randint(-200, 200, shape, generator=g, device=cuda).to(torch.float32) / 4
+    r = torch.rand(shape, generator=g, device=cuda)
+    for lo, v in ((0.00, 0.0), (0.01, -0.0), (0.02, float("inf")), (0.03, float("-inf"))):
+        x = torch.where((r >= lo) & (r < lo + 0.01), torch.tensor(v, device=cuda), x)
+    x = torch.where(r >= 1.0 - masked, float("-inf"), x)
+    return x.to(dtype)
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def _check_top_k(x, k):
+    """The kernel against its plain version: values bitwise, indices equal,
+    one launch."""
+    from rabitq_tpu_torch.ops import select
+
+    before = sum(select.top_k_cuda.launches.values())
+    v, i = select.top_k(x, k)
+    rows = x.shape[0] if x.dim() == 2 else 1
+    passes = 2 if select._segments(x, rows, x.shape[-1], k)[0] > 1 else 1
+    assert sum(select.top_k_cuda.launches.values()) == before + passes
+    pv, pi = select.top_k_plain(x, k)
+    assert v.dtype == x.dtype and i.dtype == torch.int32 and v.shape == (*x.shape[:-1], k)
+    assert torch.equal(i, pi), float((i == pi).float().mean())
+    assert torch.equal(_bits(v), _bits(pv))
+    return v, i
+
+
+@pytest.mark.parametrize("k", [1, 10, 400, 10_000])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_top_k_kernel_bitwise_at_the_survivor_shape(cuda, dtype, k):
+    """[256, 1,000,448], the dense scans' survivor plane, with ties, signed
+    zeros and infinities; k = 10,000 orders more winners than a block's
+    shared memory holds."""
+    _check_top_k(_tied_plane((256, 1_000_448), dtype, cuda, k), k)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_top_k_kernel_bitwise_on_a_masked_plane(cuda, dtype):
+    """94% -inf, as at nprobe 256 of 4096 clusters."""
+    _check_top_k(_tied_plane((256, 1_000_448), dtype, cuda, 7, masked=0.94), 400)
+
+
+@pytest.mark.parametrize("shape,k", [((256, 4096), 4096), ((256, 4096), 16), ((256, 8192), 400),
+                                     ((256, 400), 10), ((1_000_000,), 8), ((1_000_000,), 5000),
+                                     ((4, 1_000_448), 400), ((3, 1001), 1001), ((5, 33), 7),
+                                     ((2, 1), 1), ((1, 2), 2)])
+def test_top_k_kernel_bitwise_at_the_other_shapes(cuda, shape, k):
+    """The centroid ranking (k = n and a probe bucket), the best bins, the
+    final top-k, the k-means reseed (1-D), few long rows (two passes: the
+    segments' top k, then theirs), and rows whose length is no multiple of
+    8 (scalar loads), in both types."""
+    for dtype in (torch.float32, torch.bfloat16):
+        _check_top_k(_tied_plane(shape, dtype, cuda, k + len(shape)), k)
+    x = torch.randn(shape, device=cuda)  # few ties
+    _check_top_k(x, k)
+    if x.dim() == 2 and x.shape[1] > 1:
+        _check_top_k(x[:, 1:], k - 1 if k == x.shape[1] else k)  # a strided view is copied
+
+
+def test_top_k_kernel_two_calls_and_a_graph_give_equal_bits(cuda):
+    from rabitq_tpu_torch.ops import select
+
+    x = _tied_plane((256, 1_000_448), torch.bfloat16, cuda, 3, masked=0.5)
+    v1, i1 = select.top_k(x, 400)
+    v2, i2 = select.top_k(x, 400)
+    assert torch.equal(_bits(v1), _bits(v2)) and torch.equal(i1, i2)
+    static = x.clone()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        select.top_k(static, 400)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        gv, gi = select.top_k(static, 400)
+    for seed in (3, 4):
+        static.copy_(_tied_plane((256, 1_000_448), torch.bfloat16, cuda, seed, masked=0.5))
+        graph.replay()
+        ev, ei = select.top_k(static, 400)
+        assert torch.equal(_bits(gv), _bits(ev)) and torch.equal(gi, ei)
+
+
+def test_top_k_kernel_refuses_what_it_does_not_take(cuda):
+    from rabitq_tpu_torch.ops import select
+
+    with pytest.raises(ValueError):
+        select.top_k(torch.zeros((2, 8), device=cuda, dtype=torch.float16), 1)
+    with pytest.raises(ValueError):
+        select.top_k(torch.zeros((2, 8), device=cuda), 9)
+    v, i = select.top_k(torch.zeros((2, 8), device=cuda), 0)
+    assert v.shape == i.shape == (2, 0)

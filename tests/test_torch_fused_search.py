@@ -194,15 +194,18 @@ def test_launch_counts_add_and_take_back():
     takes the capture's own counts back: one slot per wrapper counter."""
     from rabitq_tpu_torch.ops.fht import fht_kernel
     from rabitq_tpu_torch.ops.fused_scan import fused_bin_scan_packed_cuda
+    from rabitq_tpu_torch.ops.select import top_k_cuda
 
     before = tscan._read_launches()
-    assert len(before) == 9
-    delta = list(range(1, 10))
+    assert len(before) == 9 + len(top_k_cuda.launches)  # the selection: a slot a site and type
+    delta = list(range(1, len(before) + 1))
     tscan._add_launches(delta)
     after = tscan._read_launches()
     assert [a - b for a, b in zip(after, before)] == delta
     assert fht_kernel.launches == before[0] + 1
-    assert fused_bin_scan_packed_cuda.launches["int8_compact"] - delta[-1] in before
+    assert list(fused_bin_scan_packed_cuda.launches.values()) == [
+        b + d for b, d in zip(before[5:9], delta[5:9])]
+    assert list(top_k_cuda.launches.values()) == [b + d for b, d in zip(before[9:], delta[9:])]
     tscan._add_launches(delta, -1)
     assert tscan._read_launches() == before
 

@@ -5,10 +5,16 @@ fused and fused8, ``total_bits`` 1, 7 and 8, L2 and inner product.
 
 Tolerances. ``f32`` with exact selection is the oracle configuration: ids
 equal per query, distances rtol 1e-5 (the f32 sums run in another order).
-Every other path rounds the query to bf16 or int8 somewhere and selects
-survivors from bf16 values, where ties fall differently in the two
-packages: top-10 overlap >= 0.9 per query and >= 0.98 on average,
-distances of common ids rtol 1e-3 (as ``tests/test_torch_ivf.py``)."""
+Every selection of both packages is ``lax.top_k``'s (the port's
+``ops/select.top_k``: ties to the lower index), so with exact selection
+(``approx_topk=False``) the ``int8``, ``bf16`` and ``packed`` scans also
+give equal ids per query, even at a ``rerank`` so tight that many lower
+bounds tie at the cut, and the ``f32`` oracle does on rows that each appear
+three times. Where the JAX package takes ``approx_max_k`` (the default
+outside ``f32``) its survivors are approximate and the port's exact; those
+paths, and the fused scans, whose bins hold values the two packages sum in
+another order, hold top-10 overlap >= 0.9 per query and >= 0.98 on
+average, distances of common ids rtol 1e-3 (as ``tests/test_torch_ivf.py``)."""
 
 from __future__ import annotations
 
@@ -108,6 +114,50 @@ def test_scan_path_matches_jax(jax_indexes, scan_dtype, total_bits, metric):
     # the permuted layouts share the permutation, so row order matches
     np.testing.assert_array_equal(tidx.layout.perm, jidx._device_perm)
     np.testing.assert_array_equal(tidx.layout.ids.numpy(), np.asarray(jidx.device.ids))
+
+
+@pytest.mark.parametrize("total_bits", [7, 8])
+@pytest.mark.parametrize("scan_dtype", ["int8", "bf16", "packed"])
+def test_exact_selection_ids_equal_jax(jax_indexes, scan_dtype, total_bits):
+    """Exact survivors at ``rerank=12``: both packages cut the same lower
+    bounds with ``lax.top_k``, ties to the lower row, so the ids are equal
+    per query (the ``packed`` scan's bf16 plane ties often at the cut)."""
+    data, get = jax_indexes
+    jidx = get(total_bits, "l2")
+    jidx.scan_dtype = scan_dtype
+    jidx.approx_topk = False
+    tidx = _carry(jidx, scan_dtype, approx_topk=False)
+    queries = data[:16]
+    j_ids, j_d = jidx.batch_search_arrays(queries, jr.SearchParams(TOP_K, NPROBE, rerank=12))
+    t_ids, t_d = tidx.batch_search_arrays(queries, tr.SearchParams(TOP_K, NPROBE, rerank=12))
+    np.testing.assert_array_equal(t_ids, j_ids)
+    np.testing.assert_allclose(t_d, j_d, rtol=1e-3, atol=1e-3)
+
+
+@pytest.fixture(scope="module")
+def triplicated():
+    """Every row three times, as real datasets carry exact duplicates, and
+    a JAX index over them."""
+    data = np.tile(_data(n=N // 3), (3, 1))
+    return data, jr.IvfRabitqIndex.train(data, nlist=NLIST, total_bits=7, seed=3, scan_dtype="f32")
+
+
+@pytest.mark.parametrize("scan_dtype", ["f32", "int8", "bf16", "packed"])
+def test_exact_selection_ids_equal_jax_on_triplicated_rows(triplicated, scan_dtype):
+    """The copies' lower bounds and distances tie exactly; both packages
+    list them in the same order, at the default ``rerank``."""
+    data, jidx = triplicated
+    jidx.scan_dtype = scan_dtype
+    jidx.approx_topk = False
+    tidx = _carry(jidx, scan_dtype, approx_topk=False)
+    queries = data[:16]
+    j_ids, j_d = jidx.batch_search_arrays(queries, jr.SearchParams(TOP_K, NPROBE))
+    t_ids, t_d = tidx.batch_search_arrays(queries, tr.SearchParams(TOP_K, NPROBE))
+    np.testing.assert_array_equal(t_ids, j_ids)
+    if scan_dtype == "f32":
+        _agree(j_ids, j_d, t_ids, t_d, exact=True)
+    else:
+        np.testing.assert_allclose(t_d, j_d, rtol=1e-3, atol=1e-3)
 
 
 @pytest.mark.parametrize("scan_dtype,total_bits", [("f32", 7), ("fused", 7), ("fused", 8), ("packed", 8)])

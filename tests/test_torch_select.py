@@ -1,0 +1,196 @@
+"""``ops/select.top_k``, the port's one selection, against ``jax.lax.top_k``
+on the CPU, and the selection sites that tie: the k-means reseed, the MSTG
+closure and the shard merge.
+
+Every comparison is exact: values bit for bit (a NaN's payload, a zero's
+sign) and indices equal. The inputs tie heavily on purpose: integer-valued
+floats, values rounded to bf16, a constant row, signed zeros, infinities and
+NaNs of both signs with several payloads.
+"""
+
+from __future__ import annotations
+
+import re
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rabitq_tpu.index.mstg import closure as jcl
+from rabitq_tpu.ops import kmeans as jk
+from rabitq_tpu_torch.index.mstg import closure as tcl
+from rabitq_tpu_torch.ops import kmeans as tk
+from rabitq_tpu_torch.ops import select
+from rabitq_tpu_torch.parallel import sharding as tsh
+
+# f32 bit patterns the order must place: NaNs of both signs and three
+# payloads, infinities, signed zeros, +-1
+SPECIAL_F32 = np.array(
+    [0x7FC00000, 0x7FC00001, 0x7FC00002, 0xFFC00000, 0xFFC00001, 0x7F800000, 0xFF800000,
+     0x00000000, 0x80000000, 0x3F800000, 0xBF800000], dtype=np.uint32,
+)
+
+
+def _bits(kind: str, shape, rng) -> np.ndarray:
+    """Bits of a float32 input (uint32) or, for the "bf16_*" kinds, a bf16
+    input (uint16)."""
+    n = int(np.prod(shape))
+    if kind == "integers":
+        x = rng.integers(-3, 4, n).astype(np.float32)
+    elif kind == "rounded_to_bf16":  # f32 values that carry bf16's precision
+        x = rng.standard_normal(n).astype(np.float32)
+        x = (x.view(np.uint32) & 0xFFFF0000).view(np.float32)
+    elif kind == "constant":
+        x = np.full(n, 1.5, np.float32)
+    elif kind == "special":
+        return rng.choice(SPECIAL_F32, n).reshape(shape)
+    elif kind == "signed_zeros":
+        return rng.choice(SPECIAL_F32[7:9], n).reshape(shape)
+    elif kind == "bf16_normal":
+        x = rng.standard_normal(n).astype(np.float32)
+        return (x.view(np.uint32) >> 16).astype(np.uint16).reshape(shape)
+    elif kind == "bf16_special":
+        return (rng.choice(SPECIAL_F32, n) >> 16).astype(np.uint16).reshape(shape)
+    else:
+        raise ValueError(kind)
+    return x.view(np.uint32).reshape(shape)
+
+
+def _pair(bits: np.ndarray):
+    """The same bits as a JAX array and a torch tensor."""
+    if bits.dtype == np.uint16:
+        return jnp.asarray(bits.view(jnp.bfloat16)), torch.from_numpy(bits.view(np.int16)).view(
+            torch.bfloat16)
+    return jnp.asarray(bits.view(np.float32)), torch.from_numpy(bits.view(np.float32).copy())
+
+
+def _as_bits(t: torch.Tensor) -> np.ndarray:
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy().view(np.uint32)
+
+
+KINDS = ("integers", "rounded_to_bf16", "constant", "special", "signed_zeros", "bf16_normal",
+         "bf16_special")
+
+
+@pytest.mark.parametrize("k_of", ["1", "mid", "n"])
+@pytest.mark.parametrize("shape", [(37,), (5, 64)])
+@pytest.mark.parametrize("kind", KINDS)
+def test_top_k_equals_lax_top_k(kind, shape, k_of):
+    rng = np.random.default_rng(len(kind) * 100 + len(shape))
+    bits = _bits(kind, shape, rng)
+    n = shape[-1]
+    k = {"1": 1, "mid": n // 3, "n": n}[k_of]
+    jx, tx = _pair(bits)
+    j_val, j_idx = jax.lax.top_k(jx, k)
+    t_val, t_idx = select.top_k(tx, k)
+    assert t_val.dtype == tx.dtype and t_idx.dtype == torch.int32
+    assert t_val.shape == t_idx.shape == (*shape[:-1], k)
+    np.testing.assert_array_equal(_as_bits(t_val), np.asarray(j_val).view(bits.dtype))
+    np.testing.assert_array_equal(t_idx.numpy(), np.asarray(j_idx))
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_ordered_key_is_lax_top_k_total_order(dtype):
+    """Every bf16 bit pattern, and those patterns widened to f32 with a low
+    payload, all in one row: the full order equals ``lax.top_k``'s. The bf16
+    row leaves out the subnormals and the NaNs other than 0x7FC0 and 0xFFC0:
+    XLA's bf16 top_k on the CPU compares through f32 with subnormals flushed
+    to zero and signalling NaNs quieted, and returns every NaN as one of
+    those two, where the port orders and keeps each pattern's bits (held
+    for those patterns against the f32 row, which XLA orders by its bits)."""
+    bits = np.arange(1 << 16, dtype=np.uint32)
+    if dtype == "bf16":
+        exponent, mantissa = bits & 0x7F80, bits & 0x7F
+        odd = ((exponent == 0) & (mantissa != 0)) | ((exponent == 0x7F80) & (mantissa != 0)
+                                                     & ((bits & 0x7FFF) != 0x7FC0))
+        bits = bits[~odd].astype(np.uint16)
+    else:
+        bits = (bits << 16) | np.random.default_rng(0).integers(0, 3, bits.size, dtype=np.uint32)
+    bits = np.random.default_rng(1).permutation(bits)
+    jx, tx = _pair(bits)
+    j_val, j_idx = jax.lax.top_k(jx, bits.size)
+    t_val, t_idx = select.top_k_plain(tx, bits.size)
+    np.testing.assert_array_equal(t_idx.numpy(), np.asarray(j_idx))
+    np.testing.assert_array_equal(_as_bits(t_val), np.asarray(j_val).view(bits.dtype))
+
+
+def test_top_k_dispatch_and_limits():
+    x = torch.tensor([[1.0, 3.0, 2.0], [0.0, -0.0, 5.0]])
+    before = dict(select.top_k_cuda.launches)
+    v, i = select.top_k(x, 2)  # a CPU tensor: the plain version, no launch
+    assert select.top_k_cuda.launches == before
+    assert v.tolist() == [[3.0, 2.0], [5.0, 0.0]] and i.tolist() == [[1, 2], [2, 0]]
+    v, i = select.top_k(x, 0)
+    assert v.shape == i.shape == (2, 0)
+    for bad in (x.to(torch.float64), x.to(torch.int32), x[None], torch.tensor(1.0)):
+        with pytest.raises(ValueError):
+            select.top_k(bad, 1)
+    with pytest.raises(ValueError):
+        select.top_k(x, 4)
+    with pytest.raises(ValueError):
+        select.top_k(x.to("meta"), 1)  # neither the CPU nor a CUDA device
+    with pytest.raises(ValueError):
+        select.top_k_cuda(x, 1, site="nowhere")
+
+
+def test_no_other_selection_in_the_port():
+    """``torch.topk`` orders ties as it likes: the port selects with
+    ``ops/select.top_k`` only."""
+    root = Path(select.__file__).resolve().parent.parent
+    found = [str(p.relative_to(root)) for p in root.rglob("*.py")
+             if re.search(r"torch\.topk|\.topk\(", p.read_text())]
+    assert found == []
+
+
+def test_reseed_picks_the_jax_rows_among_tied_distances():
+    """One Lloyd step with three empty clusters on integer rows: twelve far
+    rows at the same distance from their centroid (+-10 along six axes)
+    compete for the reseeds; both packages take the same rows, and the
+    centroids come out bitwise equal."""
+    rng = np.random.default_rng(5)
+    dim = 8
+    near = rng.integers(-1, 2, (244, dim)).astype(np.float32)
+    far = np.zeros((12, dim), np.float32)
+    for j in range(12):
+        far[j, j % 6] = 10.0 if j < 6 else -10.0
+    data = np.concatenate([near[:100], far, near[100:]])
+    init = np.zeros((6, dim), np.float32)
+    init[1, 0], init[2, 1] = 40.0, -40.0
+    init[3:] = 1000.0 + np.arange(3, dtype=np.float32)[:, None]  # empty clusters
+    jc, _ = jk._lloyd_step(jnp.asarray(data), jnp.asarray(init), 6, 64, len(data), False)
+    tc, _ = tk._lloyd_step(torch.from_numpy(data), torch.from_numpy(init), 6, 64, len(data), False)
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    assert {tuple(r) for r in tc.numpy()[3:]} <= {tuple(r) for r in far}
+
+
+def test_closure_candidates_equal_jax_among_tied_centroids():
+    """Rows equidistant from several centroids: the candidate order (ties to
+    the lower centroid) and the RNG rule's picks equal the JAX package's."""
+    cents = np.array([[2, 0], [0, 2], [-2, 0], [0, -2], [4, 4], [-4, 4]], np.float32)
+    rows = np.array([[0, 0], [1, 1], [-1, 1], [0, 3], [2, 2], [0, 0]], np.float32)
+    j_cand, j_sel = jcl._closure_chunk(jnp.asarray(rows), jnp.asarray(cents), 0.5, 4)
+    t_cand, t_sel = tcl._closure_chunk(torch.from_numpy(rows), torch.from_numpy(cents), 0.5, 4)
+    np.testing.assert_array_equal(t_cand.numpy(), np.asarray(j_cand))
+    np.testing.assert_array_equal(t_sel.numpy(), np.asarray(j_sel))
+
+
+def test_shard_merge_equals_jax_on_signed_zeros_and_ties():
+    """Four shards' candidates with tied distances, +0.0 beside -0.0 and
+    +inf padding: ids and distances (bits) equal ``lax.top_k(-d, k)``'s,
+    the JAX package's merge (``rabitq_tpu/parallel/sharding.py:167``)."""
+    rng = np.random.default_rng(2)
+    dists = rng.choice(np.array([0.0, -0.0, 1.0, 2.0, np.inf], np.float32), (6, 4 * 5))
+    ids = rng.integers(0, 1000, dists.shape).astype(np.int32)
+    g_ids, g_d = tsh._merge_topk(
+        list(torch.from_numpy(ids).split(5, dim=1)), list(torch.from_numpy(dists).split(5, dim=1)),
+        7, torch.device("cpu"),
+    )
+    neg, pos = jax.lax.top_k(-jnp.asarray(dists), 7)
+    np.testing.assert_array_equal(g_ids.numpy(), np.take_along_axis(ids, np.asarray(pos), 1))
+    np.testing.assert_array_equal(g_d.numpy().view(np.uint32),
+                                  (-np.asarray(neg)).view(np.uint32))
