@@ -156,9 +156,10 @@ time while its first index is alive and freed before the next phase
      shape (the 1M rows into 4097 segments by the 7-bit index's lists)
      against its plain version (CPU index_add_, ascending row order),
      bitwise, timed beside index_add_ on the card and the bound; the
-     running-sum kernel at the k-means++ init's shape (262,144 weights)
-     against its plain version, bitwise, beside a 1-D torch.cumsum on the
-     card (and how often that one's bits vary) and the bound; then the
+     running-sum kernel at the k-means++ init's shape (262,144 weights,
+     two launches) and at one tile (2,048 weights, one launch) against its
+     plain version, bitwise, beside a 1-D torch.cumsum on the card (and how
+     often that one's bits vary), the bound and its launches a call; then the
      7-bit headline train again: every host array bitwise equal, its RBQ1
      file byte-identical to the persistence phase's, nprobe 16 ids and
      distances equal, both trains' seconds by phase;
@@ -177,7 +178,9 @@ with equal bits, on the inputs the 8-bit index gave it: the survivor plane
 of a "packed" search at nprobe 256 in bf16 and in f32, its centroid ranking
 and final top-k, the best bins of a "fused8" search at nprobe 16 and the
 k-means reseed of the 8-bit train; timed beside torch.topk at the same
-(x, k) and the bound. Every path's launch line carries the kernel's count.
+(x, k) and the bound, with the variant each shape took (the long-row
+kernel, or a short-row one: warp, sort or select). Every path's launch line
+carries the kernel's count.
 Every search of the IVF, brute-force and MSTG indexes goes through the
 index's fused search (rabitq_tpu_torch.index.scan.make_fused_search): on the
 card one CUDA graph replay a dispatch, captured at a key's first call, with
@@ -680,23 +683,33 @@ def recording_selections(into):
 def check_selection(inputs):
     """The selection kernel against its plain version (a stable sort of the
     ordered key) on inputs the main path gave it: values and indices
-    bitwise equal, two runs equal; the kernel's, the plain version's and
-    torch.topk's device times (torch.topk computes the same set, ties in its
-    own order) beside the bound, one read of the input and one write of the
-    outputs at 3.35 TB/s. Launches made here are not counted."""
+    bitwise equal, two runs equal, with the variant each shape took; the
+    kernel's, the plain version's and torch.topk's device times (torch.topk
+    computes the same set, ties in its own order) beside the bound, one read
+    of the input and one write of the outputs at 3.35 TB/s. Times are of
+    calls queued behind a long product, so that they run back to back:
+    a short call's own host overhead (tens of microseconds in the wrapper)
+    exceeds its device time. Where a short-row variant took the shape, the
+    long-row kernel (every row's path before the short-row variants) is
+    checked and timed on the same input beside it. Launches made here are
+    not counted."""
     import torch
-    from rabitq_tpu_torch.ops.select import top_k_cuda, top_k_plain
+    from rabitq_tpu_torch.ops import select
 
     def bits(t):
         return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
 
-    counted = dict(top_k_cuda.launches)
+    def device_ms(fn, reps):
+        return queued_us(fn, reps) / 1e3
+
+    counted = dict(select.top_k_cuda.launches)
     out = {}
     for key in SELECT_SITES:
         x, k = inputs[key]
-        v, i = top_k_cuda(x, k)
-        v2, i2 = top_k_cuda(x, k)
-        pv, pi = top_k_plain(x, k)
+        path = select.kernel_path(x.shape[-1], k)
+        v, i = select.top_k_cuda(x, k)
+        v2, i2 = select.top_k_cuda(x, k)
+        pv, pi = select.top_k_plain(x, k)
         if not (torch.equal(bits(v), bits(pv)) and torch.equal(i, pi)):
             raise AssertionError(f"selection {key}: the kernel differs from its plain version "
                                  f"(indices equal on {(i == pi).float().mean().item():.6f})")
@@ -706,16 +719,26 @@ def check_selection(inputs):
         big = x.numel() * x.element_size() > L2_BYTES
         reps = 5 if big else 50
         r = dict(err=0.0, bound_by="bytes", bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3,
-                 ms=cuda_ms(lambda: top_k_cuda(x, k), reps),
-                 plain_ms=cuda_ms(lambda: top_k_plain(x, k), max(reps // 5, 2)),
-                 library_ms=cuda_ms(lambda: torch.topk(x, k, dim=-1), reps))
+                 ms=device_ms(lambda: select.top_k_cuda(x, k), reps),
+                 plain_ms=device_ms(lambda: select.top_k_plain(x, k), max(reps // 5, 2)),
+                 library_ms=device_ms(lambda: torch.topk(x, k, dim=-1), reps))
+        beside = ""
+        if path != "long":
+            rows = x.reshape(-1, x.shape[-1]).contiguous()
+            lv, li = select._long_row_kernel(rows, k, "other_f32")
+            if not (torch.equal(bits(lv), bits(pv.reshape(lv.shape)))
+                    and torch.equal(li, pi.reshape(li.shape))):
+                raise AssertionError(f"selection {key}: the long-row kernel differs")
+            r["long_ms"] = device_ms(lambda: select._long_row_kernel(rows, k, "other_f32"), reps)
+            beside = f", the long-row kernel on the same input {r['long_ms']:.4f} ms"
         finite = torch.isfinite(x.float()).float().mean().item()
-        log(f"selection {key}: {tuple(x.shape)} {str(x.dtype)[6:]} k={k} ({100 * finite:.2f}% "
-            f"finite, {'above' if big else 'within'} the L2): bitwise equal to its plain version, "
-            f"two runs equal; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, torch.topk "
-            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({n_bytes} bytes)")
+        log(f"selection {key}: {tuple(x.shape)} {str(x.dtype)[6:]} k={k}, variant {path} "
+            f"({100 * finite:.2f}% finite, {'above' if big else 'within'} the L2): bitwise equal "
+            f"to its plain version, two runs equal; device times (queued calls): kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, torch.topk "
+            f"{r['library_ms']:.4f} ms{beside}, bound {r['bound_ms']:.4f} ms ({n_bytes} bytes)")
         out[key] = r
-    top_k_cuda.launches.update(counted)
+    select.top_k_cuda.launches.update(counted)
     return out
 
 
@@ -798,7 +821,8 @@ def top_rows(rows, n=8):
     return "; ".join(f"{name[:48]} x{k} {ms:.2f} ms" for ms, name, k in rows[:n])
 
 
-KERNEL_NAMES = ("fht_", "bin_scan_kernel", "packed_lb_kernel", "top_k_select_kernel")  # by name
+KERNEL_NAMES = ("fht_", "bin_scan_kernel", "packed_lb_kernel", "top_k_select_kernel",
+                "top_k_warp_kernel", "top_k_shared_kernel")  # by name
 
 
 def profile_dispatches(run, dispatches):
@@ -1254,45 +1278,60 @@ def check_segment_sum(data, seg_np, segments, label):
 
 def check_running_sum(data):
     """The running-sum kernel at the k-means++ init's shape on the main
-    path: the weights of one init step (the squared distances of the
-    init's 262,144 rows to row 0). Its sums against the plain version (CPU,
-    the same chunks and order), bitwise; device time (CUDA events, mean of
-    20 after a warm-up) beside a 1-D ``torch.cumsum`` on the card (the
+    path, the weights of one init step (the squared distances of the
+    init's 262,144 rows to row 0), and at one tile of them (the first
+    2,048, as a small init takes): its sums against the plain version
+    (CPU, the same tiles and order), bitwise; device time (a mean of 50
+    calls queued behind a long product, so that they run back to back: a
+    call's host overhead exceeds its device time) and launches a call
+    beside a 1-D ``torch.cumsum`` on the card, timed the same way (the
     library yardstick, which the port never calls: how many of 20 of its
-    runs differ from its first is printed) and the bound (weights read
-    once, sums written once, over HBM); the plain version's host time. The
-    check's launches count on no path. Returns the kernel-line numbers."""
+    runs differ from its first is printed), and the bound (weights read
+    once, sums written once, over HBM); the time a call takes when the
+    host issues 20 in a row (CUDA events around them, from an idle device:
+    the host's call rate where that is the slower); the plain version's
+    host time. The check's launches count on no path. Returns the
+    kernel-line numbers at the init's shape."""
     import torch
     from rabitq_tpu_torch.ops.kmeans import (
+        SCAN_TILE,
         _init_rows_cap,
         running_sum_kernel,
         running_sum_plain,
     )
 
     n = _init_rows_cap(NLIST, data.shape[0])
-    w = torch.sum((data[:n] - data[0]) ** 2, dim=1)
-    before = running_sum_kernel.launches
-    got = running_sum_kernel(w)
-    ms = cuda_ms(lambda: running_sum_kernel(w), 20)
-    running_sum_kernel.launches = before
-    library_ms = cuda_ms(lambda: torch.cumsum(w, 0), 20)
-    first = torch.cumsum(w, 0)
-    varies = sum(not torch.equal(torch.cumsum(w, 0), first) for _ in range(20))
-    w_cpu = w.cpu()
-    t0 = time.perf_counter()
-    want = running_sum_plain(w_cpu)
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    got = got.cpu()
-    err = float((got.double() - want.double()).abs().max())
-    bound_ms = 2 * n * 4 / HBM_BYTES_PER_S * 1e3
-    log(f"running sum, the k-means++ init's shape: {n} f32 weights: the card's sums equal the "
-        f"CPU form's bitwise {torch.equal(got, want)} (max |diff| {err:.3g}); kernel {ms:.4f} "
-        f"ms, 1-D torch.cumsum on the card {library_ms:.4f} ms ({varies} of 20 of its runs "
-        f"differ from its first), bound {bound_ms:.5f} ms (bytes); the plain version (CPU, "
-        f"host clock) {plain_ms:.2f} ms")
-    require_bitwise("running sum", got.numpy(), want.numpy())
-    return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes", "library_ms": library_ms}
+    w_all = torch.sum((data[:n] - data[0]) ** 2, dim=1)
+    counted = running_sum_kernel.launches
+    out = []
+    for label, w in (("the k-means++ init's shape", w_all), ("one tile", w_all[:SCAN_TILE])):
+        m = w.numel()
+        before = running_sum_kernel.launches
+        got = running_sum_kernel(w)
+        per_call = running_sum_kernel.launches - before
+        ms = queued_us(lambda: running_sum_kernel(w), 50) / 1e3
+        library_ms = queued_us(lambda: torch.cumsum(w, 0), 50) / 1e3
+        call_ms = cuda_ms(lambda: running_sum_kernel(w), 20)
+        first = torch.cumsum(w, 0)
+        varies = sum(not torch.equal(torch.cumsum(w, 0), first) for _ in range(20))
+        w_cpu = w.cpu()
+        t0 = time.perf_counter()
+        want = running_sum_plain(w_cpu)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        got = got.cpu()
+        err = float((got.double() - want.double()).abs().max())
+        bound_ms = 2 * m * 4 / HBM_BYTES_PER_S * 1e3
+        log(f"running sum, {label}: {m} f32 weights: the card's sums equal the CPU form's "
+            f"bitwise {torch.equal(got, want)} (max |diff| {err:.3g}); device times (queued "
+            f"calls): kernel {ms:.4f} ms in {per_call} launch(es) a call, 1-D torch.cumsum on "
+            f"the card {library_ms:.4f} ms ({varies} of 20 of its runs differ from its first), "
+            f"bound {bound_ms:.5f} ms (bytes); {call_ms:.4f} ms a call as the host issues "
+            f"them; the plain version (CPU, host clock) {plain_ms:.2f} ms")
+        require_bitwise(f"running sum, {label}", got.numpy(), want.numpy())
+        out.append({"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": "bytes", "library_ms": library_ms})
+    running_sum_kernel.launches = counted
+    return out[0]
 
 
 def check_kmeanspp_picks():

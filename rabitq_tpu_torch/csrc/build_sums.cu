@@ -18,16 +18,23 @@
 // gathered copy is made).
 //
 // rabitq_running_sum -- the inclusive running sum of the k-means++ init's
-// weights, one block walking tiles of SCAN_TILE weights in turn (zeros past
-// n). In a tile, thread t holds SCAN_ITEMS consecutive weights (16-byte
-// loads) and adds them in turn; each warp scans its threads' totals
-// (Kogge-Stone, warp_inclusive_scan), warp 0 scans the warps' totals the
-// same way, and each output is carry + (warp's prefix + lane's prefix) plus
-// the thread's running sum, where carry, the sum of the earlier tiles, grows
-// by each tile's total in turn; the next tile's weights load while a tile is
-// scanned. One block: the init calls it once a step on
-// at most a few hundred thousand weights, and a second launch to join blocks
-// would cost more than the pass.
+// weights, in tiles of SCAN_TILE weights (zeros past n) spread over the
+// card, one block a tile. In a tile, thread t holds SCAN_ITEMS consecutive
+// weights (16-byte loads) and adds them in turn; each warp scans its
+// threads' totals (Kogge-Stone, warp_inclusive_scan), warp 0 scans the
+// warps' totals the same way, and the tile's total is the last of those.
+// Each output is carry + (warp's prefix + lane's prefix) plus the thread's
+// running sum, where a tile's carry is the running sum, in this same order,
+// of the tile totals before it (so the order is a function of n alone). A
+// tile needs no carry: one launch. Otherwise rabitq_tile_sums writes the
+// tile totals (one block a tile), and in the second launch every block runs
+// the same one-tile scan over all the totals (up to SCAN_TILE of them) and
+// takes its own carry from it, so every block gets the same bits with no
+// atomics and no look-back; beyond SCAN_TILE tiles the wrapper forms the
+// totals' running sum first (this function again) and the blocks read their
+// carries from it. Bound on the H100: bytes (weights read once, sums written
+// once); the second launch reads the weights again (from the L2 at the
+// init's 1 MB).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -36,9 +43,9 @@ namespace {
 
 constexpr int UNROLL = 8;
 constexpr int MAX_THREADS = 256;
-constexpr int SCAN_THREADS = 1024;
+constexpr int SCAN_THREADS = 256;
 constexpr int SCAN_WARPS = SCAN_THREADS / 32;
-constexpr int SCAN_ITEMS = 16;  // consecutive weights a thread adds in turn
+constexpr int SCAN_ITEMS = 8;  // consecutive weights a thread adds in turn
 constexpr int SCAN_TILE = SCAN_THREADS * SCAN_ITEMS;
 
 __device__ __forceinline__ float4 add(float4 a, float4 b) {
@@ -107,49 +114,85 @@ __device__ __forceinline__ void load_items(float (&v)[SCAN_ITEMS], const float* 
   }
 }
 
+// One tile's scan: adds the thread's items in turn (in place), scans the
+// threads' totals in warps and the warps' totals in warp 0. Returns the
+// thread's prefix (warp's prefix + lane's prefix) and sets `total` to the
+// tile's total. Every thread of the block calls it; two barriers.
+__device__ __forceinline__ float tile_scan(float (&v)[SCAN_ITEMS], float* warp_total,
+                                           float* warp_before, float& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 1; i < SCAN_ITEMS; ++i) v[i] = v[i - 1] + v[i];  // the thread's items in turn
+  const float incl = warp_inclusive_scan(v[SCAN_ITEMS - 1], lane);
+  float lane_before = __shfl_up_sync(0xFFFFFFFFu, incl, 1);
+  if (lane == 0) lane_before = 0.f;
+  if (lane == 31) warp_total[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {  // lanes past SCAN_WARPS hold zeros and reach no lane below them
+    const float wincl = warp_inclusive_scan(lane < SCAN_WARPS ? warp_total[lane] : 0.f, lane);
+    const float wb = __shfl_up_sync(0xFFFFFFFFu, wincl, 1);
+    if (lane < SCAN_WARPS) warp_before[lane] = lane == 0 ? 0.f : wb;
+    if (lane == SCAN_WARPS - 1) warp_before[SCAN_WARPS] = wincl;
+  }
+  __syncthreads();
+  total = warp_before[SCAN_WARPS];
+  return warp_before[warp] + lane_before;
+}
+
 __global__ void __launch_bounds__(SCAN_THREADS)
-running_sum_kernel(const float* __restrict__ w, float* __restrict__ out, int64_t n) {
+tile_sum_kernel(const float* __restrict__ w, float* __restrict__ totals, int64_t n) {
   __shared__ float warp_total[SCAN_WARPS];
-  __shared__ float warp_before[SCAN_WARPS];
-  __shared__ float tile_total;
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  __shared__ float warp_before[SCAN_WARPS + 1];
+  const bool vec = (uintptr_t)w % 16 == 0;
+  float v[SCAN_ITEMS];
+  load_items(v, w, (int64_t)blockIdx.x * SCAN_TILE + (int64_t)threadIdx.x * SCAN_ITEMS, n, vec);
+  float total;
+  tile_scan(v, warp_total, warp_before, total);
+  if (threadIdx.x == 0) totals[blockIdx.x] = total;
+}
+
+// Block b scans tile b with its carry: 0 for tile 0; else, with `scanned`,
+// tile_sums[b - 1] (the totals' running sum), or else entry b - 1 of the
+// one-tile scan of the `tiles` totals in tile_sums, which every block forms
+// alike.
+__global__ void __launch_bounds__(SCAN_THREADS)
+running_sum_kernel(const float* __restrict__ w, float* __restrict__ out, int64_t n,
+                   const float* __restrict__ tile_sums, int64_t tiles, int scanned) {
+  __shared__ float warp_total[SCAN_WARPS];
+  __shared__ float warp_before[SCAN_WARPS + 1];
+  __shared__ float carry_s;
+  const int t = threadIdx.x;
+  const int64_t first = (int64_t)blockIdx.x * SCAN_TILE + (int64_t)t * SCAN_ITEMS;
   const bool vec = ((uintptr_t)w % 16 == 0) && ((uintptr_t)out % 16 == 0);
-  float carry = 0.f;  // the sum of every earlier tile, added tile by tile
-  float next[SCAN_ITEMS];
-  load_items(next, w, (int64_t)t * SCAN_ITEMS, n, vec);
-  for (int64_t base = 0; base < n; base += SCAN_TILE) {
-    const int64_t first = base + (int64_t)t * SCAN_ITEMS;
-    float v[SCAN_ITEMS];
-#pragma unroll
-    for (int i = 0; i < SCAN_ITEMS; ++i) v[i] = next[i];
-    if (base + SCAN_TILE < n) load_items(next, w, first + SCAN_TILE, n, vec);  // in flight
-#pragma unroll
-    for (int i = 1; i < SCAN_ITEMS; ++i) v[i] = v[i - 1] + v[i];  // the thread's items in turn
-    const float incl = warp_inclusive_scan(v[SCAN_ITEMS - 1], lane);
-    float lane_before = __shfl_up_sync(0xFFFFFFFFu, incl, 1);
-    if (lane == 0) lane_before = 0.f;
-    if (lane == 31) warp_total[warp] = incl;
-    __syncthreads();
-    if (warp == 0) {
-      const float wincl = warp_inclusive_scan(warp_total[lane], lane);
-      const float wb = __shfl_up_sync(0xFFFFFFFFu, wincl, 1);
-      warp_before[lane] = lane == 0 ? 0.f : wb;
-      if (lane == 31) tile_total = wincl;
-    }
-    __syncthreads();
-    const float before = carry + (warp_before[warp] + lane_before);
-    if (vec && first + SCAN_ITEMS <= n) {
-#pragma unroll
-      for (int i = 0; i < SCAN_ITEMS; i += 4)
-        *(float4*)(out + first + i) =
-            make_float4(before + v[i], before + v[i + 1], before + v[i + 2], before + v[i + 3]);
-    } else {
+  float v[SCAN_ITEMS];
+  load_items(v, w, first, n, vec);  // in flight while the carry forms
+  float carry = 0.f;
+  if (blockIdx.x > 0 && scanned) {
+    carry = tile_sums[blockIdx.x - 1];
+  } else if (blockIdx.x > 0) {
+    float u[SCAN_ITEMS], ignored;
+    load_items(u, tile_sums, (int64_t)t * SCAN_ITEMS, tiles, (uintptr_t)tile_sums % 16 == 0);
+    const float before = 0.f + tile_scan(u, warp_total, warp_before, ignored);
+    const int64_t j = blockIdx.x - 1;
+    if (j / SCAN_ITEMS == t) {
 #pragma unroll
       for (int i = 0; i < SCAN_ITEMS; ++i)
-        if (first + i < n) out[first + i] = before + v[i];
+        if (i == j % SCAN_ITEMS) carry_s = before + u[i];
     }
-    carry = carry + tile_total;
-    __syncthreads();  // warp_total, warp_before and tile_total are read before the next tile
+    __syncthreads();
+    carry = carry_s;
+  }
+  float total;
+  const float before = carry + tile_scan(v, warp_total, warp_before, total);
+  if (vec && first + SCAN_ITEMS <= n) {
+#pragma unroll
+    for (int i = 0; i < SCAN_ITEMS; i += 4)
+      *(float4*)(out + first + i) =
+          make_float4(before + v[i], before + v[i + 1], before + v[i + 2], before + v[i + 3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < SCAN_ITEMS; ++i)
+      if (first + i < n) out[first + i] = before + v[i];
   }
 }
 
@@ -170,10 +213,28 @@ extern "C" int rabitq_segment_sum(const void* x, const void* order, const void* 
                                    segments, dim, stream);
 }
 
-// w [n] f32, out [n] f32: out[j] = w[0] + ... + w[j] in the order above.
-extern "C" int rabitq_running_sum(const void* w, void* out, long long n, void* stream_) {
+// w [n] f32, totals [ceil(n / SCAN_TILE)] f32: each tile's total, in the
+// order above.
+extern "C" int rabitq_tile_sums(const void* w, void* totals, long long n, void* stream_) {
   cudaStream_t stream = (cudaStream_t)stream_;
   if (n <= 0) return 0;
-  running_sum_kernel<<<1, SCAN_THREADS, 0, stream>>>((const float*)w, (float*)out, n);
+  const long long tiles = (n + SCAN_TILE - 1) / SCAN_TILE;
+  if (tiles > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  tile_sum_kernel<<<(unsigned)tiles, SCAN_THREADS, 0, stream>>>((const float*)w, (float*)totals, n);
+  return (int)cudaGetLastError();
+}
+
+// w [n] f32, out [n] f32: out[j] = w[0] + ... + w[j] in the order above.
+// tile_sums: null where n fits one tile; else rabitq_tile_sums' totals
+// (scanned = 0, at most SCAN_TILE tiles) or their running sum (scanned = 1).
+extern "C" int rabitq_running_sum(const void* w, void* out, long long n, const void* tile_sums,
+                                  int scanned, void* stream_) {
+  cudaStream_t stream = (cudaStream_t)stream_;
+  if (n <= 0) return 0;
+  const long long tiles = (n + SCAN_TILE - 1) / SCAN_TILE;
+  if (tiles > 0x7FFFFFFFLL || (tiles > 1 && !tile_sums) || (!scanned && tiles > SCAN_TILE))
+    return (int)cudaErrorInvalidValue;
+  running_sum_kernel<<<(unsigned)tiles, SCAN_THREADS, 0, stream>>>(
+      (const float*)w, (float*)out, n, (const float*)tile_sums, tiles, scanned);
   return (int)cudaGetLastError();
 }

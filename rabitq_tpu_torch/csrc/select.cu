@@ -52,6 +52,34 @@
 // (two histogram passes and B's count; B's second read touches only the
 // shares with winners) and five times for f32; two blocks of 512 threads
 // stay resident on a multiprocessor (64 registers, no spills).
+//
+// rabitq_top_k_short -- the same function for rows that fit on chip (n <=
+// SHORT_N), read once, with no device scratch. Each entry becomes a unique
+// 64-bit composite: its key (as above) in the high word and its index in
+// the low word, so ascending composites are lax.top_k's order with ties to
+// the lower index, and any correct sort or selection of the composites
+// gives the same output. ops/select.kernel_path picks the variant:
+//  warp:   k <= WARP_K and n <= WARP_N (the final top-k, the shard merge).
+//          A warp a row, WARP_ROWS rows a block; each lane holds its
+//          entries' composites in registers and k rounds of a warp minimum
+//          (shuffles) take the winners in order.
+//  sort:   k above half the padded row (the centroid ranking at k = n). One
+//          block a row: the composites in dynamic shared memory, padded to
+//          a power of two with sentinels that sort last, sorted by a
+//          bitonic network, the first k written.
+//  select: the rest (the best bins, a probe bucket, the closure). A radix
+//          select on the composites in shared memory, 8 bits a pass from
+//          the top (the key's bytes, then the index's; per-warp histograms,
+//          each thread adding runs of one digit), stops once the k-th
+//          composite's bin is taken whole; the k winners go to a second
+//          buffer (their slots from atomics: the sort orders them) and are
+//          sorted by the same network.
+// The network keeps a warp's 256 composites in registers (8 a thread,
+// lane-strided) for every step of stride below 256 (shuffles below 32),
+// and goes through shared memory only for the longer strides. Bound on the
+// H100: bytes, one read of the row and one write of the k outputs; at the
+// main path's shapes the row is L2-resident and the time is the network's
+// steps and barriers.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -498,6 +526,312 @@ top_k_select_kernel(const void* __restrict__ x_, void* __restrict__ values_,
   }
 }
 
+// ---- the short rows (rabitq_top_k_short)
+
+constexpr int SHORT_N = 8192;       // longest row the shared-memory variants take
+constexpr int SORT_MIN = 256;       // the network sorts at least one warp's worth
+constexpr int WARP_N = 1024, WARP_K = 32;
+constexpr int WARP_ROWS = 2;        // rows (warps) a block of the warp variant
+constexpr int SHORT_THREADS = 512;
+constexpr int SHORT_WARPS = SHORT_THREADS / 32;
+constexpr int LANE_ITEMS = 8;       // composites a thread holds in the network: 256 a warp
+constexpr int WARP_SPAN = 32 * LANE_ITEMS;
+using u64 = unsigned long long;  // a composite (the shuffles' 64-bit type)
+constexpr u64 SENTINEL = ~0ull;  // above every composite: an index is < 2^31
+constexpr int SHORT_SMEM_MAX = (SHORT_N + SHORT_N / 2) * 8;  // the row and the winners
+
+template <int BITS>
+__device__ __forceinline__ u64 composite(uint32_t bits, uint32_t index) {
+  return ((u64)flip<BITS>(bits) << 32) | index;
+}
+
+template <int BITS>
+__device__ __forceinline__ void write_out(u64 c, typename Word<BITS>::raw* values,
+                                          int32_t* indices, int64_t at) {
+  values[at] = (typename Word<BITS>::raw)flip<BITS>((uint32_t)(c >> 32));
+  indices[at] = (int32_t)(uint32_t)c;
+}
+
+// Whether element base + 32e + lane lies in a run that bitonic stage
+// `size` sorts ascending; `base` is a multiple of WARP_SPAN, so below that
+// size it is a function of the lane alone once e and size are constants.
+__device__ __forceinline__ bool ascending(int64_t base, int e, int lane, int size) {
+  return size >= WARP_SPAN ? (base & size) == 0 : ((32 * e + lane) & size) == 0;
+}
+
+// Step of bitonic stage `size` at stride 32 * S on a warp's 256 composites
+// r[e] = element base + 32e + lane: pairs (e, e + S) inside the thread.
+template <int S>
+__device__ __forceinline__ void register_step(u64 (&r)[LANE_ITEMS], int64_t base, int size) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int e = 0; e < LANE_ITEMS; ++e) {
+    if (e & S) continue;
+    const u64 a = r[e], b = r[e | S];
+    const bool swap = (a > b) == ascending(base, e, lane, size);
+    r[e] = swap ? b : a;
+    r[e | S] = swap ? a : b;
+  }
+}
+
+// The steps of bitonic stage `size` from `stride` (at most 128) down to 1
+// on a warp's 256 composites: strides >= 32 inside the thread, the rest by
+// shuffles, where an element takes its partner's composite when that is
+// the smaller and it keeps the smaller (the lower element of an ascending
+// pair, the upper of a descending one), or the larger and it keeps that.
+__device__ __forceinline__ void warp_steps(u64 (&r)[LANE_ITEMS], int64_t base, int size,
+                                           int stride) {
+  static_assert(LANE_ITEMS == 8, "register strides 128, 64, 32");
+  const int lane = threadIdx.x & 31;
+  if (stride >= 128) register_step<4>(r, base, size);
+  if (stride >= 64) register_step<2>(r, base, size);
+  if (stride >= 32) register_step<1>(r, base, size);
+  for (int d = stride < 16 ? stride : 16; d >= 1; d >>= 1) {
+    const bool low = (lane & d) == 0;
+#pragma unroll
+    for (int e = 0; e < LANE_ITEMS; ++e) {
+      const u64 o = __shfl_xor_sync(0xFFFFFFFFu, r[e], d);
+      r[e] = (o < r[e]) == (low == ascending(base, e, lane, size)) ? o : r[e];
+    }
+  }
+}
+
+// Bitonic sort of s[0 .. S) ascending, S a power of two >= WARP_SPAN, by
+// every thread of the block (barriers inside; enter after one).
+__device__ void bitonic_sort(u64* s, int S) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // every warp span sorted (stages 2 .. 256), alternating in direction
+  for (int64_t base = (int64_t)warp * WARP_SPAN; base < S; base += SHORT_WARPS * WARP_SPAN) {
+    u64 r[LANE_ITEMS];
+#pragma unroll
+    for (int e = 0; e < LANE_ITEMS; ++e) r[e] = s[base + 32 * e + lane];
+#pragma unroll
+    for (int size = 2; size <= WARP_SPAN; size <<= 1) warp_steps(r, base, size, size / 2);
+#pragma unroll
+    for (int e = 0; e < LANE_ITEMS; ++e) s[base + 32 * e + lane] = r[e];
+  }
+  __syncthreads();
+  for (int size = 2 * WARP_SPAN; size <= S; size <<= 1) {
+    for (int stride = size / 2; stride >= WARP_SPAN; stride >>= 1) {  // across warp spans
+      for (int i = threadIdx.x; i < S / 2; i += SHORT_THREADS) {
+        const int lo = 2 * i - (i & (stride - 1)), hi = lo + stride;
+        const u64 a = s[lo], b = s[hi];
+        if ((a > b) == ((lo & size) == 0)) {
+          s[lo] = b;
+          s[hi] = a;
+        }
+      }
+      __syncthreads();
+    }
+    for (int64_t base = (int64_t)warp * WARP_SPAN; base < S; base += SHORT_WARPS * WARP_SPAN) {
+      u64 r[LANE_ITEMS];
+#pragma unroll
+      for (int e = 0; e < LANE_ITEMS; ++e) r[e] = s[base + 32 * e + lane];
+      warp_steps(r, base, size, WARP_SPAN / 2);
+#pragma unroll
+      for (int e = 0; e < LANE_ITEMS; ++e) s[base + 32 * e + lane] = r[e];
+    }
+    __syncthreads();
+  }
+}
+
+// Warp variant: warp w of block b takes row b * WARP_ROWS + w; ITEMS
+// entries a lane (entry 32i + lane), n <= 32 * ITEMS, k <= 32.
+template <int BITS, int ITEMS>
+__global__ void __launch_bounds__(WARP_ROWS * 32)
+top_k_warp_kernel(const void* __restrict__ x_, void* __restrict__ values_,
+                  int32_t* __restrict__ indices, int64_t rows, int n, int k) {
+  using raw_t = typename Word<BITS>::raw;
+  const int lane = threadIdx.x & 31;
+  const int64_t row = (int64_t)blockIdx.x * WARP_ROWS + (threadIdx.x >> 5);
+  if (row >= rows) return;  // the whole warp
+  const raw_t* __restrict__ x = reinterpret_cast<const raw_t*>(x_) + row * n;
+  u64 c[ITEMS];
+#pragma unroll
+  for (int i = 0; i < ITEMS; ++i) {
+    const int j = 32 * i + lane;
+    c[i] = j < n ? composite<BITS>((uint32_t)x[j], (uint32_t)j) : SENTINEL;
+  }
+  u64 least = SENTINEL;  // this lane's smallest composite left
+#pragma unroll
+  for (int i = 0; i < ITEMS; ++i) least = c[i] < least ? c[i] : least;
+  u64 mine = SENTINEL;  // lane r keeps round r's winner
+  for (int round = 0; round < k; ++round) {
+    u64 m = least;
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) {
+      const u64 o = __shfl_xor_sync(0xFFFFFFFFu, m, d);
+      m = o < m ? o : m;
+    }
+    if (lane == round) mine = m;
+    if (least == m) {  // one lane: composites are unique
+      least = SENTINEL;
+#pragma unroll
+      for (int i = 0; i < ITEMS; ++i) {
+        c[i] = c[i] == m ? SENTINEL : c[i];
+        least = c[i] < least ? c[i] : least;
+      }
+    }
+  }
+  if (lane < k) write_out<BITS>(mine, reinterpret_cast<raw_t*>(values_), indices, row * k + lane);
+}
+
+// Shared-memory variants: block b takes row b. The row's composites in
+// s[0 .. P) (sentinels past n), P = max(SORT_MIN, next power of two >= n);
+// `select`: the winners in w[0 .. KP) (sentinels past k), KP likewise from k.
+template <int BITS>
+__global__ void __launch_bounds__(SHORT_THREADS, 2)
+top_k_shared_kernel(const void* __restrict__ x_, void* __restrict__ values_,
+                    int32_t* __restrict__ indices, int n, int k, int P, int KP, int select) {
+  using raw_t = typename Word<BITS>::raw;
+  constexpr int VEC = 128 / BITS;
+  extern __shared__ u64 s[];
+  __shared__ uint32_t hist[RADIX];
+  __shared__ uint32_t warp_hist[SHORT_WARPS][RADIX];  // select: each warp counts here
+  __shared__ uint32_t pick[3];
+  __shared__ uint32_t count;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int64_t row = blockIdx.x;
+  const raw_t* __restrict__ x = reinterpret_cast<const raw_t*>(x_) + row * n;
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(x) & 15) == 0) {  // 16-byte loads
+    const uint4* xv = reinterpret_cast<const uint4*>(x);
+    const int nv = n / VEC;
+#pragma unroll 4
+    for (int j = t; j < nv; j += SHORT_THREADS) {
+      uint32_t b[VEC];
+      unpack<BITS>(__ldg(xv + j), b);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) s[j * VEC + i] = composite<BITS>(b[i], j * VEC + i);
+    }
+    done = nv * VEC;
+  }
+  for (int i = done + t; i < P; i += SHORT_THREADS)
+    s[i] = i < n ? composite<BITS>((uint32_t)x[i], i) : SENTINEL;
+  if (select)
+    for (int i = t; i < SHORT_WARPS * RADIX; i += SHORT_THREADS) (&warp_hist[0][0])[i] = 0;
+  if (t == 0) count = 0;
+  __syncthreads();
+  const u64* out = s;
+  if (select) {
+    // the k-th smallest composite, 8 bits a pass: the key's bytes, then
+    // the index's from its highest nonzero byte (the bits above are 0)
+    const int index_top = n > 256 ? 8 : 0;  // n <= SHORT_N: 13 index bits at most
+    u64 prefix = 0, mask = 0;
+    uint32_t need = (uint32_t)k;
+    for (int shift = 32 + BITS - 8; shift >= 0; shift -= 8) {
+      if (shift < 32 && shift > index_top) continue;
+      // a thread adds a run of one digit to its warp's histogram when the
+      // run ends: a row of one value (bins no query offered) does not queue
+      // on one address
+      uint32_t run_d = RADIX, run_n = 0;
+#pragma unroll 4
+      for (int i = t; i < n; i += SHORT_THREADS) {
+        const u64 c = s[i];
+        if ((c & mask) != prefix) continue;
+        const uint32_t d = (uint32_t)(c >> shift) & 0xFFu;
+        if (d != run_d) {
+          if (run_n) atomicAdd(&warp_hist[warp][run_d], run_n);
+          run_d = d;
+          run_n = 0;
+        }
+        ++run_n;
+      }
+      if (run_n) atomicAdd(&warp_hist[warp][run_d], run_n);
+      __syncthreads();
+      for (int b = t; b < RADIX; b += SHORT_THREADS) {
+        uint32_t c = 0;
+#pragma unroll
+        for (int w = 0; w < SHORT_WARPS; ++w) {
+          c += warp_hist[w][b];
+          warp_hist[w][b] = 0;
+        }
+        hist[b] = c;
+      }
+      __syncthreads();
+      if (t < 32) {  // the bin that holds the need-th smallest
+        uint32_t cnt[8];
+        uint32_t before = lane_bins(hist, cnt);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          if (before < need && need <= before + cnt[i]) {
+            pick[0] = lane * 8 + i;
+            pick[1] = before;
+            pick[2] = cnt[i];
+          }
+          before += cnt[i];
+        }
+      }
+      __syncthreads();  // hist and pick are written again after the next pass's barriers
+      const uint32_t d = pick[0], below = pick[1], in_bin = pick[2];
+      prefix |= (u64)d << shift;
+      mask |= 0xFFull << shift;
+      need -= below;
+      if (in_bin == need) break;  // the k-th composite's bin taken whole (always at the last pass)
+    }
+    // the winners: every composite whose masked bits are at most the prefix
+    u64* w = s + P;
+    for (int base = 0; base < n; base += SHORT_THREADS) {
+      const int i = base + t;
+      const u64 c = i < n ? s[i] : SENTINEL;
+      const bool win = i < n && (c & mask) <= prefix;
+      const uint32_t ballot = __ballot_sync(0xFFFFFFFFu, win);
+      uint32_t at = 0;
+      if (lane == 0 && ballot) at = atomicAdd(&count, (uint32_t)__popc(ballot));
+      at = __shfl_sync(0xFFFFFFFFu, at, 0) + __popc(ballot & ((1u << lane) - 1u));
+      if (win) w[at] = c;
+    }
+    for (int i = k + t; i < KP; i += SHORT_THREADS) w[i] = SENTINEL;
+    __syncthreads();
+    bitonic_sort(w, KP);
+    out = w;
+  } else {
+    bitonic_sort(s, P);
+  }
+  raw_t* values = reinterpret_cast<raw_t*>(values_);
+  for (int i = t; i < k; i += SHORT_THREADS) write_out<BITS>(out[i], values, indices, row * k + i);
+}
+
+template <int BITS>
+int launch_top_k_short(const void* x, void* values, void* indices, long long rows, int n, int k,
+                       int mode, cudaStream_t stream) {
+  if (mode == 0) {
+    const unsigned blocks = (unsigned)((rows + WARP_ROWS - 1) / WARP_ROWS);
+    if (n <= 128)
+      top_k_warp_kernel<BITS, 4><<<blocks, WARP_ROWS * 32, 0, stream>>>(
+          x, values, (int32_t*)indices, rows, n, k);
+    else if (n <= 512)
+      top_k_warp_kernel<BITS, 16><<<blocks, WARP_ROWS * 32, 0, stream>>>(
+          x, values, (int32_t*)indices, rows, n, k);
+    else
+      top_k_warp_kernel<BITS, 32><<<blocks, WARP_ROWS * 32, 0, stream>>>(
+          x, values, (int32_t*)indices, rows, n, k);
+    return (int)cudaGetLastError();
+  }
+  int P = SORT_MIN, KP = SORT_MIN;
+  while (P < n) P <<= 1;
+  while (KP < k) KP <<= 1;
+  const int select = mode == 2;
+  if (select && 2 * KP > P) return (int)cudaErrorInvalidValue;
+  // the shared-memory limit, set once a device (the first call comes before
+  // any graph capture: every capture follows an eager run)
+  static bool sized[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!sized[dev]) {
+    e = cudaFuncSetAttribute(top_k_shared_kernel<BITS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SHORT_SMEM_MAX);
+    if (e != cudaSuccess) return (int)e;
+    sized[dev] = true;
+  }
+  const size_t smem = (size_t)(P + (select ? KP : 0)) * sizeof(u64);
+  top_k_shared_kernel<BITS><<<(unsigned)rows, SHORT_THREADS, smem, stream>>>(
+      x, values, (int32_t*)indices, n, k, P, KP, select);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // x [rows, n] f32 (bf16 = 0) or bf16 (bf16 = 1), contiguous. Each row is cut
@@ -525,4 +859,19 @@ extern "C" int rabitq_top_k(const void* x, void* values, void* indices, void* sc
         x, values, (int32_t*)indices, (uint32_t*)scratch_keys, (int32_t*)scratch_idx,
         (const int32_t*)idx_in, n, seg, segments, k);
   return (int)cudaGetLastError();
+}
+
+// The short rows: x [rows, n] f32 (bf16 = 0) or bf16 (bf16 = 1), contiguous;
+// values [rows, k] of x's type, indices [rows, k] int32 into the row. mode:
+// 0 the warp variant (k <= 32, n <= 1024), 1 sort, 2 select (n <= 8192; for
+// select, 2 * KP <= P). 1 <= k <= n.
+extern "C" int rabitq_top_k_short(const void* x, void* values, void* indices, long long rows,
+                                  long long n, int k, int mode, int bf16, void* stream_) {
+  cudaStream_t stream = (cudaStream_t)stream_;
+  if (rows <= 0 || k <= 0) return 0;
+  if (k > n || n > SHORT_N || rows > 0x7FFFFFFFLL || mode < 0 || mode > 2 ||
+      (mode == 0 && (k > WARP_K || n > WARP_N)))
+    return (int)cudaErrorInvalidValue;
+  if (bf16) return launch_top_k_short<16>(x, values, indices, rows, (int)n, k, mode, stream);
+  return launch_top_k_short<32>(x, values, indices, rows, (int)n, k, mode, stream);
 }

@@ -46,8 +46,10 @@ _SIGNATURES = {
         "packed_lb_scan", "rabitq_packed_lb_plane", (_P,) * 11 + (_L, _I, _I, _I, _P),
     ),
     "segment_sum": ("build_sums", "rabitq_segment_sum", (_P,) * 4 + (_L, _L, _I, _P)),
-    "running_sum": ("build_sums", "rabitq_running_sum", (_P, _P, _L, _P)),
+    "tile_sums": ("build_sums", "rabitq_tile_sums", (_P, _P, _L, _P)),
+    "running_sum": ("build_sums", "rabitq_running_sum", (_P, _P, _L, _P, _I, _P)),
     "top_k": ("select", "rabitq_top_k", (_P,) * 6 + (_L, _L, _L, _I, _I, _I, _P)),
+    "top_k_short": ("select", "rabitq_top_k_short", (_P,) * 3 + (_L, _L, _I, _I, _I, _P)),
 }
 
 _entries: dict = {}  # kernel name -> (library, entry point)

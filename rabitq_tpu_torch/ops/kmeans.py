@@ -212,13 +212,15 @@ def segment_sum(
     return segment_sum_counts(data, segment_ids, num_segments)[0]
 
 
-SCAN_THREADS, SCAN_ITEMS = 1024, 16  # the running-sum kernel's threads, weights a thread
+SCAN_THREADS, SCAN_ITEMS = 256, 8  # the running-sum kernel's threads, weights a thread
+SCAN_TILE = SCAN_THREADS * SCAN_ITEMS  # weights a block scans
 
 
 def _warp_inclusive_scan(x: np.ndarray) -> np.ndarray:
-    """Kogge-Stone inclusive scan along the last axis (32 lanes), as the
-    kernel's warp shuffles do it: at distance d = 1, 2, .., 16 each lane
-    l >= d adds what lane l - d held before the step."""
+    """Kogge-Stone inclusive scan along the last axis (32 lanes, or fewer
+    standing for a warp whose other lanes hold zeros), as the kernel's warp
+    shuffles do it: at distance d = 1, 2, .., 16 each lane l >= d adds what
+    lane l - d held before the step."""
     x = x.copy()
     for d in (1, 2, 4, 8, 16):
         x[..., d:] = x[..., d:] + x[..., :-d]
@@ -233,43 +235,61 @@ def _exclusive(incl: np.ndarray) -> np.ndarray:
     return out
 
 
-def running_sum_plain(w: torch.Tensor) -> torch.Tensor:
-    """The plain version of :func:`running_sum_kernel`, on the CPU (the
-    result stays there), in the kernel's order and in f32 throughout
-    (``torch.cumsum`` on the CPU accumulates in f64; numpy's does not):
-    tiles of ``SCAN_THREADS * SCAN_ITEMS`` weights (zeros past the end), in
-    which each thread's ``SCAN_ITEMS`` consecutive weights are added in turn,
-    the threads' totals scanned in warps of 32 and the warps' totals scanned
-    the same way; each output is ``carry + (warp prefix + lane prefix)``
-    plus the thread's running sum, ``carry`` being the earlier tiles' totals
-    added in turn."""
-    x = w.detach().to("cpu", torch.float32).numpy()
+def _running_sum_np(x: np.ndarray) -> np.ndarray:
+    """:func:`running_sum_plain` on a 1-D f32 array."""
     n = x.shape[0]
-    tile = SCAN_THREADS * SCAN_ITEMS
-    tiles = max(1, -(-n // tile))
-    padded = np.zeros(tiles * tile, np.float32)
+    tiles = max(1, -(-n // SCAN_TILE))
+    padded = np.zeros(tiles * SCAN_TILE, np.float32)
     padded[:n] = x
     local = np.cumsum(padded.reshape(tiles, SCAN_THREADS // 32, 32, SCAN_ITEMS), axis=-1,
                       dtype=np.float32)
     lanes = _warp_inclusive_scan(local[..., -1])  # [tiles, warps, 32]
     warps = _warp_inclusive_scan(lanes[..., -1])  # [tiles, warps]
-    carry = _exclusive(np.cumsum(warps[:, -1], dtype=np.float32))
+    carry = np.zeros(1, np.float32) if tiles == 1 else _exclusive(_running_sum_np(warps[:, -1]))
     before = carry[:, None, None] + (_exclusive(warps)[:, :, None] + _exclusive(lanes))
-    return torch.from_numpy((before[..., None] + local).reshape(-1)[:n].copy())
+    return (before[..., None] + local).reshape(-1)[:n].copy()
+
+
+def running_sum_plain(w: torch.Tensor) -> torch.Tensor:
+    """The plain version of :func:`running_sum_kernel`, on the CPU (the
+    result stays there), in the kernel's order and in f32 throughout
+    (``torch.cumsum`` on the CPU accumulates in f64; numpy's does not):
+    tiles of ``SCAN_TILE`` weights (zeros past the end), in which each
+    thread's ``SCAN_ITEMS`` consecutive weights are added in turn, the
+    threads' totals scanned in warps of 32 and the warps' totals scanned the
+    same way, the last of those the tile's total; each output is
+    ``carry + (warp prefix + lane prefix)`` plus the thread's running sum,
+    a tile's ``carry`` being the running sum of the earlier tiles' totals in
+    this same order (0 for a lone tile)."""
+    return torch.from_numpy(_running_sum_np(w.detach().to("cpu", torch.float32).numpy()))
 
 
 def running_sum_kernel(w: torch.Tensor) -> torch.Tensor:
     """The CUDA kernel (``csrc/build_sums.cu``) on a 1-D f32 tensor on the
     card: its inclusive running sum in the order of :func:`running_sum_plain`.
-    ``running_sum_kernel.launches`` counts its launches."""
+    One launch where ``w`` fits one tile, two up to ``SCAN_TILE`` tiles (the
+    tile totals, then the tiles with their carries), and past that the
+    totals' own running sum between the two. ``running_sum_kernel.launches``
+    counts its launches."""
     if not w.is_cuda or w.dim() != 1:
         raise ValueError("running_sum_kernel needs a 1-D CUDA tensor")
     w = w.to(torch.float32).contiguous()
     out = torch.empty_like(w)
-    if w.numel():
+    n = w.numel()
+    if n:
+        stream = torch.cuda.current_stream(w.device).cuda_stream
+        tile_sums, scanned = None, 0
+        tiles = -(-n // SCAN_TILE)
+        if tiles > 1:
+            tile_sums = torch.empty(tiles, dtype=torch.float32, device=w.device)
+            err = _cuda.entry("tile_sums")(w.data_ptr(), tile_sums.data_ptr(), n, stream)
+            _cuda.check_launch(err, "tile_sums")
+            running_sum_kernel.launches += 1
+            if tiles > SCAN_TILE:
+                tile_sums, scanned = running_sum_kernel(tile_sums), 1
         err = _cuda.entry("running_sum")(
-            w.data_ptr(), out.data_ptr(), w.numel(),
-            torch.cuda.current_stream(w.device).cuda_stream,
+            w.data_ptr(), out.data_ptr(), n, None if tile_sums is None else tile_sums.data_ptr(),
+            scanned, stream,
         )
         _cuda.check_launch(err, "running_sum")
         running_sum_kernel.launches += 1

@@ -1111,18 +1111,22 @@ def test_hierarchical_cluster_twice_on_the_card_gives_equal_lists(cuda):
     np.testing.assert_array_equal(a.centroids, b.centroids)
 
 
-@pytest.mark.parametrize("n", [1, 1000, 1025, 262_147, 1_000_003])
+@pytest.mark.parametrize("n", [1, 2047, 2048, 2049, 262_144, 262_147, 1_000_003, 4_194_305])
 def test_running_sum_kernel_bitwise(cuda, n):
     """The k-means++ init's running-sum kernel against its plain version
-    (CPU, the same tiles and order): bitwise equal, one launch, the same
-    bits in ten runs (a 1-D ``torch.cumsum`` on the card is not), and the
-    same from a start that is not 16-byte aligned."""
+    (CPU, the same tiles and order): bitwise equal; one launch within a
+    tile, two up to a tile of tiles (the totals, then the tiles), four past
+    it (the totals' own running sum between); the same bits in ten runs (a
+    1-D ``torch.cumsum`` on the card is not), and the same from a start
+    that is not 16-byte aligned."""
     from rabitq_tpu_torch.ops import kmeans as km
 
     w = torch.from_numpy(np.random.default_rng(n).exponential(1.0, n).astype(np.float32))
+    tiles = -(-n // km.SCAN_TILE)
     before = km.running_sum_kernel.launches
     first = km.running_sum_kernel(w.to(cuda))
-    assert km.running_sum_kernel.launches == before + 1
+    assert km.running_sum_kernel.launches == before + (
+        1 if tiles == 1 else 2 if tiles <= km.SCAN_TILE else 4)
     assert torch.equal(first.cpu(), km.running_sum_plain(w))
     for _ in range(9):
         assert torch.equal(km.running_sum(w.to(cuda)), first)
@@ -1149,18 +1153,28 @@ def test_kmeanspp_picks_on_the_card_equal_the_cpu(cuda, seed):
     assert torch.equal(on_card.cpu(), on_cpu)
 
 
-def _tied_plane(shape, dtype, cuda, seed, masked=0.0):
+def _tied_plane(shape, dtype, cuda, seed, masked=0.0, nans=False):
     """Values with very many ties (quarters in [-50, 50), then rounded to
-    ``dtype``), about 1% each of +0.0, -0.0, +inf and -inf, and where
+    ``dtype``), about 1% each of +0.0, -0.0, +inf and -inf, where
     ``masked`` is given that share of -inf, as a probe mask leaves a
-    survivor plane."""
+    survivor plane, and with ``nans`` about 1% each of four NaNs (both
+    signs, two payloads each)."""
     g = torch.Generator(device=cuda).manual_seed(seed)
     x = torch.randint(-200, 200, shape, generator=g, device=cuda).to(torch.float32) / 4
     r = torch.rand(shape, generator=g, device=cuda)
     for lo, v in ((0.00, 0.0), (0.01, -0.0), (0.02, float("inf")), (0.03, float("-inf"))):
         x = torch.where((r >= lo) & (r < lo + 0.01), torch.tensor(v, device=cuda), x)
     x = torch.where(r >= 1.0 - masked, float("-inf"), x)
-    return x.to(dtype)
+    x = x.to(dtype)
+    if nans:
+        bits = _bits(x)
+        pats = ((0x7FC0, 0x7FC1, -0x40, -0x3F) if dtype == torch.bfloat16 else
+                (0x7FC00000, 0x7FC00001, -0x400000, -0x3FFFFF))  # -0x400000: 0xFFC00000
+        for i, p in enumerate(pats):
+            hit = (r >= 0.04 + 0.01 * i) & (r < 0.05 + 0.01 * i)
+            bits = torch.where(hit, torch.tensor(p, dtype=bits.dtype, device=cuda), bits)
+        x = bits.view(dtype)
+    return x
 
 
 def _bits(t):
@@ -1169,13 +1183,15 @@ def _bits(t):
 
 def _check_top_k(x, k):
     """The kernel against its plain version: values bitwise, indices equal,
-    one launch."""
+    one launch (two where the long-row kernel cuts few long rows into
+    segments)."""
     from rabitq_tpu_torch.ops import select
 
     before = sum(select.top_k_cuda.launches.values())
     v, i = select.top_k(x, k)
-    rows = x.shape[0] if x.dim() == 2 else 1
-    passes = 2 if select._segments(x, rows, x.shape[-1], k)[0] > 1 else 1
+    rows, n = (x.shape[0] if x.dim() == 2 else 1), x.shape[-1]
+    long_rows = select.kernel_path(n, k) == "long"
+    passes = 2 if long_rows and select._segments(x, rows, n, k)[0] > 1 else 1
     assert sum(select.top_k_cuda.launches.values()) == before + passes
     pv, pi = select.top_k_plain(x, k)
     assert v.dtype == x.dtype and i.dtype == torch.int32 and v.shape == (*x.shape[:-1], k)
@@ -1202,14 +1218,21 @@ def test_top_k_kernel_bitwise_on_a_masked_plane(cuda, dtype):
 @pytest.mark.parametrize("shape,k", [((256, 4096), 4096), ((256, 4096), 16), ((256, 8192), 400),
                                      ((256, 400), 10), ((1_000_000,), 8), ((1_000_000,), 5000),
                                      ((4, 1_000_448), 400), ((3, 1001), 1001), ((5, 33), 7),
-                                     ((2, 1), 1), ((1, 2), 2)])
+                                     ((2, 1), 1), ((1, 2), 2), ((256, 8193), 400),
+                                     ((256, 1024), 32), ((256, 1024), 33), ((256, 1025), 32),
+                                     ((7, 8192), 8192), ((7, 8192), 4096), ((7, 8192), 4097),
+                                     ((9, 3000), 2999), ((256, 40), 10), ((1, 8192), 8)])
 def test_top_k_kernel_bitwise_at_the_other_shapes(cuda, shape, k):
     """The centroid ranking (k = n and a probe bucket), the best bins, the
-    final top-k, the k-means reseed (1-D), few long rows (two passes: the
-    segments' top k, then theirs), and rows whose length is no multiple of
-    8 (scalar loads), in both types."""
+    final top-k, the shard merge, the k-means reseed (1-D), few long rows
+    (two passes: the segments' top k, then theirs), both sides of each
+    limit of the short-row variants (n 8192 / 8193; k 32 / 33 at n 1024,
+    n 1025; sort against select at n 8192), k = n not a power of two, and
+    rows whose length is no multiple of 8 (scalar loads), in both types,
+    with NaNs among the ties."""
     for dtype in (torch.float32, torch.bfloat16):
         _check_top_k(_tied_plane(shape, dtype, cuda, k + len(shape)), k)
+        _check_top_k(_tied_plane(shape, dtype, cuda, k + 7, nans=True), k)
     x = torch.randn(shape, device=cuda)  # few ties
     _check_top_k(x, k)
     if x.dim() == 2 and x.shape[1] > 1:
@@ -1237,6 +1260,34 @@ def test_top_k_kernel_two_calls_and_a_graph_give_equal_bits(cuda):
         graph.replay()
         ev, ei = select.top_k(static, 400)
         assert torch.equal(_bits(gv), _bits(ev)) and torch.equal(gi, ei)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_top_k_short_rows_in_a_graph_equal_eager(cuda, dtype):
+    """The short-row variants (warp, sort, select) captured in one CUDA
+    graph, replayed on new rows: values and indices equal to eager calls
+    on those rows."""
+    from rabitq_tpu_torch.ops import select
+
+    cases = (((256, 400), 10), ((256, 4096), 4096), ((256, 8192), 400))
+    assert [select.kernel_path(s[-1], k) for s, k in cases] == ["warp", "sort", "select"]
+    static = [_tied_plane(s, dtype, cuda, 1) for s, _ in cases]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for x, (_, k) in zip(static, cases):
+            select.top_k(x, k)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [select.top_k(x, k) for x, (_, k) in zip(static, cases)]
+    for seed in (2, 3):
+        for x, (shape, _) in zip(static, cases):
+            x.copy_(_tied_plane(shape, dtype, cuda, seed, nans=seed == 3))
+        graph.replay()
+        for x, (_, k), (gv, gi) in zip(static, cases, outs):
+            ev, ei = select.top_k(x, k)
+            assert torch.equal(_bits(gv), _bits(ev)) and torch.equal(gi, ei)
 
 
 def test_top_k_kernel_refuses_what_it_does_not_take(cuda):

@@ -180,24 +180,28 @@ def test_segment_sum_drops_ids_outside_the_segments_like_jax():
 
 def _running_sum_by_scalars(w: np.ndarray) -> np.ndarray:
     """The order the running-sum kernel states, one f32 scalar add at a
-    time: tiles of 1024 threads x 16 weights; a thread adds its weights in
-    turn, each warp scans its 32 totals Kogge-Stone (at distance d, lane l
-    adds lane l - d's value from before the step), warp 0 scans the 32 warp
-    totals the same way, an output is carry + (warp prefix + lane prefix)
-    plus the thread's running sum, and carry adds each tile's total."""
+    time: tiles of ``SCAN_THREADS`` threads x ``SCAN_ITEMS`` weights; a
+    thread adds its weights in turn, each warp scans its 32 totals
+    Kogge-Stone (at distance d, lane l adds lane l - d's value from before
+    the step), warp 0 scans the warp totals the same way and the last of
+    those is the tile's total; an output is carry + (warp prefix + lane
+    prefix) plus the thread's running sum, and a tile's carry is the entry
+    before it of this same running sum taken over the tile totals (0 for
+    the first tile)."""
     f = np.float32
     threads, items = tk.SCAN_THREADS, tk.SCAN_ITEMS
+    tile = threads * items
 
     def kogge_stone(x):
         for d in (1, 2, 4, 8, 16):
-            x = [f(x[i] + x[i - d]) if i >= d else x[i] for i in range(32)]
+            x = [f(x[i] + x[i - d]) if i >= d else x[i] for i in range(len(x))]
         return x
 
     n = len(w)
-    out = np.empty(n, np.float32)
-    carry = f(0.0)
-    for base in range(0, n, threads * items):
-        local, totals = [], []
+    tiles = max(1, -(-n // tile))
+    scans, totals = [], []
+    for base in range(0, tiles * tile, tile):
+        local, thread_totals = [], []
         for t in range(threads):
             acc, row = None, []
             for i in range(items):
@@ -206,29 +210,36 @@ def _running_sum_by_scalars(w: np.ndarray) -> np.ndarray:
                 acc = x if acc is None else f(acc + x)
                 row.append(acc)
             local.append(row)
-            totals.append(acc)
+            thread_totals.append(acc)
         lane_before, warp_totals = [], []
         for wp in range(threads // 32):
-            incl = kogge_stone(totals[32 * wp : 32 * wp + 32])
+            incl = kogge_stone(thread_totals[32 * wp : 32 * wp + 32])
             lane_before += [f(0.0)] + incl[:-1]
             warp_totals.append(incl[-1])
         incl = kogge_stone(warp_totals)
         warp_before = [f(0.0)] + incl[:-1]
+        scans.append((local, lane_before, warp_before))
+        totals.append(incl[-1])
+    carries = [f(0.0)]
+    if tiles > 1:
+        carries += list(_running_sum_by_scalars(np.array(totals, np.float32))[:-1])
+    out = np.empty(n, np.float32)
+    for b, (local, lane_before, warp_before) in enumerate(scans):
         for t in range(threads):
-            before = f(carry + f(warp_before[t // 32] + lane_before[t]))
+            before = f(carries[b] + f(warp_before[t // 32] + lane_before[t]))
             for i in range(items):
-                j = base + t * items + i
+                j = b * tile + t * items + i
                 if j < n:
                     out[j] = f(before + local[t][i])
-        carry = f(carry + incl[-1])
     return out
 
 
-@pytest.mark.parametrize("n", [0, 1, 5, 1024, 16_385, 40_000])
+@pytest.mark.parametrize("n", [0, 1, 5, 1024, 2048, 2049, 16_385, 40_000, 262_147])
 def test_running_sum_adds_in_its_fixed_order(n):
     """The init's running sum on the CPU: bitwise equal to the order the
     kernel states, rebuilt here one scalar add at a time, and equal to
-    ``torch.cumsum`` where every sum is exact (integer weights)."""
+    ``torch.cumsum`` where every sum is exact (integer weights). The sizes
+    take one tile, a tile and one weight, and many tiles."""
     rng = np.random.default_rng(n)
     w = (rng.exponential(1.0, n) * rng.choice([1.0, 1e3], n)).astype(np.float32)
     got = tk.running_sum(torch.from_numpy(w))
@@ -240,14 +251,36 @@ def test_running_sum_adds_in_its_fixed_order(n):
         tk.running_sum_kernel(ints)
 
 
+def test_running_sum_order_past_a_tile_of_tiles(monkeypatch):
+    """Past ``SCAN_TILE`` tiles the carries come from the running sum of the
+    tile totals, which itself has carries: three levels, shown on a smaller
+    tile (one warp of 32 threads x 2 weights: 64) so that the scalar
+    rebuild stays quick."""
+    monkeypatch.setattr(tk, "SCAN_THREADS", 32)
+    monkeypatch.setattr(tk, "SCAN_ITEMS", 2)
+    monkeypatch.setattr(tk, "SCAN_TILE", 64)
+    w = np.random.default_rng(7).exponential(1.0, 64 * 64 + 65).astype(np.float32)
+    np.testing.assert_array_equal(tk.running_sum(torch.from_numpy(w)).numpy(),
+                                  _running_sum_by_scalars(w))
+
+
 def test_running_sum_within_recursive_summation_bounds():
     """Against a float64 cumulative sum over 262,147 non-negative weights:
     each output's error within the longest chain of f32 adds that forms it
-    (16 in a thread, 10 in the two warp scans, one a tile for the carry,
-    and the joins) times 2**-24 of the exact sum."""
+    times 2**-24 of the exact sum. A weight reaches a tile's total through
+    7 adds in its thread, 5 in the lanes' scan and 3 in the warps' (8
+    warps): 15. Within its own tile it reaches an output through those and
+    the three joins (warp + lane prefix, the carry, the thread's sum): 18.
+    From an earlier tile it reaches the tile total (15), then the carry
+    through the totals' one-tile running sum (18, as 129 totals fit one
+    tile), then the last two joins: 35."""
     n = 262_147
+    assert -(-n // tk.SCAN_TILE) <= tk.SCAN_TILE
     w = np.random.default_rng(3).exponential(1.0, n).astype(np.float32)
     got = tk.running_sum(torch.from_numpy(w)).numpy().astype(np.float64)
     ref = np.cumsum(w.astype(np.float64))
-    chain = tk.SCAN_ITEMS + 10 + -(-n // (tk.SCAN_THREADS * tk.SCAN_ITEMS)) + 4
+    to_total = (tk.SCAN_ITEMS - 1) + 5 + int(np.log2(tk.SCAN_THREADS // 32))
+    one_tile = to_total + 3
+    chain = to_total + one_tile + 2
+    assert chain == 35
     assert np.all(np.abs(got - ref) <= chain * 2.0**-24 * ref)

@@ -138,6 +138,27 @@ def test_top_k_dispatch_and_limits():
         select.top_k_cuda(x, 1, site="nowhere")
 
 
+@pytest.mark.parametrize("n,k,want", [
+    (4096, 4096, "sort"),      # centroid ranking at k = n (dense scans)
+    (4096, 16, "select"),      # centroid ranking, a probe bucket
+    (8192, 400, "select"),     # best bins
+    (400, 10, "warp"),         # final top-k
+    (40, 10, "warp"),          # shard merge, 4 shards x 10
+    (2363, 4, "select"),       # MSTG closure over ~2,363 lists
+    (8193, 400, "long"),       # past the short rows
+    (1024, 32, "warp"), (1024, 33, "select"), (1025, 32, "select"),
+    (8192, 4096, "select"), (8192, 4097, "sort"), (1001, 1001, "sort"),
+    (1_000_064, 400, "long"),  # survivors [256, ~1M]
+    (1_000_000, 8, "long"),    # the k-means reseed, one row of 1M
+])
+def test_kernel_path_at_each_site(n, k, want):
+    """The card's variant for each selection site's shape, and on both
+    sides of each limit: the short rows (at most 8192 entries) in shared
+    memory or a warp, the survivors and the reseed on the long-row kernel.
+    A function of (n, k) alone: both types keep 64-bit composites."""
+    assert select.kernel_path(n, k) == want
+
+
 def test_no_other_selection_in_the_port():
     """``torch.topk`` orders ties as it likes: the port selects with
     ``ops/select.top_k`` only."""
