@@ -175,12 +175,19 @@ The selection (after the 8-bit checks, ``phase seconds: selection``): the
 selection kernel (``csrc/select.cu``, every site where the JAX package calls
 lax.top_k) against its plain version, values and indices bitwise, and twice
 with equal bits, on the inputs the 8-bit index gave it: the survivor plane
-of a "packed" search at nprobe 256 in bf16 and in f32, its centroid ranking
-and final top-k, the best bins of a "fused8" search at nprobe 16 and the
-k-means reseed of the 8-bit train; timed beside torch.topk at the same
-(x, k) and the bound, with the variant each shape took (the long-row
-kernel, or a short-row one: warp, sort or select). Every path's launch line
-carries the kernel's count.
+of a "packed" search at nprobe 256 in bf16 (94% -inf) and in f32, its
+centroid ranking and final top-k, the best bins of a "fused8" search at
+nprobe 16 and the k-means reseed of the 8-bit train; the brute-force
+"packed" search's survivor plane (all finite, recorded in its phase and kept
+on the host); and the 8-bit plane with CAND + 1000 entries a row tied at the
+top, which every row must take through the long-row kernel's spill. Timed
+beside torch.topk at the same (x, k) and the bound, with the variant each
+shape took (a short-row one: warp, sort or select; for long rows grid,
+cluster or spill), the long rows' cluster size, rows in flight, launches a
+call (one) and rows spilled (none on a main-path input). Every path's launch
+line carries the kernel's count and ``select_spilled``, the rows the card
+counted through the spill; the run fails unless that is 0 on every serving
+and build path.
 Every search of the IVF, brute-force and MSTG indexes goes through the
 index's fused search (rabitq_tpu_torch.index.scan.make_fused_search): on the
 card one CUDA graph replay a dispatch, captured at a key's first call, with
@@ -639,6 +646,9 @@ def check_lb_plane(args, what):
 # hands the selection kernel: (kernel line entry, the lax.top_k call it stands at)
 SELECT_SITES = {
     "survivors_bf16": ("select_survivors_bf16", "rabitq_tpu/index/scan.py:552"),
+    "survivors_bf16_brute_force": ("select_survivors_brute_force_bf16",
+                                   "rabitq_tpu/index/scan.py:552"),
+    "survivors_bf16_tied": ("select_survivors_bf16_tied", "rabitq_tpu/index/scan.py:552"),
     "survivors_f32": ("select_survivors_f32", "rabitq_tpu/index/scan.py:558"),
     "bins_f32": ("select_bins", "rabitq_tpu/ops/pallas_fused_scan.py:664"),
     "centroids_f32": ("select_centroids", "rabitq_tpu/index/scan.py:289"),
@@ -680,19 +690,35 @@ def recording_selections(into):
             setattr(mod, attr, real)
 
 
+def tied_beyond_capacity(x, seed=5):
+    """``x`` ([rows, n]) with CAND + 1000 entries of each row, in random
+    places, set to one value above every other: the k-th key of any k <=
+    CAND is tied by more entries than the long-row selection kernel orders
+    on chip, so every row takes its spill."""
+    import torch
+    from rabitq_tpu_torch.ops import select
+
+    g = torch.Generator(device=x.device).manual_seed(seed)
+    pos = torch.argsort(torch.rand(x.shape, generator=g, device=x.device), dim=-1)
+    pos = pos[:, : select.CAND + 1000]
+    return x.clone().scatter_(1, pos, torch.full(pos.shape, 5000.0, dtype=x.dtype,
+                                                   device=x.device))
+
+
 def check_selection(inputs):
     """The selection kernel against its plain version (a stable sort of the
     ordered key) on inputs the main path gave it: values and indices
-    bitwise equal, two runs equal, with the variant each shape took; the
-    kernel's, the plain version's and torch.topk's device times (torch.topk
-    computes the same set, ties in its own order) beside the bound, one read
-    of the input and one write of the outputs at 3.35 TB/s. Times are of
-    calls queued behind a long product, so that they run back to back:
-    a short call's own host overhead (tens of microseconds in the wrapper)
-    exceeds its device time. Where a short-row variant took the shape, the
-    long-row kernel (every row's path before the short-row variants) is
-    checked and timed on the same input beside it. Launches made here are
-    not counted."""
+    bitwise equal, two runs equal, with the variant each shape took, and for
+    the long rows the grid (cluster size, rows in flight), the launches a
+    call and the rows spilled (none on a main-path input; every row of the
+    tied one); the kernel's, the plain version's and torch.topk's device
+    times (torch.topk computes the same set, ties in its own order) beside
+    the bound, one read of the input and one write of the outputs at 3.35
+    TB/s. Times are of calls queued behind a long product, so that they run
+    back to back: a short call's own host overhead (tens of microseconds in
+    the wrapper) exceeds its device time. Where a short-row variant took the
+    shape, the long-row kernel is checked and timed on the same input beside
+    it. Launches and spills made here are not counted."""
     import torch
     from rabitq_tpu_torch.ops import select
 
@@ -702,12 +728,18 @@ def check_selection(inputs):
     def device_ms(fn, reps):
         return queued_us(fn, reps) / 1e3
 
+    take_spilled()  # what the paths before spilled
     counted = dict(select.top_k_cuda.launches)
     out = {}
     for key in SELECT_SITES:
         x, k = inputs[key]
-        path = select.kernel_path(x.shape[-1], k)
+        rows = x.reshape(-1, x.shape[-1]).contiguous()
+        path = select.kernel_path(x.shape[-1], k, rows.shape[0])
+        take_spilled(count=False)
+        before = sum(select.top_k_cuda.launches.values())
         v, i = select.top_k_cuda(x, k)
+        per_call = sum(select.top_k_cuda.launches.values()) - before
+        spilled = take_spilled(count=False)
         v2, i2 = select.top_k_cuda(x, k)
         pv, pi = select.top_k_plain(x, k)
         if not (torch.equal(bits(v), bits(pv)) and torch.equal(i, pi)):
@@ -715,29 +747,47 @@ def check_selection(inputs):
                                  f"(indices equal on {(i == pi).float().mean().item():.6f})")
         if not (torch.equal(bits(v), bits(v2)) and torch.equal(i, i2)):
             raise AssertionError(f"selection {key}: two runs of the kernel differ")
+        if per_call != 1:
+            raise AssertionError(f"selection {key}: {per_call} launches a call, not 1")
+        want_spilled = rows.shape[0] if key.endswith("_tied") else 0
+        if spilled != want_spilled:
+            raise AssertionError(f"selection {key}: {spilled} rows spilled, not {want_spilled}")
         n_bytes = x.numel() * x.element_size() + v.numel() * (x.element_size() + 4)
         big = x.numel() * x.element_size() > L2_BYTES
         reps = 5 if big else 50
         r = dict(err=0.0, bound_by="bytes", bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3,
+                 variant=path, spilled=spilled, launches_per_call=per_call,
                  ms=device_ms(lambda: select.top_k_cuda(x, k), reps),
                  plain_ms=device_ms(lambda: select.top_k_plain(x, k), max(reps // 5, 2)),
                  library_ms=device_ms(lambda: torch.topk(x, k, dim=-1), reps))
         beside = ""
-        if path != "long":
-            rows = x.reshape(-1, x.shape[-1]).contiguous()
+        if path == "grid":
+            plan = select.plan_for(rows, k)
+            r.update(cluster=1, rows_in_flight=1)
+            grid = f"one row on {plan.blocks} blocks, "
+        elif path in ("cluster", "spill"):
+            plan = select.plan_for(rows, k)
+            r.update(cluster=plan.cluster, rows_in_flight=plan.rows_in_flight)
+            grid = (f"{'spill' if spilled else 'on chip'} ({spilled} of {rows.shape[0]} rows "
+                    f"spilled), clusters of {plan.cluster} blocks, {plan.rows_in_flight} rows in "
+                    f"flight ({plan.in_flight_bytes / 2**20:.2f} MiB), ")
+        else:
             lv, li = select._long_row_kernel(rows, k, "other_f32")
             if not (torch.equal(bits(lv), bits(pv.reshape(lv.shape)))
                     and torch.equal(li, pi.reshape(li.shape))):
                 raise AssertionError(f"selection {key}: the long-row kernel differs")
             r["long_ms"] = device_ms(lambda: select._long_row_kernel(rows, k, "other_f32"), reps)
             beside = f", the long-row kernel on the same input {r['long_ms']:.4f} ms"
+            grid = ""
         finite = torch.isfinite(x.float()).float().mean().item()
         log(f"selection {key}: {tuple(x.shape)} {str(x.dtype)[6:]} k={k}, variant {path} "
-            f"({100 * finite:.2f}% finite, {'above' if big else 'within'} the L2): bitwise equal "
-            f"to its plain version, two runs equal; device times (queued calls): kernel "
-            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, torch.topk "
-            f"{r['library_ms']:.4f} ms{beside}, bound {r['bound_ms']:.4f} ms ({n_bytes} bytes)")
+            f"{grid}{per_call} launch a call ({100 * finite:.2f}% finite, "
+            f"{'above' if big else 'within'} the L2): bitwise equal to its plain version, two "
+            f"runs equal; device times (queued calls): kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, torch.topk {r['library_ms']:.4f} ms{beside}, bound "
+            f"{r['bound_ms']:.4f} ms ({n_bytes} bytes)")
         out[key] = r
+    take_spilled(count=False)
     select.top_k_cuda.launches.update(counted)
     return out
 
@@ -821,7 +871,8 @@ def top_rows(rows, n=8):
     return "; ".join(f"{name[:48]} x{k} {ms:.2f} ms" for ms, name, k in rows[:n])
 
 
-KERNEL_NAMES = ("fht_", "bin_scan_kernel", "packed_lb_kernel", "top_k_select_kernel",
+KERNEL_NAMES = ("fht_", "bin_scan_kernel", "packed_lb_kernel", "top_k_cluster_kernel",
+                "top_k_grid_kernel",
                 "top_k_warp_kernel", "top_k_shared_kernel")  # by name
 
 
@@ -940,8 +991,24 @@ def serve(index, queries_np, nprobe):
         queries_np, SearchParams(top_k=10, nprobe=nprobe), batch_size=256, upload_block=1024)
 
 
+SPILLED = {"rows": 0}  # rows the serving and build paths sent through the selection's spill
+
+
+def take_spilled(count=True):
+    """The rows the long-row selection kernel spilled since the last read,
+    counted on the card; the count is reset, and added to SPILLED where
+    ``count`` is set (the serving and build paths, not the checks)."""
+    from rabitq_tpu_torch.ops import select
+
+    n = select.spilled_rows(reset=True)
+    if count:
+        SPILLED["rows"] += n
+    return n
+
+
 def zero_launches():
-    """Set every kernel's launch counter to 0."""
+    """Set every kernel's launch counter to 0 (and the selection's spilled
+    rows, after adding them to SPILLED)."""
     from rabitq_tpu_torch.ops.fht import fht_kernel
     from rabitq_tpu_torch.ops.fused_scan import fused_bin_scan_cuda, fused_bin_scan_packed_cuda
     from rabitq_tpu_torch.ops.kmeans import running_sum_kernel, segment_sum_kernel
@@ -956,15 +1023,19 @@ def zero_launches():
     segment_sum_kernel.launches = running_sum_kernel.launches = 0
     for key in top_k_cuda.launches:
         top_k_cuda.launches[key] = 0
+    take_spilled()
 
 
 def select_counts():
     """The selection kernel's launches by site and type
-    (``select_<site>_<f32|bf16>``) and in all (``select``)."""
-    from rabitq_tpu_torch.ops.select import top_k_cuda
+    (``select_<site>_<f32|bf16>``) and in all (``select``), and the rows
+    the long-row kernel spilled since the counters were zeroed
+    (``select_spilled``: 0 on every path)."""
+    from rabitq_tpu_torch.ops.select import spilled_rows, top_k_cuda
 
     counts = {f"select_{k}": v for k, v in top_k_cuda.launches.items()}
     counts["select"] = sum(top_k_cuda.launches.values())
+    counts["select_spilled"] = spilled_rows()
     return counts
 
 
@@ -1697,7 +1768,8 @@ def check_brute_force(data, queries_np, gt):
     plain version on the packed path's own inputs, profile one packed run,
     round-trip the index through RBF1 with equal ids, and last the
     JAX-shaped host assignment (check_jax_shaped_brute_force). Returns
-    (launches, K4 check, the JAX-shaped path's launches and seconds)."""
+    (launches, K4 check, the JAX-shaped path's launches and seconds, the
+    survivor plane and k that a packed search hands the selection)."""
     import tempfile
 
     import numpy as np
@@ -1740,6 +1812,12 @@ def check_brute_force(data, queries_np, gt):
     args = capture_packed_lb_plane(lambda: index.batch_search(queries_np[:256], params), index)
     k4 = check_lb_plane(args, "packed lb plane (G_TABLE, brute force, C = 1)")
     profile_run(lambda: bf_ids(index, queries_np, params), "brute force packed")
+    recorded = {}
+    with recording_selections(recorded):  # its survivor plane, all finite, for the selection phase
+        eagerly(index, lambda: index.batch_search(queries_np[:256], params))
+    plane, k = recorded["survivors_bf16"]
+    survivors = (plane.cpu(), k)  # on the host until then
+    del recorded, plane
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
         path = os.path.join(tmp, "index.rbf")
         t0 = time.perf_counter()
@@ -1756,7 +1834,7 @@ def check_brute_force(data, queries_np, gt):
         f"packed serving run {load_s:.2f} s; ids equal after the reload")
     t0 = time.perf_counter()
     jax_shaped = check_jax_shaped_brute_force(index, queries_np, params, ids_of["packed"])
-    return launches, k4, jax_shaped, time.perf_counter() - t0
+    return launches, k4, jax_shaped, time.perf_counter() - t0, survivors
 
 
 def bridged_workload(data, queries, centers, seed=99):
@@ -2833,7 +2911,8 @@ def main() -> int:
     del index
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    brute, k4_bf, jax_bf, jax_s["brute force"] = check_brute_force(data, queries_np, gt)
+    brute, k4_bf, jax_bf, jax_s["brute force"], bf_survivors = check_brute_force(
+        data, queries_np, gt)
     torch.cuda.empty_cache()
     log(f"phase seconds: brute force {time.perf_counter() - t0 - jax_s['brute force']:.1f}")
     t0 = time.perf_counter()
@@ -2951,6 +3030,12 @@ def main() -> int:
     # the packed scan's survivor plane in f32: what it selects from with approx_topk=False
     sel_inputs["survivors_f32"] = (sel_inputs["survivors_bf16"][0].float(),
                                    sel_inputs["survivors_bf16"][1])
+    # brute force "packed"'s plane (all finite), and the 8-bit plane tied beyond
+    # the long-row kernel's on-chip capacity at the k-th key
+    sel_inputs["survivors_bf16_brute_force"] = (bf_survivors[0].to(dev), bf_survivors[1])
+    del bf_survivors
+    sel_inputs["survivors_bf16_tied"] = (tied_beyond_capacity(sel_inputs["survivors_bf16"][0]),
+                                         sel_inputs["survivors_bf16"][1])
     selection = check_selection(sel_inputs)
     del sel_inputs
     log(f"phase seconds: selection {time.perf_counter() - t0:.1f}")
@@ -3043,11 +3128,20 @@ def main() -> int:
     ]
     # not a TPU kernel: it stands where the JAX package calls lax.top_k (an
     # XLA op); one entry a site and type, launches summed over every path
+    # (brute force's survivor cut apart; the tied plane is on no path)
+    select_launches = {key: sum(p.get(f"select_{key}", 0) for p in paths) for key in SELECT_SITES}
+    bf_cut = sum(p.get("select_survivors_bf16", 0) for p in (brute, jax_bf))
+    select_launches["survivors_bf16"] -= bf_cut
+    select_launches["survivors_bf16_brute_force"] = bf_cut
     kernels += [
-        entry(name, "rabitq_tpu_torch/csrc/select.cu", replaces,
-              sum(p.get(f"select_{key}", 0) for p in paths), selection[key])
+        entry(name, "rabitq_tpu_torch/csrc/select.cu", replaces, select_launches[key],
+              selection[key])
         for key, (name, replaces) in SELECT_SITES.items()
     ]
+    take_spilled()
+    log(f"selection spill: {SPILLED['rows']} rows spilled over every serving and build path")
+    if SPILLED["rows"]:
+        raise AssertionError(f"the main path's selections spilled {SPILLED['rows']} rows")
     for k in kernels:
         if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms")):
             raise AssertionError(f"non-finite timing for {k['name']}")

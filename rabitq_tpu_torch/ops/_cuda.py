@@ -32,6 +32,8 @@ SOURCES = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_IP = ctypes.POINTER(ctypes.c_int)
+_ULP = ctypes.POINTER(ctypes.c_ulonglong)
 # entry point -> (source, C symbol, argtypes in order)
 _SIGNATURES = {
     "fht": ("fht", "rabitq_fht", (_P, _P, _L, _I, _P)),
@@ -48,7 +50,10 @@ _SIGNATURES = {
     "segment_sum": ("build_sums", "rabitq_segment_sum", (_P,) * 4 + (_L, _L, _I, _P)),
     "tile_sums": ("build_sums", "rabitq_tile_sums", (_P, _P, _L, _P)),
     "running_sum": ("build_sums", "rabitq_running_sum", (_P, _P, _L, _P, _I, _P)),
-    "top_k": ("select", "rabitq_top_k", (_P,) * 6 + (_L, _L, _L, _I, _I, _I, _P)),
+    "top_k": ("select", "rabitq_top_k", (_P,) * 7 + (_L, _L, _I, _I, _I, _I, _P)),
+    "top_k_grid": ("select", "rabitq_top_k_grid", (_P,) * 4 + (_L, _I, _I, _I, _P)),
+    "top_k_clusters": ("select", "rabitq_top_k_clusters", (_I, _I, _IP)),
+    "top_k_spilled": ("select", "rabitq_top_k_spilled", (_ULP, _I)),
     "top_k_short": ("select", "rabitq_top_k_short", (_P,) * 3 + (_L, _L, _I, _I, _I, _P)),
 }
 

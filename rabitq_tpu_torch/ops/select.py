@@ -11,13 +11,17 @@ take ``top_k(-x, k)`` and negate the values back, as the JAX package does.
 On the card :func:`top_k` launches ``csrc/select.cu``: for rows that fit
 on chip one of its short-row variants (a warp a row, or a bitonic sort of
 the row or of a radix select's winners in shared memory), for longer rows
-the long-row kernel (radix select, an ordered compaction and a stable radix
-sort of the winners); :func:`kernel_path` picks. On a CPU tensor it runs
-:func:`top_k_plain`, a stable sort of the same key. The two are bitwise
-equal, values and indices.
+the long-row kernel, a persistent grid of thread-block clusters that reads
+each row once from HBM, keeps it in the L2 for its later radix passes and
+orders the winners on chip (:func:`long_row_plan` sizes the grid);
+:func:`kernel_path` picks. On a CPU tensor it runs :func:`top_k_plain`, a
+stable sort of the same key. The two are bitwise equal, values and indices.
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import Mapping, NamedTuple
 
 import torch
 
@@ -28,6 +32,17 @@ _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # entries in shared memory; the warp variant for k <= WARP_K of n <= WARP_N
 SHORT_N, WARP_N, WARP_K, SORT_MIN = 8192, 1024, 32, 256
 _SHORT_MODES = {"warp": 0, "sort": 1, "select": 2}
+# the long-row kernel (csrc/select.cu): a row's candidates ordered on chip
+# (k and the ties at the k-th key, CAND), words of a slot's meta; the bytes
+# of the rows in flight that stay within half the L2; cluster sizes; the
+# fewest entries a block of a cluster larger than one takes
+CAND, META = 8192, 8
+L2_BUDGET = 24 << 20
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+MIN_SLICE = 16384
+# the one-row variant (k <= WARP_K): bytes of the row a block takes (512
+# threads x 4 loads of 16 bytes), at most two blocks a multiprocessor
+GRID_BLOCK_BYTES = 512 * 4 * 16
 # the call sites, each counted apart on the card
 SITES = ("survivors", "centroids", "bins", "final", "merge", "closure", "reseed", "other")
 
@@ -84,70 +99,162 @@ def _pow2_at_least(m: int) -> int:
     return max(SORT_MIN, 1 << (m - 1).bit_length())
 
 
-def kernel_path(n: int, k: int) -> str:
+def kernel_path(n: int, k: int, rows: int | None = None) -> str:
     """The variant of the kernel that selects k of each row of n entries
     (either type: both keep 64-bit composites): "warp" (k <= 32 of at most
     1024: a warp a row), "sort" (at most 8192 entries, k above half the
     padded row: a bitonic sort of the row in shared memory), "select" (at
     most 8192 entries otherwise: a radix select in shared memory, then a
-    sort of the winners), or "long" (the long-row kernel)."""
+    sort of the winners); for longer rows "grid" (one row, ``rows`` given as
+    1, k <= 32: the whole card scans it, each warp keeping its k best),
+    "cluster" (k <= CAND: the long-row kernel orders each row's winners on
+    chip, unless the ties at the k-th key push them past CAND) or "spill"
+    (k > CAND: every row's winners in index order through device scratch
+    and a stable sort)."""
     if k <= WARP_K and n <= WARP_N:
         return "warp"
     if n > SHORT_N:
-        return "long"
+        return _long_variant(k, rows)
     return "sort" if 2 * _pow2_at_least(k) > _pow2_at_least(n) else "select"
 
 
-def _segments(x: torch.Tensor, rows: int, n: int, k: int) -> tuple[int, int]:
-    """(segments, segment length) of the long-row kernel's first pass where
-    the rows are too few to fill the card with one block a row (two blocks
-    a multiprocessor stay resident): each segment at least max(4k, 4096)
-    entries, its length a multiple of 8 so that segments start on 16 bytes.
-    (1, n): one pass."""
-    slots = 2 * torch.cuda.get_device_properties(x.device).multi_processor_count
-    segments = min(slots // max(rows, 1), n // max(4 * k, 4096))
-    if segments < 2:
-        return 1, n
-    return segments, n // segments // 8 * 8
+def _long_variant(k: int, rows: int | None) -> str:
+    if rows == 1 and k <= WARP_K:
+        return "grid"
+    return "cluster" if k <= CAND else "spill"
 
 
-def _launch(x, values, indices, idx_in, rows, n, seg, segments, k) -> None:
-    """One launch of the long-row kernel over ``rows * segments`` blocks."""
-    keys = torch.empty((2, rows * segments, k), dtype=torch.int32, device=x.device)
-    slots = torch.empty((2, rows * segments, k), dtype=torch.int32, device=x.device)
-    err = _cuda.entry("top_k")(
-        x.data_ptr(), values.data_ptr(), indices.data_ptr(), keys.data_ptr(), slots.data_ptr(),
-        None if idx_in is None else idx_in.data_ptr(), rows, n, seg, segments, k,
-        int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    _cuda.check_launch(err, "top_k")
+class LongRowPlan(NamedTuple):
+    """The long-row kernel's grid: ``clusters`` clusters of ``cluster``
+    blocks, one row in flight a cluster; for "grid", ``clusters`` blocks
+    on the one row."""
+
+    variant: str  # kernel_path's: "grid", "cluster" or "spill"
+    cluster: int  # blocks a cluster (each takes a slice of the row)
+    clusters: int  # clusters in the grid
+    row_bytes: int
+
+    @property
+    def blocks(self) -> int:
+        return self.cluster * self.clusters
+
+    @property
+    def rows_in_flight(self) -> int:
+        return 1 if self.variant == "grid" else self.clusters
+
+    @property
+    def in_flight_bytes(self) -> int:
+        return self.rows_in_flight * self.row_bytes
+
+
+def long_row_plan(rows: int, n: int, k: int, elem_bytes: int, sms: int,
+                  max_clusters: Mapping[int, int]) -> LongRowPlan:
+    """The long-row kernel's grid for ``rows`` rows of ``n`` entries of
+    ``elem_bytes`` each, on a card of ``sms`` multiprocessors that holds
+    ``max_clusters[c]`` clusters of c blocks at once: for one row and k <=
+    WARP_K the "grid" variant, a block for every GRID_BLOCK_BYTES of the row
+    (at most two a multiprocessor); else the cluster size that keeps the most
+    blocks busy (the smaller on a tie: fewer blocks to add up a histogram),
+    with at most one block a multiprocessor, at least MIN_SLICE entries a
+    block of a cluster larger than one, and as many rows in flight as hold
+    at most L2_BUDGET bytes (at least one)."""
+    row_bytes = n * elem_bytes
+    if _long_variant(k, rows) == "grid":
+        blocks = min(2 * sms, max(1, -(-row_bytes // GRID_BLOCK_BYTES)))
+        return LongRowPlan("grid", 1, blocks, row_bytes)
+    in_flight = max(1, L2_BUDGET // row_bytes)
+    best = None
+    for cs in CLUSTER_SIZES:
+        if cs > 1 and n < cs * MIN_SLICE:
+            break
+        g = min(rows, in_flight, max_clusters.get(cs, 0), sms // cs)
+        if g >= 1 and (best is None or g * cs > best[0] * best[1]):
+            best = (g, cs)
+    if best is None:
+        raise RuntimeError("no cluster of the long-row selection kernel fits on the card")
+    g, cs = best
+    return LongRowPlan(_long_variant(k, rows), cs, g, row_bytes)
+
+
+_CLUSTERS: dict = {}  # (device index, bf16) -> {cluster size: clusters the card holds}
+
+
+def max_clusters(device: torch.device, bf16: bool) -> dict[int, int]:
+    """How many clusters of each size in CLUSTER_SIZES of the long-row
+    kernel ``device`` holds at once (``cudaOccupancyMaxActiveClusters``;
+    0 where the card refuses a size), asked once a device and type."""
+    key = (device.index, bool(bf16))
+    if key not in _CLUSTERS:
+        fn = _cuda.entry("top_k_clusters")
+        out = ctypes.c_int()
+        found = {}
+        with torch.cuda.device(device):
+            for cs in CLUSTER_SIZES:
+                _cuda.check_launch(fn(cs, int(bf16), ctypes.byref(out)), "top_k_clusters")
+                found[cs] = out.value
+        _CLUSTERS[key] = found
+    return _CLUSTERS[key]
+
+
+def plan_for(rows: torch.Tensor, k: int) -> LongRowPlan:
+    """:func:`long_row_plan` for contiguous ``[r, n]`` rows on their card."""
+    r, n = rows.shape
+    sms = torch.cuda.get_device_properties(rows.device).multi_processor_count
+    if _long_variant(k, r) == "grid":
+        return long_row_plan(r, n, k, rows.element_size(), sms, {})
+    bf16 = rows.dtype == torch.bfloat16
+    return long_row_plan(r, n, k, rows.element_size(), sms, max_clusters(rows.device, bf16))
 
 
 def _long_row_kernel(rows: torch.Tensor, k: int, key: str):
     """The long-row kernel on contiguous ``[r, n]`` rows (1 <= k <= n):
-    (values, int32 indices) ``[r, k]``. One launch, or two where the rows
-    are few and long (each segment's top k, then the top k of those
-    candidates, whose indices map back through the first pass's); counted
-    under ``key``."""
+    (values, int32 indices) ``[r, k]``, one launch, counted under ``key``."""
     r, n = rows.shape
-    values = torch.empty((r, k), dtype=rows.dtype, device=rows.device)
-    indices = torch.empty((r, k), dtype=torch.int32, device=rows.device)
-    segments, seg = _segments(rows, r, n, k)
-    idx_in = None
-    if segments > 1:
-        cand = torch.empty((r, segments * k), dtype=rows.dtype, device=rows.device)
-        cand_idx = torch.empty((r, segments * k), dtype=torch.int32, device=rows.device)
-        _launch(rows, cand, cand_idx, None, r, n, seg, segments, k)
+    plan = plan_for(rows, k)
+    dev = rows.device
+    values = torch.empty((r, k), dtype=rows.dtype, device=dev)
+    indices = torch.empty((r, k), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    bf16 = int(rows.dtype == torch.bfloat16)
+    if plan.variant == "grid":
+        part = torch.empty((plan.blocks, WARP_K), dtype=torch.int64, device=dev)
+        err = _cuda.entry("top_k_grid")(rows.data_ptr(), values.data_ptr(), indices.data_ptr(),
+                                        part.data_ptr(), n, k, plan.blocks, bf16, stream)
+        _cuda.check_launch(err, "top_k_grid")
         top_k_cuda.launches[key] += 1
-        rows, idx_in, n = cand, cand_idx, segments * k
-    _launch(rows, values, indices, idx_in, r, n, n, 1, k)
+        return values, indices
+    cand = torch.empty((plan.blocks, CAND), dtype=torch.int64, device=dev)
+    meta = torch.empty((plan.blocks, META), dtype=torch.int32, device=dev)
+    slots = min(r, plan.blocks)  # the spill's scratch: one a block that orders rows
+    spill_keys = torch.empty((2, slots, k), dtype=torch.int32, device=dev)
+    spill_idx = torch.empty((2, slots, k), dtype=torch.int32, device=dev)
+    err = _cuda.entry("top_k")(
+        rows.data_ptr(), values.data_ptr(), indices.data_ptr(), cand.data_ptr(), meta.data_ptr(),
+        spill_keys.data_ptr(), spill_idx.data_ptr(), r, n, k, plan.cluster, plan.clusters, bf16,
+        stream,
+    )
+    _cuda.check_launch(err, "top_k")
     top_k_cuda.launches[key] += 1
     return values, indices
 
 
+def spilled_rows(device=None, *, reset: bool = False) -> int:
+    """Rows the long-row kernel sent through its spill (winners in index
+    order through device scratch) on ``device`` (default: the current card)
+    since the last reset, counted on the card; ``reset`` sets the count to
+    0. Synchronises the device."""
+    device = torch.device("cuda" if device is None else device)
+    out = ctypes.c_ulonglong()
+    with torch.cuda.device(device):
+        torch.cuda.synchronize()
+        _cuda.check_launch(_cuda.entry("top_k_spilled")(ctypes.byref(out), int(reset)),
+                           "top_k_spilled")
+    return out.value
+
+
 def top_k_cuda(x: torch.Tensor, k: int, *, site: str = "other"):
     """The kernel, in the variant :func:`kernel_path` names: one launch of
-    a short-row variant, or the long-row kernel. Counts every launch in
+    a short-row variant or of the long-row kernel. Counts every launch in
     ``top_k_cuda.launches`` under ``"<site>_<f32|bf16>"``; allocates its
     outputs and scratch with ``torch.empty`` (a graph's pool during a
     capture) and does not synchronise."""
@@ -162,7 +269,7 @@ def top_k_cuda(x: torch.Tensor, k: int, *, site: str = "other"):
     r = rows.shape[0]
     key = f"{site}_{_DTYPES[x.dtype]}"
     path = kernel_path(n, k)
-    if r and k and path == "long":
+    if r and k and n > SHORT_N:
         values, indices = _long_row_kernel(rows, k, key)
     else:
         values = torch.empty((r, k), dtype=x.dtype, device=x.device)

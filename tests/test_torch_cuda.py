@@ -1177,22 +1177,36 @@ def _tied_plane(shape, dtype, cuda, seed, masked=0.0, nans=False):
     return x
 
 
+def _lower_bounds(shape, dtype, cuda, seed, masked=0.0):
+    """Rows as a survivor plane holds them: negated distances of one
+    magnitude (1000 +- 50), rounded to ``dtype``, ``masked`` of them -inf.
+    Ties at the top stay few (the tail is thin): the long-row kernel orders
+    these rows' winners on chip."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = -(1000.0 + 50.0 * torch.randn(shape, generator=g, device=cuda))
+    x = torch.where(torch.rand(shape, generator=g, device=cuda) < masked, float("-inf"), x)
+    return x.to(dtype)
+
+
 def _bits(t):
     return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
 
 
-def _check_top_k(x, k):
+def _check_top_k(x, k, spilled=None):
     """The kernel against its plain version: values bitwise, indices equal,
-    one launch (two where the long-row kernel cuts few long rows into
-    segments)."""
+    one launch for any rows, short or long; where ``spilled`` is given, that
+    many rows took the long-row kernel's spill (every row where k > CAND)."""
     from rabitq_tpu_torch.ops import select
 
+    rows = x.shape[0] if x.dim() == 2 else 1
+    if spilled is None and select.kernel_path(x.shape[-1], k) == "spill":
+        spilled = rows
+    select.spilled_rows(x.device, reset=True)
     before = sum(select.top_k_cuda.launches.values())
     v, i = select.top_k(x, k)
-    rows, n = (x.shape[0] if x.dim() == 2 else 1), x.shape[-1]
-    long_rows = select.kernel_path(n, k) == "long"
-    passes = 2 if long_rows and select._segments(x, rows, n, k)[0] > 1 else 1
-    assert sum(select.top_k_cuda.launches.values()) == before + passes
+    assert sum(select.top_k_cuda.launches.values()) == before + 1
+    if spilled is not None:
+        assert select.spilled_rows(x.device) == spilled
     pv, pi = select.top_k_plain(x, k)
     assert v.dtype == x.dtype and i.dtype == torch.int32 and v.shape == (*x.shape[:-1], k)
     assert torch.equal(i, pi), float((i == pi).float().mean())
@@ -1204,15 +1218,23 @@ def _check_top_k(x, k):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_top_k_kernel_bitwise_at_the_survivor_shape(cuda, dtype, k):
     """[256, 1,000,448], the dense scans' survivor plane, with ties, signed
-    zeros and infinities; k = 10,000 orders more winners than a block's
-    shared memory holds."""
+    zeros and infinities (about 10,000 +inf a row: the k-th key's ties
+    exceed CAND and every row spills); then lower bounds as the scans give
+    them, ordered on chip (none spilled) up to k = 400; k = 10,000 orders
+    more winners than a block's shared memory holds (every row spills)."""
+    from rabitq_tpu_torch.ops import select
+
     _check_top_k(_tied_plane((256, 1_000_448), dtype, cuda, k), k)
+    _check_top_k(_lower_bounds((256, 1_000_448), dtype, cuda, k), k,
+                 spilled=0 if k <= select.CAND else 256)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_top_k_kernel_bitwise_on_a_masked_plane(cuda, dtype):
-    """94% -inf, as at nprobe 256 of 4096 clusters."""
+    """94% -inf, as at nprobe 256 of 4096 clusters: the tied plane, and
+    lower bounds ordered on chip (none spilled)."""
     _check_top_k(_tied_plane((256, 1_000_448), dtype, cuda, 7, masked=0.94), 400)
+    _check_top_k(_lower_bounds((256, 1_000_448), dtype, cuda, 7, masked=0.94), 400, spilled=0)
 
 
 @pytest.mark.parametrize("shape,k", [((256, 4096), 4096), ((256, 4096), 16), ((256, 8192), 400),
@@ -1225,7 +1247,7 @@ def test_top_k_kernel_bitwise_on_a_masked_plane(cuda, dtype):
 def test_top_k_kernel_bitwise_at_the_other_shapes(cuda, shape, k):
     """The centroid ranking (k = n and a probe bucket), the best bins, the
     final top-k, the shard merge, the k-means reseed (1-D), few long rows
-    (two passes: the segments' top k, then theirs), both sides of each
+    (clusters left idle; k = 5,000 of one row), both sides of each
     limit of the short-row variants (n 8192 / 8193; k 32 / 33 at n 1024,
     n 1025; sort against select at n 8192), k = n not a power of two, and
     rows whose length is no multiple of 8 (scalar loads), in both types,
@@ -1239,10 +1261,15 @@ def test_top_k_kernel_bitwise_at_the_other_shapes(cuda, shape, k):
         _check_top_k(x[:, 1:], k - 1 if k == x.shape[1] else k)  # a strided view is copied
 
 
-def test_top_k_kernel_two_calls_and_a_graph_give_equal_bits(cuda):
+@pytest.mark.parametrize("rows", [256, 3, 1])
+def test_top_k_kernel_two_calls_and_a_graph_give_equal_bits(cuda, rows):
+    """Long rows: 256 (more rows than clusters in flight, several waves), 3
+    and 1 (clusters left idle) give equal bits in two calls, and a CUDA
+    graph replayed on new rows equals eager calls on them."""
     from rabitq_tpu_torch.ops import select
 
-    x = _tied_plane((256, 1_000_448), torch.bfloat16, cuda, 3, masked=0.5)
+    shape = (rows, 1_000_448)
+    x = _tied_plane(shape, torch.bfloat16, cuda, 3, masked=0.5)
     v1, i1 = select.top_k(x, 400)
     v2, i2 = select.top_k(x, 400)
     assert torch.equal(_bits(v1), _bits(v2)) and torch.equal(i1, i2)
@@ -1256,10 +1283,54 @@ def test_top_k_kernel_two_calls_and_a_graph_give_equal_bits(cuda):
     with torch.cuda.graph(graph):
         gv, gi = select.top_k(static, 400)
     for seed in (3, 4):
-        static.copy_(_tied_plane((256, 1_000_448), torch.bfloat16, cuda, seed, masked=0.5))
+        static.copy_(_tied_plane(shape, torch.bfloat16, cuda, seed, masked=0.5))
         graph.replay()
         ev, ei = select.top_k(static, 400)
         assert torch.equal(_bits(gv), _bits(ev)) and torch.equal(gi, ei)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_top_k_kernel_ties_at_the_kth_key_against_the_capacity(cuda, dtype):
+    """Rows whose k-th key is tied by CAND + 1 entries, more than the
+    long-row kernel orders on chip, take the spill, every row counted; rows
+    whose tie bin holds exactly CAND order on chip, none spilled. Both
+    bitwise equal to the plain version, and a graph of the spilling call
+    equals eager."""
+    from rabitq_tpu_torch.ops import select
+
+    def tie_top(seed, m):  # m entries a row, in random places, tied above the rest
+        g = torch.Generator(device=cuda).manual_seed(seed)
+        x = (torch.randint(-2000, 2000, (64, 1_000_448), generator=g, device=cuda) / 4).to(dtype)
+        pos = torch.argsort(torch.rand(x.shape, generator=g, device=cuda), dim=-1)[:, :m]
+        return x.scatter_(1, pos, torch.full(pos.shape, 5000.0, dtype=dtype, device=cuda))
+
+    beyond = tie_top(21, select.CAND + 1)
+    _check_top_k(beyond, 400, spilled=64)
+    _check_top_k(tie_top(22, select.CAND), 400, spilled=0)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        select.top_k(beyond, 400)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        gv, gi = select.top_k(beyond, 400)
+    graph.replay()
+    ev, ei = select.top_k(beyond, 400)
+    assert torch.equal(_bits(gv), _bits(ev)) and torch.equal(gi, ei)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_top_k_kernel_winners_below_the_hinted_digit(cuda, dtype):
+    """Rows where the most frequent first digit (the long-row kernel's hint,
+    counted in registers and not buffered) holds 60% of the keys and lies
+    below the k-th key's: its keys are winners too. Several rows a cluster,
+    so the hint is learnt from the row before; one row of the same kind."""
+    g = torch.Generator(device=cuda).manual_seed(31)
+    x = torch.randn((300, 10_000), generator=g, device=cuda)
+    x = torch.where(torch.rand(x.shape, generator=g, device=cuda) < 0.6, 1000.0, x).to(dtype)
+    _check_top_k(x, 7000, spilled=0)
+    _check_top_k(x[:4].reshape(-1)[:39_999].contiguous(), 5000)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

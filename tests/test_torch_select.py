@@ -145,18 +145,93 @@ def test_top_k_dispatch_and_limits():
     (400, 10, "warp"),         # final top-k
     (40, 10, "warp"),          # shard merge, 4 shards x 10
     (2363, 4, "select"),       # MSTG closure over ~2,363 lists
-    (8193, 400, "long"),       # past the short rows
+    (8193, 400, "cluster"),    # past the short rows
     (1024, 32, "warp"), (1024, 33, "select"), (1025, 32, "select"),
     (8192, 4096, "select"), (8192, 4097, "sort"), (1001, 1001, "sort"),
-    (1_000_064, 400, "long"),  # survivors [256, ~1M]
-    (1_000_000, 8, "long"),    # the k-means reseed, one row of 1M
+    (1_000_064, 400, "cluster"),  # survivors [256, ~1M]
+    (1_000_000, 8, "cluster"),    # the k-means reseed, one row of 1M
+    (50_000, 8, "cluster"),       # rows of an MSTG split's reseed's length
+    (1_000_000, 8192, "cluster"), (1_000_000, 8193, "spill"),  # the on-chip capacity
+    (1_000_448, 10_000, "spill"),
 ])
 def test_kernel_path_at_each_site(n, k, want):
     """The card's variant for each selection site's shape, and on both
     sides of each limit: the short rows (at most 8192 entries) in shared
-    memory or a warp, the survivors and the reseed on the long-row kernel.
-    A function of (n, k) alone: both types keep 64-bit composites."""
+    memory or a warp, the survivors on the long-row kernel, which orders
+    k <= CAND winners on chip and spills larger k; one long row with k <= 32
+    (the k-means reseed, a 1-D tensor) on the whole card. A function of (n,
+    k) and, for one row, the rows: both types keep 64-bit composites."""
     assert select.kernel_path(n, k) == want
+    one_row = "grid" if want == "cluster" and k <= select.WARP_K else want
+    assert select.kernel_path(n, k, 1) == one_row
+
+
+# cudaOccupancyMaxActiveClusters for the long-row kernel on an H100 SXM
+# (132 multiprocessors, one block of 512 threads each), as the card reports it
+H100_SMS = 132
+H100_CLUSTERS = {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}
+
+
+@pytest.mark.parametrize("rows,n,k,elem,want", [
+    (256, 1_000_064, 400, 2, ("cluster", 16, 7)),  # survivors bf16 (8 bits packed, brute force)
+    (256, 1_000_064, 400, 4, ("cluster", 16, 6)),  # the same plane in f32: 4 MB rows, six fit
+    (1, 1_000_000, 8, 4, ("grid", 1, 123)),        # the k-means reseed: one row over the card
+    (1, 4_000, 8, 4, None),                        # an MSTG split's reseed, short: no plan
+    (1, 50_000, 8, 4, ("grid", 1, 7)),             # an MSTG split's reseed, long
+    (256, 8_193, 400, 4, ("cluster", 1, 132)),     # the closure at n = 8,193: a block a row
+    (256, 1_000_448, 10_000, 2, ("spill", 16, 7)),  # k = 10,000: every row spills
+    (4, 1_000_448, 400, 2, ("cluster", 16, 4)),    # few long rows
+    (1, 1_000_000, 33, 4, ("cluster", 16, 1)),     # one row, k past the grid variant's 32
+])
+def test_long_row_plan_at_the_main_path_shapes(rows, n, k, elem, want):
+    """The long-row kernel's grid is a pure function of the shape, the card's
+    multiprocessors and its cluster occupancy: one launch whatever the rows
+    (the reseed's one row on the whole card), rows in flight x row bytes
+    within the L2 budget, at most one block a multiprocessor in a cluster
+    grid (two in the one-row grid), every block of a cluster larger than
+    one a slice of at least MIN_SLICE entries; the variant as kernel_path
+    names it. A card that holds fewer clusters of 16 gets fewer rows in
+    flight, never more bytes."""
+    if want is None:
+        assert select.kernel_path(n, k, rows) in ("warp", "sort", "select")
+        return
+    plan = select.long_row_plan(rows, n, k, elem, H100_SMS, H100_CLUSTERS)
+    assert (plan.variant, plan.cluster, plan.clusters) == want
+    assert plan.variant == select.kernel_path(n, k, rows)
+    assert plan.in_flight_bytes <= select.L2_BUDGET
+    if plan.variant == "grid":
+        assert plan.rows_in_flight == 1 and plan.blocks <= 2 * H100_SMS
+        assert plan.clusters == -(-n * elem // select.GRID_BLOCK_BYTES)
+        return
+    assert plan.blocks <= H100_SMS and plan.clusters <= min(rows, H100_CLUSTERS[plan.cluster])
+    assert plan.cluster == 1 or n >= plan.cluster * select.MIN_SLICE
+    small = select.long_row_plan(rows, n, k, elem, H100_SMS, {**H100_CLUSTERS, 16: 2})
+    assert small.in_flight_bytes <= select.L2_BUDGET and small.blocks <= H100_SMS
+
+
+@pytest.mark.parametrize("kind", ["ties_beyond_the_capacity", "one_value", "masked_94"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_top_k_equals_lax_top_k_on_the_long_rows_branches(kind, dtype):
+    """The inputs the long-row kernel branches on, against ``lax.top_k``:
+    rows whose k-th key is tied by more than CAND entries (the spill), rows
+    of one value, and rows 94% -inf as a survivor plane at nprobe 256."""
+    rng = np.random.default_rng(len(kind))
+    n, k = 20_000, 400
+    x = rng.integers(-200, 200, (2, n)).astype(np.float32) / 4
+    if kind == "ties_beyond_the_capacity":
+        x[:, rng.permutation(n)[: select.CAND + 800]] = 60.0  # above every other entry
+    elif kind == "one_value":
+        x[:] = 2.5
+    else:
+        x[rng.random((2, n)) < 0.94] = -np.inf
+    bits = x.view(np.uint32)
+    if dtype == "bf16":
+        bits = (bits >> 16).astype(np.uint16)
+    jx, tx = _pair(bits)
+    j_val, j_idx = jax.lax.top_k(jx, k)
+    t_val, t_idx = select.top_k(tx, k)
+    np.testing.assert_array_equal(_as_bits(t_val), np.asarray(j_val).view(bits.dtype))
+    np.testing.assert_array_equal(t_idx.numpy(), np.asarray(j_idx))
 
 
 def test_no_other_selection_in_the_port():
