@@ -23,13 +23,19 @@ full-length tile lists), ``RABITQ_LOCALITY`` (locality-sort depth) and
 ``RABITQ_GATHER=1`` / ``RABITQ_GATHER_MAX`` (the gather scan, opt-in).
 
 Persistence is the byte-compatible RBQ1 v3 format (``io/persistence.py``).
+
+Spans (``utils/profiling.py``): a public search is the root ``ivf.search``
+or ``ivf.batch``, with ``serve.encode``, ``serve.pin``, ``serve.copy_in``,
+``search.dispatch`` (with ``graph.replay``), ``serve.fetch`` and
+``serve.results`` inside; ``train`` is ``ivf.train``, with ``build.upload``,
+``kmeans`` (``kmeans.init``, ``kmeans.lloyd``, ``kmeans.assign``) and
+``build.quantize``, whose durations are the build report's seconds.
 """
 
 from __future__ import annotations
 
 import math
 import os
-import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -53,7 +59,8 @@ from ..ops.quantize import compute_const_scaling_factor
 from ..ops.rotation import Rotator, deserialize_rotator, make_rotator
 from ..types import Metric, RotatorType, SearchDiagnostics, SearchParams, SearchResult
 from ..utils.device import resolve_device, synchronize
-from ..utils.logging import get_logger, timed
+from ..utils.logging import get_logger
+from ..utils.profiling import Span, span
 from ..utils.transfer import upload_dataset
 from .build import build_codes_device, exact_t_rows
 from .layout import (
@@ -184,30 +191,29 @@ class IvfRabitqIndex:
         dev = resolve_device(device)
         n, dim = data.shape
         cls._validate_train_args(data, nlist, total_bits)
-        t0 = time.perf_counter()
-        data_dev, upload_report = upload_dataset(data, data_upload, device=dev)
-        t_upload = time.perf_counter()
-        if kmeans_dtype == "auto":
-            kmeans_dtype = kmeans_ops.auto_assign_dtype(n, dim)
-        with timed(f"kmeans n={n} k={nlist}", _log):
-            km = kmeans_ops.run_kmeans(
-                data_dev, nlist, niter=kmeans_iters, seed=seed,
-                assign_dtype=kmeans_dtype, tol=kmeans_tol, with_report=True,
-            )
-        t_kmeans = time.perf_counter()
-        index = cls._build(
-            data, data_dev, km.centroids, km.assignments, total_bits, metric,
-            rotator_type, seed, use_faster_config, scan_dtype, dev,
-        )
-        synchronize(dev)
-        t_end = time.perf_counter()
+        with Span("ivf.train", rows=n, nlist=nlist) as total:
+            with Span("build.upload") as upload:
+                data_dev, upload_report = upload_dataset(data, data_upload, device=dev)
+            if kmeans_dtype == "auto":
+                kmeans_dtype = kmeans_ops.auto_assign_dtype(n, dim)
+            with Span("kmeans", n=n, k=nlist) as kmeans:
+                km = kmeans_ops.run_kmeans(
+                    data_dev, nlist, niter=kmeans_iters, seed=seed,
+                    assign_dtype=kmeans_dtype, tol=kmeans_tol, with_report=True,
+                )
+            with Span("build.quantize") as quantize:
+                index = cls._build(
+                    data, data_dev, km.centroids, km.assignments, total_bits, metric,
+                    rotator_type, seed, use_faster_config, scan_dtype, dev,
+                )
+                synchronize(dev)
         index.build_report = {
             "upload": upload_report,
-            "upload_s": round(t_upload - t0, 2),
-            "kmeans_s": round(t_kmeans - t_upload, 2),
-            "kmeans": {**(km.report or {}), "iters": km.iters},
-            "quantize_s": round(t_end - t_kmeans, 2),
-            "total_s": round(t_end - t0, 2),
+            "upload_s": upload.seconds,
+            "kmeans_s": kmeans.seconds,
+            "kmeans": {**km.report, "iters": km.iters},
+            "quantize_s": quantize.seconds,
+            "total_s": total.seconds,
         }
         return index
 
@@ -273,7 +279,7 @@ class IvfRabitqIndex:
         ex_bits = total_bits - 1
         rotator = make_rotator(dim, rotator_type, seed)
         padded_dim = rotator.padded_dim
-        with timed("rotate centroids", _log):
+        with Span("build.rotate_centroids"):
             rotated_centroids = rotator.rotate(centroids)
 
         # cluster-sorted row order, ascending original id within a cluster
@@ -291,12 +297,12 @@ class IvfRabitqIndex:
             else:
                 # reference default: exact per-vector t sweep on the host
                 host = data if isinstance(data, np.ndarray) else data_dev.cpu().numpy()
-                with timed("exact t sweep", _log):
+                with Span("build.exact_t"):
                     t_rows = exact_t_rows(
                         host, centroids.cpu().numpy(), assignments[order], order,
                         rotator, ex_bits,
                     )
-        with timed("quantize+rotate codes", _log):
+        with Span("build.codes", rows=n):
             codes = build_codes_device(
                 data_dev, rotated_centroids, assignments[order],
                 rotator=rotator, ex_bits=ex_bits, metric=metric,
@@ -417,7 +423,7 @@ class IvfRabitqIndex:
         if self._host is None:
             if self._layout is None:
                 raise EmptyIndex()
-            with timed(f"download host codes n={len(self)}", _log):
+            with Span("ivf.download_host", n=len(self)):
                 planes = host_order_planes(self._layout, len(self), self.padded_dim, self.ex_bits)
                 self._host = HostCodes(
                     binary_bits=planes.pop("binary").cpu().numpy().astype(np.uint8),
@@ -458,16 +464,18 @@ class IvfRabitqIndex:
 
     def search(self, query: np.ndarray, params: SearchParams) -> list[SearchResult]:
         """Single-query search (``ivf.rs:1705-1711``)."""
-        return self.batch_search(np.asarray(query, np.float32)[None, :], params)[0]
+        with span("ivf.search", queries=1):
+            queries = self._check_queries(np.asarray(query, np.float32)[None, :])
+            return self._results(queries, params)[0]
 
     def search_filtered(
         self, query: np.ndarray, params: SearchParams, filter_ids: np.ndarray
     ) -> list[SearchResult]:
         """Filtered search (``ivf.rs:1723-1730``): only ids in ``filter_ids``
         (an id array or a bool mask over the id domain) may be returned."""
-        return self.batch_search(
-            np.asarray(query, np.float32)[None, :], params, filter_ids=filter_ids
-        )[0]
+        with span("ivf.search", queries=1):
+            queries = self._check_queries(np.asarray(query, np.float32)[None, :])
+            return self._results(queries, params, filter_ids)[0]
 
     def batch_search(
         self,
@@ -475,16 +483,24 @@ class IvfRabitqIndex:
         params: SearchParams,
         filter_ids: np.ndarray | None = None,
     ) -> list[list[SearchResult]]:
-        ids, dists = self.batch_search_arrays(queries, params, filter_ids)
-        out: list[list[SearchResult]] = []
-        for row_ids, row_d in zip(ids, dists):
-            hits = []
-            for i, dd in zip(row_ids, row_d):
-                if i < 0 or not np.isfinite(dd):
-                    continue
-                score = float(dd) if self.metric is Metric.L2 else float(-dd)
-                hits.append(SearchResult(id=int(i), score=score))
-            out.append(hits)
+        with span("ivf.batch") as sp:
+            queries = self._check_queries(queries)
+            sp.add(queries=queries.shape[0])
+            return self._results(queries, params, filter_ids)
+
+    def _results(self, queries, params: SearchParams, filter_ids=None) -> list[list[SearchResult]]:
+        """Result lists of checked queries."""
+        ids, dists = self._search_arrays(queries, params, filter_ids)
+        with span("serve.results"):
+            out: list[list[SearchResult]] = []
+            for row_ids, row_d in zip(ids, dists):
+                hits = []
+                for i, dd in zip(row_ids, row_d):
+                    if i < 0 or not np.isfinite(dd):
+                        continue
+                    score = float(dd) if self.metric is Metric.L2 else float(-dd)
+                    hits.append(SearchResult(id=int(i), score=score))
+                out.append(hits)
         return out
 
     def _check_queries(self, queries) -> np.ndarray:
@@ -503,17 +519,24 @@ class IvfRabitqIndex:
     ) -> tuple[np.ndarray, np.ndarray]:
         """Array in, arrays out: (ids [B, k] int32 with -1 padding,
         dist [B, k] f32 internal distances)."""
-        queries = self._check_queries(queries)
+        with span("ivf.batch") as sp:
+            queries = self._check_queries(queries)
+            sp.add(queries=queries.shape[0])
+            return self._search_arrays(queries, params, filter_ids)
+
+    def _search_arrays(self, queries, params: SearchParams, filter_ids=None):
+        """``batch_search_arrays`` of checked queries."""
         b = queries.shape[0]
         if params.top_k <= 0:
             return np.full((b, 0), -1, np.int32), np.full((b, 0), np.inf, np.float32)
         row_allowed = self._scan_inputs(filter_ids)
         q, qscale = self._pad_queries(queries, _pad_pow2(b))
-        ids, dists = self._dispatch_scan(
-            q.to(self.device), None if qscale is None else qscale.to(self.device),
-            params, row_allowed,
-        )
-        return ids.cpu().numpy()[:b], dists.cpu().numpy()[:b]
+        with span("serve.copy_in"):
+            q = q.to(self.device)
+            qscale = None if qscale is None else qscale.to(self.device)
+        ids, dists = self._dispatch_scan(q, qscale, params, row_allowed)
+        with span("serve.fetch"):
+            return ids.cpu().numpy()[:b], dists.cpu().numpy()[:b]
 
     def batch_search_arrays_pipelined(
         self,
@@ -528,19 +551,21 @@ class IvfRabitqIndex:
         behind it; the results are fetched once at the end. ``upload_block``
         (>= batch_size) sets the copy granularity, ``batch_size`` the scan
         granularity. Results equal ``batch_search_arrays``."""
-        queries = self._check_queries(queries)
-        b_total = queries.shape[0]
-        if params.top_k <= 0:
-            return (
-                np.full((b_total, 0), -1, np.int32),
-                np.full((b_total, 0), np.inf, np.float32),
+        with span("ivf.batch") as sp:
+            queries = self._check_queries(queries)
+            b_total = queries.shape[0]
+            sp.add(queries=b_total)
+            if params.top_k <= 0:
+                return (
+                    np.full((b_total, 0), -1, np.int32),
+                    np.full((b_total, 0), np.inf, np.float32),
+                )
+            row_allowed = self._scan_inputs(filter_ids)
+            return serve_pipelined(
+                queries, batch_size, upload_block, self._pad_queries, self.device,
+                lambda q, qscale, off, bs: self._dispatch_scan(
+                    q, qscale, params, row_allowed, offset=off, sub_block=bs),
             )
-        row_allowed = self._scan_inputs(filter_ids)
-        return serve_pipelined(
-            queries, batch_size, upload_block, self._pad_queries, self.device,
-            lambda q, qscale, off, bs: self._dispatch_scan(
-                q, qscale, params, row_allowed, offset=off, sub_block=bs),
-        )
 
     def upload_queries(self, queries: np.ndarray):
         """Encode the queries once with the current ``upload_dtype`` and keep
@@ -574,13 +599,14 @@ class IvfRabitqIndex:
                 np.full((b_total, 0), -1, np.int32),
                 np.full((b_total, 0), np.inf, np.float32),
             )
-        row_allowed = self._scan_inputs(filter_ids)
-        bs = _pad_pow2(min(batch_size, q.shape[0]))
-        pending = [
-            self._dispatch_scan(q, qscale, params, row_allowed, offset=off, sub_block=bs)
-            for off in range(0, b_total, bs)
-        ]
-        return _fetch(pending, b_total)
+        with span("ivf.batch", queries=b_total):
+            row_allowed = self._scan_inputs(filter_ids)
+            bs = _pad_pow2(min(batch_size, q.shape[0]))
+            pending = [
+                self._dispatch_scan(q, qscale, params, row_allowed, offset=off, sub_block=bs)
+                for off in range(0, b_total, bs)
+            ]
+            return _fetch(pending, b_total)
 
     def _maybe_downgrade_fused(self) -> None:
         """The fused kernels need cluster-sorted tiles spanning <= 128
@@ -712,7 +738,12 @@ class IvfRabitqIndex:
         device tensors (callers fetch). With ``sub_block``, ``q`` is a
         resident upload block and the scan covers the window at ``offset``.
         The gather scan serves the block where ``_gather_budget`` allows
-        it."""
+        it. The span ``search.dispatch`` covers it, down to the graph's
+        input copies and output clones."""
+        with span("search.dispatch"):
+            return self._dispatch(q, qscale, params, row_allowed, offset, sub_block, **scan_kw)
+
+    def _dispatch(self, q, qscale, params, row_allowed, offset, sub_block, **scan_kw):
         lay = self.layout
         b = q.shape[0] if sub_block is None else sub_block
         fused = is_fused(self.scan_dtype)

@@ -65,7 +65,8 @@ from ...ops.quantize import compute_const_scaling_factor
 from ...ops.rotation import FhtKacRotator, make_rotator
 from ...types import Metric, RotatorType, SearchDiagnostics, SearchResult
 from ...utils.device import resolve_device, synchronize
-from ...utils.logging import get_logger, timed
+from ...utils.logging import get_logger
+from ...utils.profiling import Span
 from ...utils.transfer import upload_dataset
 from ..build import build_codes_device, exact_t_rows
 from ..layout import assemble_device_layout, cluster_of_rows, host_order_planes, pad_rows
@@ -206,7 +207,7 @@ class MstgIndex:
     def _download_host(self) -> MstgHost:
         """MstgHost from the device layout: the big code planes through the
         layout's inverse, the [R] per-row fields kept on the host at build."""
-        with timed(f"download host codes rows={self.total_rows}", _log):
+        with Span("mstg.download_host", rows=self.total_rows):
             planes = host_order_planes(
                 self.layout, self.total_rows, self.quant_dim, self.config.rabitq_bits - 1
             )
@@ -253,7 +254,7 @@ class MstgIndex:
         dim = rotator.padded_dim if rotator is not None else orig_dim
 
         # step 1: hierarchical balanced clustering
-        with timed(f"hierarchical clustering n={n}", _log):
+        with Span("mstg.clustering", n=n):
             clusters = hierarchical_cluster(
                 data, max_cluster_size=config.max_posting_size,
                 branching_factor=config.branching_factor,
@@ -263,7 +264,7 @@ class MstgIndex:
         t_cluster = time.perf_counter()
 
         # step 2: closure assignment with the RNG rule
-        with timed(f"closure assignment C={len(clusters.centroids)}", _log):
+        with Span("mstg.closure", C=len(clusters.centroids)):
             members = closure_assign(
                 data, clusters.centroids, config.closure_epsilon, config.max_replicas,
                 data_dev=data_dev,
@@ -288,7 +289,7 @@ class MstgIndex:
         np.cumsum(sizes, out=offsets[1:])
         ids = np.concatenate(members) if members else np.zeros(0, np.int64)
         row_list = np.repeat(np.arange(len(members), dtype=np.int32), sizes)
-        with timed(f"quantize rows={ids.shape[0]}", _log):
+        with Span("mstg.quantize", rows=ids.shape[0]):
             if ex_bits > 0 and not config.faster_config:
                 # reference default: exact per-vector t sweep on the host
                 host = data if isinstance(data, np.ndarray) else data_dev.cpu().numpy()

@@ -27,7 +27,6 @@ program).
 from __future__ import annotations
 
 import inspect
-import time
 
 import numpy as np
 import torch
@@ -48,6 +47,7 @@ from ..ops.packed_scan import (
 )
 from ..ops.select import top_k as select_top_k, top_k_cuda
 from ..types import Metric
+from ..utils.profiling import Span, span
 
 SCAN_DTYPES = ("f32", "bf16", "int8", "packed", "fused", "fused8")
 
@@ -128,6 +128,13 @@ def encode_queries(queries: np.ndarray, b_pad: int, dim: int, upload_dtype: str)
     rows in the upload encoding: "bf16", "int8" (symmetric per-query scale,
     a quarter of the bytes), "int4" (nibble pairs, an eighth), and f32 for
     "f32" or any other value, as the reference serves it."""
+    with span("serve.encode", rows=queries.shape[0]) as sp:
+        out = _encode(queries, b_pad, dim, upload_dtype)
+        sp.add(bytes=sum(0 if t is None else t.nbytes for t in out))
+    return out
+
+
+def _encode(queries: np.ndarray, b_pad: int, dim: int, upload_dtype: str):
     q = np.zeros((b_pad, dim), np.float32)
     q[: queries.shape[0]] = queries
     if upload_dtype == "bf16":
@@ -173,9 +180,11 @@ def serve_pipelined(queries, batch_size, upload_block, pad_queries, device, disp
     for s in range(0, b_total, ub):
         host = pad_queries(queries[s : s + ub], ub)
         if device.type == "cuda":
-            host = tuple(None if h is None else h.pin_memory() for h in host)
+            with span("serve.pin"):
+                host = tuple(None if h is None else h.pin_memory() for h in host)
             staged.append(host)
-        q, qscale = (None if h is None else h.to(device, non_blocking=True) for h in host)
+        with span("serve.copy_in"):
+            q, qscale = (None if h is None else h.to(device, non_blocking=True) for h in host)
         for off in range(0, min(ub, b_total - s), bs):
             pending.append(dispatch(q, qscale, off, bs))
     return _fetch(pending, b_total)
@@ -183,9 +192,10 @@ def serve_pipelined(queries, batch_size, upload_block, pad_queries, device, disp
 
 def _fetch(pending, b_total: int) -> tuple[np.ndarray, np.ndarray]:
     """Host (ids, dists) of queued per-block results, trimmed to the
-    queries asked for."""
-    ids = torch.cat([p[0] for p in pending]).cpu().numpy()[:b_total]
-    dists = torch.cat([p[1] for p in pending]).cpu().numpy()[:b_total]
+    queries asked for: the wait for the card, the copy and the conversion."""
+    with span("serve.fetch"):
+        ids = torch.cat([p[0] for p in pending]).cpu().numpy()[:b_total]
+        dists = torch.cat([p[1] for p in pending]).cpu().numpy()[:b_total]
     return ids, dists
 
 
@@ -675,21 +685,25 @@ def _graph_key(q, qscale, scan: dict) -> tuple:
 
 class _Graph:
     """One captured search: its input buffers, its outputs and the kernel
-    launches one replay makes."""
+    launches one replay makes (a count a slot of ``_launch_counters``)."""
 
-    def __init__(self, graph, inputs: dict, outputs, launches):
+    def __init__(self, graph, inputs: dict, outputs, launches: list[int]):
         self.graph = graph
         self.inputs = inputs
         self.outputs = outputs
         self.launches = launches
+        # a replay adds to the few counters that moved, not to every slot
+        self._moved = [(d, k, n) for (d, k), n in zip(_launch_counters(), launches) if n]
 
     def run(self, q, qscale, row_allowed):
         self.inputs["q"].copy_(q)
         if qscale is not None:
             self.inputs["qscale"].copy_(qscale)
         self.inputs["row_allowed"].copy_(row_allowed)
-        self.graph.replay()
-        _add_launches(self.launches)
+        with span("graph.replay"):
+            self.graph.replay()
+        for d, k, n in self._moved:
+            d[k] += n
         # the next replay writes the same buffers: each call gets its own copy
         return tuple(o.clone() for o in self.outputs)
 
@@ -718,6 +732,8 @@ class FusedSearch:
     key keep a replaced tensor from ever meeting an old graph. The kernel
     wrappers count their launches in Python, which a replay does not run:
     each graph adds the counts its capture made at every replay instead.
+    A capture is the span ``graph.capture``, kept whether tracing is on or
+    off; a replay is ``graph.replay``.
     On the card a failed capture or replay raises; nothing falls back to the
     eager body."""
 
@@ -757,8 +773,13 @@ class FusedSearch:
         return graph.run(q, qscale, scan["row_allowed"])
 
     def _capture(self, q, qscale, scan: dict) -> _Graph:
+        with Span("graph.capture", always=True) as sp:
+            graph = self._capture_body(q, qscale, scan)
+        self.stats["capture_s"].append(sp.seconds)
+        return graph
+
+    def _capture_body(self, q, qscale, scan: dict) -> _Graph:
         dev = q.device
-        t0 = time.perf_counter()
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
             self._stream = torch.cuda.Stream(dev)
@@ -788,7 +809,6 @@ class FusedSearch:
         st = self.stats
         st["pool_bytes"] += torch.cuda.memory_reserved(dev) - reserved
         st["pool_peak"] = max(st["pool_peak"], st["pool_bytes"])
-        st["capture_s"].append(time.perf_counter() - t0)
         return _Graph(graph, inputs, tuple(outputs), launches)
 
 

@@ -26,7 +26,6 @@ boundary.
 
 from __future__ import annotations
 
-import time
 from contextlib import contextmanager
 from dataclasses import dataclass
 
@@ -34,6 +33,7 @@ import numpy as np
 import torch
 
 from ..utils.device import rows_on_device, synchronize
+from ..utils.profiling import Span, span
 from . import _cuda, prng
 from .select import top_k
 
@@ -47,7 +47,7 @@ class KMeansResult:
     assignments: np.ndarray  # [N] int32
     objective: float
     iters: int = 0  # Lloyd iterations actually run (< niter on early stop)
-    report: dict | None = None  # phase timings {init_s, lloyd_s, assign_s}
+    report: dict | None = None  # phase seconds {init_s, lloyd_s, assign_s}, assign_dtype
 
 
 def auto_assign_dtype(n: int, dim: int, threshold_elems: int = 1 << 26) -> str:
@@ -394,42 +394,41 @@ def _kmeans_device(
     spherical: bool,
     assign_dtype: str = "f32",
     tol: float = 0.0,
-    timings: dict | None = None,
+    report: dict | None = None,
 ):
     """k-means++ init (draws from ``key``, a ``uint32[2]`` JAX key) + Lloyd
     steps. ``tol > 0`` stops early once a step improves the objective by
     less than ``tol`` relative; the check reads the previous step's
-    objective so the device keeps one step queued."""
-    dev = data.device
-    t0 = time.perf_counter()
-    init_rows = _init_rows_cap(k, n_valid)
-    centroids = _kmeanspp_init(data[:init_rows], key, k, init_rows)
-    if timings is not None:
-        synchronize(dev)
-        timings["init_s"] = round(time.perf_counter() - t0, 2)
-        t0 = time.perf_counter()
+    objective so the device keeps one step queued. With ``report``, each
+    phase (spans ``kmeans.init``, ``kmeans.lloyd``) ends with the device's
+    queue and its seconds go into ``report``."""
+    phase = span if report is None else Span
+    with phase("kmeans.init") as init:
+        init_rows = _init_rows_cap(k, n_valid)
+        centroids = _kmeanspp_init(data[:init_rows], key, k, init_rows)
+        if report is not None:
+            synchronize(data.device)
     iters = 0
     prev_obj = None
     pending = None
-    for i in range(niter):
-        centroids, obj = _lloyd_step(
-            data, centroids, k, block, n_valid, spherical, assign_dtype
-        )
-        iters = i + 1
-        if timings is not None and i == 0:
-            synchronize(dev)
-            timings["lloyd_first_s"] = round(time.perf_counter() - t0, 2)
-        if tol <= 0.0:
-            continue
-        if pending is not None:
-            o = float(pending)  # sync: the PREVIOUS step's objective
-            if prev_obj is not None and (prev_obj - o) <= tol * max(abs(prev_obj), 1e-30):
-                break
-            prev_obj = o
-        pending = obj
-    if timings is not None:
-        synchronize(dev)
-        timings["lloyd_s"] = round(time.perf_counter() - t0, 2)
+    with phase("kmeans.lloyd") as lloyd:
+        for i in range(niter):
+            centroids, obj = _lloyd_step(
+                data, centroids, k, block, n_valid, spherical, assign_dtype
+            )
+            iters = i + 1
+            if tol <= 0.0:
+                continue
+            if pending is not None:
+                o = float(pending)  # sync: the PREVIOUS step's objective
+                if prev_obj is not None and (prev_obj - o) <= tol * max(abs(prev_obj), 1e-30):
+                    break
+                prev_obj = o
+            pending = obj
+        if report is not None:
+            synchronize(data.device)
+    if report is not None:
+        report["init_s"], report["lloyd_s"] = init.seconds, lloyd.seconds
     return centroids, iters
 
 
@@ -479,23 +478,24 @@ def run_kmeans(
         nt = n
 
     best: KMeansResult | None = None
+    phase = Span if with_report else span  # a report's phases are timed whether traced or not
     for redo in range(nredo):
-        timings: dict | None = {} if with_report else None
+        report: dict | None = {} if with_report else None
         key = prng.PRNGKey(seed * 1_000_003 + redo)
         centroids, iters = _kmeans_device(
             train, key, k, niter, block, nt, spherical,
-            assign_dtype=assign_dtype, tol=tol, timings=timings,
+            assign_dtype=assign_dtype, tol=tol, report=report,
         )
-        t0 = time.perf_counter()
-        assignments, objective = assign_dataset(
-            data, centroids, n_valid=n, assign_dtype=assign_dtype
-        )
-        if timings is not None:
-            timings["assign_s"] = round(time.perf_counter() - t0, 2)
-            timings["assign_dtype"] = assign_dtype
+        with phase("kmeans.assign") as assign:
+            assignments, objective = assign_dataset(
+                data, centroids, n_valid=n, assign_dtype=assign_dtype
+            )
+        if report is not None:
+            report["assign_s"] = assign.seconds
+            report["assign_dtype"] = assign_dtype
         result = KMeansResult(
             centroids=centroids, assignments=assignments,
-            objective=objective, iters=iters, report=timings,
+            objective=objective, iters=iters, report=report,
         )
         if best is None or result.objective < best.objective:
             best = result

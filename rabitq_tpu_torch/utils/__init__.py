@@ -1,7 +1,7 @@
-"""Host-side utilities of the port: structured logging, timing, profiler
+"""Host-side utilities of the port: structured logging, spans, profiler
 traces."""
 
-from .logging import get_logger, timed
-from .profiling import Timer, device_trace
+from .logging import get_logger
+from .profiling import Span, device_trace, recording, span, spans
 
-__all__ = ["get_logger", "timed", "Timer", "device_trace"]
+__all__ = ["get_logger", "Span", "device_trace", "recording", "span", "spans"]

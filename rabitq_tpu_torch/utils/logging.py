@@ -8,8 +8,6 @@ from __future__ import annotations
 import logging
 import os
 import sys
-import time
-from contextlib import contextmanager
 
 _LOGGER = logging.getLogger("rabitq_tpu_torch")
 if not _LOGGER.handlers:
@@ -26,13 +24,3 @@ if not _LOGGER.handlers:
 def get_logger(name: str | None = None) -> logging.Logger:
     return _LOGGER if name is None else _LOGGER.getChild(name)
 
-
-@contextmanager
-def timed(msg: str, logger: logging.Logger | None = None, level: int = logging.INFO):
-    """Log the wall-clock duration of a block at the given level."""
-    log = logger or _LOGGER
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        log.log(level, "%s: %.3fs", msg, time.perf_counter() - t0)

@@ -64,6 +64,18 @@ ALLOWED = {
         "no counterpart: the kernel libraries are cached by source hash in `_build/`",
         "tests/test_torch_api_parity.py::test_kernel_libraries_are_cached_by_source_hash",
     ),
+    "utils": (
+        "no `timed` or `Timer`: the port's spans (`utils.profiling.span`) time its steps",
+        "tests/test_torch_profiling.py::test_spans_nest_with_parent_and_call_id",
+    ),
+    "utils.logging:timed": (
+        "a span (`utils.profiling.Span`) logs its duration at INFO as `timed` did",
+        "tests/test_torch_profiling.py::test_a_span_logs_its_duration",
+    ),
+    **{f"utils.profiling:Timer{member}": (
+        "the port's spans (`utils.profiling.span`, `recording`, `spans`) stand in for the lap timer",
+        "tests/test_torch_profiling.py::test_spans_nest_with_parent_and_call_id",
+    ) for member in ("", ".__init__", ".lap", ".summary")},
     "ops.pallas_fused_scan:fused_fits_vmem": (
         "TPU VMEM geometry: the port's width limits stand in",
         "tests/test_torch_scan_paths.py::test_routing_thresholds_match_jax",

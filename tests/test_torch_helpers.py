@@ -1,7 +1,7 @@
 """Small public functions of the port against the JAX package's:
 ``ops/quantize.reconstruct``, ``ops/estimator.scores_from_distances``, and
 the profiling helpers (``utils/profiling.py``: a Chrome trace written on
-the CPU, the lap timer). Tolerance: reconstruct rtol 1e-6 (one f32
+the CPU). Tolerance: reconstruct rtol 1e-6 (one f32
 multiply-add in another order), scores exact."""
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ from rabitq_tpu.ops import estimator as jest
 from rabitq_tpu.ops import quantize as jq
 from rabitq_tpu_torch.ops import estimator as t_est
 from rabitq_tpu_torch.ops import quantize as tq
-from rabitq_tpu_torch.utils.profiling import Timer, device_trace
+from rabitq_tpu_torch.utils.profiling import device_trace
 
 
 def test_reconstruct_matches_jax():
@@ -75,14 +75,3 @@ def test_device_trace_writes_a_chrome_trace(tmp_path):
             raise ValueError("stop")
     assert os.path.exists(tmp_path / "raised" / "trace.json")
 
-
-def test_timer_laps():
-    t = Timer()
-    for _ in range(2):
-        with t.lap("a"):
-            pass
-    with pytest.raises(KeyError):
-        with t.lap("b"):
-            raise KeyError
-    assert set(t.laps) == {"a", "b"} and all(v >= 0 for v in t.laps.values())
-    assert t.summary().startswith("a=") and ", b=" in t.summary()
