@@ -410,6 +410,94 @@ def check_fht():
     return rows_out
 
 
+def recorded_encode_rows(run):
+    """A copy of the raw rows [n, dim] of the first upload block ``run()``
+    hands the query encoding on the card (``index/scan.encode_rows``); the
+    call runs as it would."""
+    from rabitq_tpu_torch.index import scan
+
+    seen = []
+    real = scan.encode_rows
+
+    def spy(rows, b_pad, upload_dtype):
+        if not seen:
+            seen.append(rows.clone())
+        return real(rows, b_pad, upload_dtype)
+
+    scan.encode_rows = spy
+    try:
+        run()
+    finally:
+        scan.encode_rows = real
+    return seen[0]
+
+
+def check_encode(rows):
+    """The query encoding kernel against its plain version (torch ops on the
+    card) and the host's numpy encoding (``index/scan._encode``), codes and
+    scales bitwise, int8 and int4, on rows a 7-bit batch search handed it:
+    the benchmark's block ([1000 -> 1024, 960]) and one row ([1 -> 1, 960]).
+    One launch a call. Device times of calls queued behind a long product,
+    each call on another copy of the rows from a pool four times the L2's
+    size (the bound reads them from device memory); the numpy encoding's
+    host time beside them (median of 20), and the wrapper's host time for
+    one row. The bound: the rows read once and the codes and scales written
+    once at 3.35 TB/s. Launches made here are not counted. Returns the int8
+    block's entry, with ``int4_ms`` and ``one_row_ms`` beside."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from rabitq_tpu_torch.index.scan import _encode
+    from rabitq_tpu_torch.ops.encode import BITS, encode_rows_kernel, encode_rows_plain
+
+    counted = encode_rows_kernel.launches
+    dim = rows.shape[1]
+    out = {}
+    for upload, bits in BITS.items():
+        for n, b_pad in ((1000, 1024), (1, 1)):
+            x = rows[:n].contiguous()
+            x_np = x.cpu().numpy()
+            before = encode_rows_kernel.launches
+            got = encode_rows_kernel(x, b_pad, bits)
+            if encode_rows_kernel.launches != before + 1:
+                raise AssertionError(f"encode {upload} [{n}, {dim}]: not one launch a call")
+            plain = encode_rows_plain(x, b_pad, bits)
+            host = _encode(x_np, b_pad, dim, upload)
+            for what, want in (("its plain version", plain), ("the numpy encoding", host)):
+                for part, g, w in zip(("codes", "scales"), got, want):
+                    require_bitwise(f"encode {upload} [{n} -> {b_pad}, {dim}] {part} against "
+                                    f"{what}", g.cpu().numpy(), w.cpu().numpy())
+            width = got[0].shape[1]
+            n_bytes = n * dim * 4 + b_pad * (width + 4)
+            pool = [x.clone() for _ in range(math.ceil(4 * L2_BYTES / x.nbytes))] if n > 1 else [x]
+            turn = itertools.count()
+
+            def cold():
+                return pool[next(turn) % len(pool)]
+
+            host_ms = []
+            for _ in range(20):
+                t0 = time.perf_counter()
+                _encode(x_np, b_pad, dim, upload)
+                host_ms.append((time.perf_counter() - t0) * 1e3)
+            r = dict(err=0.0, bound_by="bytes", bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3,
+                     ms=queued_us(lambda: encode_rows_kernel(cold(), b_pad, bits), 100) / 1e3,
+                     plain_ms=queued_us(lambda: encode_rows_plain(cold(), b_pad, bits), 20) / 1e3,
+                     library_ms=None, host_ms=statistics.median(host_ms),
+                     wrapper_us=host_us(lambda: encode_rows_kernel(x, b_pad, bits), 100))
+            log(f"encode {upload} [{n} -> {b_pad}, {dim}]: codes and scales bitwise equal to "
+                f"its plain version and to the numpy encoding, one launch a call; kernel "
+                f"{r['ms']:.5f} ms, plain (torch ops on the card) {r['plain_ms']:.5f} ms, bound "
+                f"{r['bound_ms']:.5f} ms ({n_bytes} bytes); numpy on the host {r['host_ms']:.4f} "
+                f"ms; the wrapper's host time {r['wrapper_us']:.1f} us")
+            out[(upload, n)] = r
+            del pool
+    encode_rows_kernel.launches = counted
+    return {**out[("int8", 1000)], "int4_ms": out[("int4", 1000)]["ms"],
+            "one_row_ms": out[("int8", 1)]["ms"]}
+
+
 def bin_scan_bound(args, kw):
     """Least time for the bin scan on these inputs: the plane rows it must
     read (listed tiles, or all), the other inputs and outputs once, and
@@ -873,7 +961,7 @@ def top_rows(rows, n=8):
 
 KERNEL_NAMES = ("fht_", "bin_scan_kernel", "packed_lb_kernel", "top_k_cluster_kernel",
                 "top_k_grid_kernel",
-                "top_k_warp_kernel", "top_k_shared_kernel")  # by name
+                "top_k_warp_kernel", "top_k_shared_kernel", "encode_kernel")  # by name
 
 
 def profile_dispatches(run, dispatches):
@@ -907,12 +995,13 @@ def profile_dispatches(run, dispatches):
                 device_ops=sum(r[2] for r in rows) / dispatches, rows=rows, ours=ours)
 
 
-def check_fused(name, index, run, dispatches):
+def check_fused(name, index, run, dispatches, encodes):
     """The fused-search phase for one serving configuration. ``run()`` serves
     the queries (``dispatches`` blocks) and returns host (ids, distances).
     After one run that captures every key the configuration needs (the
     seconds of each capture printed), a run must launch no kernel outside a
-    graph (no wrapper looks its kernel up) and replay once a block, and its
+    graph (no wrapper looks its kernel up) but ``encodes`` query encodings
+    (one an int8 / int4 upload block), and replay once a block, and its
     results must equal the eager body's on the same blocks, ids and
     distances (every selection orders ties one way: ``ops/select.top_k``).
     Then eager and graph QPS paired (medians of 5, in turns), one
@@ -935,9 +1024,12 @@ def check_fused(name, index, run, dispatches):
     finally:
         _cuda.entry = real
     replayed = st["replays"] - replays
-    if entries or replayed != dispatches:
-        raise AssertionError(f"fused {name}: {len(entries)} kernel launches outside a graph, "
-                             f"{replayed} replays for {dispatches} blocks")
+    outside = [k for k in entries if k != "encode_queries"]
+    encoded = len(entries) - len(outside)
+    if outside or replayed != dispatches or encoded != encodes:
+        raise AssertionError(f"fused {name}: {len(outside)} kernel launches outside a graph, "
+                             f"{replayed} replays for {dispatches} blocks, {encoded} query "
+                             f"encodings for {encodes}")
     want = eagerly(index, run)
     if not (np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])):
         ids_equal = float(np.mean(got[0] == want[0]))
@@ -1009,12 +1101,14 @@ def take_spilled(count=True):
 def zero_launches():
     """Set every kernel's launch counter to 0 (and the selection's spilled
     rows, after adding them to SPILLED)."""
+    from rabitq_tpu_torch.ops.encode import encode_rows_kernel
     from rabitq_tpu_torch.ops.fht import fht_kernel
     from rabitq_tpu_torch.ops.fused_scan import fused_bin_scan_cuda, fused_bin_scan_packed_cuda
     from rabitq_tpu_torch.ops.kmeans import running_sum_kernel, segment_sum_kernel
     from rabitq_tpu_torch.ops.packed_scan import packed_lb_plane_cuda, packed_lb_scan_cuda
     from rabitq_tpu_torch.ops.select import top_k_cuda
 
+    encode_rows_kernel.launches = 0
     fht_kernel.launches = 0
     fused_bin_scan_cuda.dense_launches = fused_bin_scan_cuda.compact_launches = 0
     for key in fused_bin_scan_packed_cuda.launches:
@@ -1216,14 +1310,15 @@ def check_fused_ivf(index, queries_np):
     from rabitq_tpu_torch.index.scan import gather_budget_bucket
 
     blocks = len(queries_np) // 256
+    uploads = -(-len(queries_np) // 1024)  # serve's upload blocks, int8: one encoding each
     for nprobe in (16, 64, 256):
         check_fused(f"7 bits fused8 nprobe={nprobe}", index,
-                    lambda: serve(index, queries_np, nprobe), blocks)
+                    lambda: serve(index, queries_np, nprobe), blocks, uploads)
     os.environ["RABITQ_GATHER"] = "1"
     os.environ["RABITQ_GATHER_MAX"] = str(gather_budget_bucket(np.diff(index._offsets), 16))
     try:
         check_fused("7 bits gather scan nprobe=16", index, lambda: serve(index, queries_np, 16),
-                    blocks)
+                    blocks, uploads)
     finally:
         del os.environ["RABITQ_GATHER"], os.environ["RABITQ_GATHER_MAX"]
     params = SearchParams(top_k=10, nprobe=64)
@@ -1231,15 +1326,16 @@ def check_fused_ivf(index, queries_np):
     check_fused("7 bits filtered (a half of the ids) nprobe=64", index,
                 lambda: index.batch_search_arrays_pipelined(
                     queries_np, params, batch_size=256, upload_block=1024, filter_ids=allowed),
-                blocks)
+                blocks, uploads)
     handle = index.upload_queries(queries_np)
     check_fused("7 bits resident superblock nprobe=64", index,
-                lambda: index.batch_search_resident(handle, params, batch_size=256), blocks)
+                lambda: index.batch_search_resident(handle, params, batch_size=256), blocks, 0)
     for upload in ("f32", "bf16", "int4"):
         index.upload_dtype = upload
         try:
             check_fused(f"7 bits {upload} uploads nprobe=64", index,
-                        lambda: serve(index, queries_np, 64), blocks)
+                        lambda: serve(index, queries_np, 64), blocks,
+                        uploads if upload == "int4" else 0)
         finally:
             index.upload_dtype = "int8"
     log_pool("7-bit", index)
@@ -1806,7 +1902,7 @@ def check_brute_force(data, queries_np, gt):
     for scan_dtype in ("packed", "bf16"):
         index.scan_dtype = scan_dtype
         check_fused(f"brute force {scan_dtype}", index,
-                    lambda: bf_arrays(index, queries_np, params), len(queries_np) // 256)
+                    lambda: bf_arrays(index, queries_np, params), len(queries_np) // 256, 0)
     log_pool("brute-force", index)
     index.scan_dtype = "packed"
     args = capture_packed_lb_plane(lambda: index.batch_search(queries_np[:256], params), index)
@@ -1949,7 +2045,7 @@ def mstg_variant(name, data, queries, closure_epsilon=None):
         k1[ef] = check_bin_scan_run(lambda: index.batch_search(queries_np[:256], params),
                                     f"MSTG {name} ef={ef}", index=index)
         check_fused(f"MSTG {name} ef={ef}", index, lambda: serve_mstg(index, queries_np, ef),
-                    len(queries_np) // 256)
+                    len(queries_np) // 256, -(-len(queries_np) // 1024))
     log_pool(f"MSTG {name}", index)
     ef = max(MSTG_EFS)
     if recalls[ef] < RECALL_FLOOR:
@@ -2767,6 +2863,7 @@ def main() -> int:
     try:
         from rabitq_tpu_torch import IvfRabitqIndex, Metric, RotatorType, SearchParams
         from rabitq_tpu_torch.ops import _cuda
+        from rabitq_tpu_torch.ops.encode import encode_rows_kernel
         from rabitq_tpu_torch.ops.fht import fht_kernel
         from rabitq_tpu_torch.ops.fused_scan import (
             fused_bin_scan_cuda,
@@ -2792,7 +2889,7 @@ def main() -> int:
                "fused_bin_scan": {"direct": ()},
                "packed_bin_scan": {"bits_bf16": (0,), "bits_s8": (1,)},
                "packed_lb_scan": {"both epilogues": ()},
-               "build_sums": {}, "select": {}}
+               "build_sums": {}, "select": {}, "encode_queries": {}}
     for name, text in build_logs.items():
         for k in _cuda.ptxas_report(text):
             log(f"  {name}: {k['kernel']}: {k['registers']} registers, {k['smem']} bytes static "
@@ -2864,6 +2961,7 @@ def main() -> int:
         "segment_sum": segment_sum_kernel.launches,  # the train's k-means
         "running_sum": running_sum_kernel.launches,  # its k-means++ init
         "select": select_counts()["select"],  # centroid ranking, bins; the train's reseed
+        "encode_queries": encode_rows_kernel.launches,  # the int8 upload blocks
     }
     log(f"launches on the main path: {launches}")
     log(f"phase seconds: 7-bit serving {time.perf_counter() - t0_serve:.1f}")
@@ -2876,6 +2974,7 @@ def main() -> int:
     t0 = time.perf_counter()
     compact = check_bin_scan(index, queries_np, 16, "compacted")
     dense = check_bin_scan(index, queries_np, 256, "dense")
+    encode = check_encode(recorded_encode_rows(lambda: serve(index, queries_np, 16)))
     for nprobe in (16, 256):
         profile_serving(index, queries_np, nprobe)
     log(f"phase seconds: 7-bit checks and profiles {time.perf_counter() - t0:.1f}")
@@ -2989,6 +3088,7 @@ def main() -> int:
     launches8["segment_sum"] = segment_sum_kernel.launches  # the 8-bit train's k-means
     launches8["running_sum"] = running_sum_kernel.launches
     launches8["select"] = select_counts()["select"]
+    launches8["encode_queries"] = encode_rows_kernel.launches  # the int8 upload blocks
     # the TPU contract's epilogue is on no path (the sharded "packed" scan
     # takes G_TABLE, as the in-memory one does)
     g_plane_launches = packed_lb_scan_cuda.launches
@@ -3004,7 +3104,8 @@ def main() -> int:
                                ("packed", 256), ("bf16", 256)):
         index8.scan_dtype = scan_dtype
         check_fused(f"8 bits {scan_dtype} nprobe={nprobe}", index8,
-                    lambda: serve(index8, queries_np, nprobe), len(queries_np) // 256)
+                    lambda: serve(index8, queries_np, nprobe), len(queries_np) // 256,
+                    -(-len(queries_np) // 1024))
     log_pool("8-bit", index8)
     log(f"phase seconds: fused search, 8 bits {time.perf_counter() - t0:.1f}")
 
@@ -3108,6 +3209,13 @@ def main() -> int:
               sum(p["running_sum"] for p in (launches, launches8, sharded["train"], repro_ivf))
               + sum(mstg[(v, "build")]["running_sum"] for v in ("headline", "replicated"))
               + repro_mstg["running_sum"], scan_init),
+        # not a TPU kernel: it stands where the JAX package encodes the
+        # queries with numpy on the host (int8 and int4 uploads)
+        {**entry("encode_queries", "rabitq_tpu_torch/csrc/encode_queries.cu",
+                 "rabitq_tpu/index/ivf.py:858", sum(p.get("encode_queries", 0) for p in paths),
+                 encode),
+         "host_ms": encode["host_ms"], "int4_ms": encode["int4_ms"],
+         "one_row_ms": encode["one_row_ms"]},
     ]
     kernels += [
         entry(f"fused_bin_scan_mstg_{variant}_ef{ef}", scan_src, scan_tpu,

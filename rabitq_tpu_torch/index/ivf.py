@@ -25,7 +25,8 @@ full-length tile lists), ``RABITQ_LOCALITY`` (locality-sort depth) and
 Persistence is the byte-compatible RBQ1 v3 format (``io/persistence.py``).
 
 Spans (``utils/profiling.py``): a public search is the root ``ivf.search``
-or ``ivf.batch``, with ``serve.encode``, ``serve.pin``, ``serve.copy_in``,
+or ``ivf.batch``, with ``serve.encode`` (on the card with ``serve.copy_in``
+inside; ``scan.QueryStage``), ``serve.copy_in`` (on the CPU),
 ``search.dispatch`` (with ``graph.replay``), ``serve.fetch`` and
 ``serve.results`` inside; ``train`` is ``ivf.train``, with ``build.upload``,
 ``kmeans`` (``kmeans.init``, ``kmeans.lloyd``, ``kmeans.assign``) and
@@ -71,9 +72,9 @@ from .layout import (
     pad_rows,
 )
 from .scan import (
+    QueryStage,
     _fetch,
     _pad_pow2,
-    encode_queries,
     ex_plane_is_total,
     gather_budget_bucket,
     is_fused,
@@ -142,8 +143,11 @@ class IvfRabitqIndex:
         # survivors of the dense scans come from the bf16 plane unless this
         # is off; the f32 oracle configuration defaults to f32 selection
         self.approx_topk = approx_topk if approx_topk is not None else scan_dtype != "f32"
-        # query upload encoding: "f32", "bf16", "int8" (per-query scale,
-        # a quarter of the bytes) or "int4" (nibble pairs, an eighth)
+        # query upload encoding, the query precision the scan decodes: "f32",
+        # "bf16", "int8" (per-query scale) or "int4" (nibble pairs). On the CPU
+        # numpy encodes on the host (int8 a quarter of the bytes, int4 an
+        # eighth); on the card the raw f32 rows cross the link and a kernel
+        # gives the same codes (scan.QueryStage)
         self.upload_dtype: str = "f32"
         self.build_report: dict | None = None
         # [N] original ids, cluster-sorted; [C+1] cluster row ranges
@@ -157,6 +161,7 @@ class IvfRabitqIndex:
         self._max_tiles_cache: dict = {}
         self._cl_ranges: tuple[torch.Tensor, torch.Tensor] | None = None
         self._host: HostCodes | None = host  # see host
+        self._stage = QueryStage(self.device)  # the query blocks' way onto the device
         # decode + rotation + scan of a query block: one CUDA graph replay a
         # dispatch on the card (scan.make_fused_search)
         self._fused_scan = make_fused_search(self.rotator.rotate, dim=self.dim)
@@ -531,9 +536,6 @@ class IvfRabitqIndex:
             return np.full((b, 0), -1, np.int32), np.full((b, 0), np.inf, np.float32)
         row_allowed = self._scan_inputs(filter_ids)
         q, qscale = self._pad_queries(queries, _pad_pow2(b))
-        with span("serve.copy_in"):
-            q = q.to(self.device)
-            qscale = None if qscale is None else qscale.to(self.device)
         ids, dists = self._dispatch_scan(q, qscale, params, row_allowed)
         with span("serve.fetch"):
             return ids.cpu().numpy()[:b], dists.cpu().numpy()[:b]
@@ -546,11 +548,13 @@ class IvfRabitqIndex:
         filter_ids: np.ndarray | None = None,
         upload_block: int | None = None,
     ) -> tuple[np.ndarray, np.ndarray]:
-        """Search over many fixed-size blocks: each upload block is copied
-        from pinned host memory without blocking and its scans are queued
-        behind it; the results are fetched once at the end. ``upload_block``
-        (>= batch_size) sets the copy granularity, ``batch_size`` the scan
-        granularity. Results equal ``batch_search_arrays``."""
+        """Search over many fixed-size blocks: each upload block is put on
+        the device (on the card its raw rows are copied from the index's
+        pinned staging block without blocking and encoded there) and its
+        scans are queued behind it; the results are fetched once at the end.
+        ``upload_block`` (>= batch_size) sets the copy granularity,
+        ``batch_size`` the scan granularity. Results equal
+        ``batch_search_arrays``."""
         with span("ivf.batch") as sp:
             queries = self._check_queries(queries)
             b_total = queries.shape[0]
@@ -562,7 +566,7 @@ class IvfRabitqIndex:
                 )
             row_allowed = self._scan_inputs(filter_ids)
             return serve_pipelined(
-                queries, batch_size, upload_block, self._pad_queries, self.device,
+                queries, batch_size, upload_block, self._pad_queries,
                 lambda q, qscale, off, bs: self._dispatch_scan(
                     q, qscale, params, row_allowed, offset=off, sub_block=bs),
             )
@@ -577,8 +581,7 @@ class IvfRabitqIndex:
         if queries.shape[1] != self.dim:
             raise DimensionMismatch(self.dim, queries.shape[1])
         q, qscale = self._pad_queries(queries, _pad_pow2(queries.shape[0]))
-        return (q.to(self.device), None if qscale is None else qscale.to(self.device),
-                queries.shape[0])
+        return q, qscale, queries.shape[0]
 
     def batch_search_resident(
         self,
@@ -726,8 +729,9 @@ class IvfRabitqIndex:
         return self._cl_ranges
 
     def _pad_queries(self, queries: np.ndarray, b_pad: int):
-        """Host (q, qscale | None) tensors in the upload encoding."""
-        return encode_queries(queries, b_pad, self.dim, self.upload_dtype)
+        """(q, qscale | None) of ``queries`` padded to ``b_pad`` rows, on the
+        index's device in the upload encoding (``scan.QueryStage``)."""
+        return self._stage(queries, b_pad, self.dim, self.upload_dtype)
 
     def _dispatch_scan(
         self, q, qscale, params: SearchParams, row_allowed, offset=None, sub_block=None,

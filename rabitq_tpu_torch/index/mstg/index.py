@@ -71,9 +71,9 @@ from ...utils.transfer import upload_dataset
 from ..build import build_codes_device, exact_t_rows
 from ..layout import assemble_device_layout, cluster_of_rows, host_order_planes, pad_rows
 from ..scan import (
+    QueryStage,
     _fetch,
     _pad_pow2,
-    encode_queries,
     ex_plane_is_total,
     gather_budget_bucket,
     is_fused,
@@ -176,6 +176,7 @@ class MstgIndex:
         self._fused_scan = make_fused_search(
             rotator.rotate if rotator is not None else None, dim=self.dim
         )
+        self._stage = QueryStage(self.device)  # the query blocks' way onto the device
 
     def _derive_from_lists(self) -> None:
         """What the index derives from its ids and list offsets."""
@@ -566,8 +567,9 @@ class MstgIndex:
     # ------------------------------------------------------------------
 
     def _encode_queries(self, queries: np.ndarray, b_pad: int):
-        """Host (q, qscale | None) tensors in the ``upload_dtype`` encoding."""
-        return encode_queries(queries, b_pad, self.dim, self.upload_dtype)
+        """(q, qscale | None) of ``queries`` padded to ``b_pad`` rows, on the
+        index's device in the ``upload_dtype`` encoding (``scan.QueryStage``)."""
+        return self._stage(queries, b_pad, self.dim, self.upload_dtype)
 
     def _scan(self, q, qscale, params: MstgSearchParams, offset=None, sub_block=None, **scan_kw):
         """Queue the decode, rotation and scan of one encoded query block
@@ -691,9 +693,7 @@ class MstgIndex:
             return [[] for _ in range(b)]
         self._scan_planes()
         q, qscale = self._encode_queries(queries, _pad_pow2(b))
-        ids, dists = self._dispatch_scan(
-            q.to(self.device), None if qscale is None else qscale.to(self.device), params
-        )
+        ids, dists = self._dispatch_scan(q, qscale, params)
         return self._dedup_results(ids.cpu().numpy()[:b], dists.cpu().numpy()[:b], params.top_k)
 
     def upload_queries(self, queries: np.ndarray):
@@ -705,8 +705,7 @@ class MstgIndex:
         if queries.shape[1] != self.dim:
             raise DimensionMismatch(self.dim, queries.shape[1])
         q, qscale = self._encode_queries(queries, _pad_pow2(queries.shape[0]))
-        return (q.to(self.device), None if qscale is None else qscale.to(self.device),
-                queries.shape[0])
+        return q, qscale, queries.shape[0]
 
     def batch_search_resident(
         self, qcache, params: MstgSearchParams, batch_size: int = 256
@@ -731,7 +730,7 @@ class MstgIndex:
     def _pipelined(self, queries, params, batch_size, upload_block):
         self._scan_planes()
         return serve_pipelined(
-            queries, batch_size, upload_block, self._encode_queries, self.device,
+            queries, batch_size, upload_block, self._encode_queries,
             lambda q, qscale, off, bs: self._dispatch_scan(
                 q, qscale, params, offset=off, sub_block=bs),
         )

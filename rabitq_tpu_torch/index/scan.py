@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..ops import estimator as est_ops
+from ..ops.encode import encode_rows
 from ..ops.fht import fht_kernel
 from ..ops.fused_scan import (
     BIG,
@@ -125,9 +126,13 @@ def _pad_pow2(n: int, floor: int = 1) -> int:
 
 def encode_queries(queries: np.ndarray, b_pad: int, dim: int, upload_dtype: str):
     """Host (q, qscale | None) tensors of ``queries`` zero-padded to ``b_pad``
-    rows in the upload encoding: "bf16", "int8" (symmetric per-query scale,
-    a quarter of the bytes), "int4" (nibble pairs, an eighth), and f32 for
-    "f32" or any other value, as the reference serves it."""
+    rows in the upload encoding, encoded by numpy: "bf16", "int8" (symmetric
+    per-query scale, a quarter of the bytes), "int4" (nibble pairs, an
+    eighth), and f32 for "f32" or any other value, as the reference serves it.
+    An index on the CPU encodes so (:class:`QueryStage`). On the card the raw
+    f32 rows cross the link and one kernel gives the same codes and scales,
+    bit for bit: there ``upload_dtype`` names the encoding the scan decodes,
+    not what crosses the link."""
     with span("serve.encode", rows=queries.shape[0]) as sp:
         out = _encode(queries, b_pad, dim, upload_dtype)
         sp.add(bytes=sum(0 if t is None else t.nbytes for t in out))
@@ -164,27 +169,99 @@ def decode_queries(q: torch.Tensor, qscale: torch.Tensor | None, dim: int) -> to
     return q
 
 
-def serve_pipelined(queries, batch_size, upload_block, pad_queries, device, dispatch):
+# on the card, what a block of raw query rows takes to the link: a block of at
+# most SMALL_BYTES (one query: 3.8 KB at 960 dims) is copied from the
+# caller's pageable memory, which CUDA stages at once; one of at most
+# SLOT_BYTES (an upload block) goes through a pinned slot the stage keeps,
+# so that the copy runs on the DMA engine while the host goes on; a larger
+# one (a whole unpipelined call) is copied from pageable memory, so that no
+# slot grows beyond SLOT_BYTES
+SMALL_BYTES = 1 << 16
+SLOT_BYTES = 1 << 24
+
+
+class QueryStage:
+    """Where an index puts a block of its queries on its device, encoded
+    (:meth:`__call__`).
+
+    On the CPU numpy encodes the block (:func:`encode_queries`, the span
+    ``serve.encode``), then ``serve.copy_in``. On the card the raw f32 rows
+    cross the link with one non-blocking copy and are encoded there by one
+    launch of the encode kernel (``ops/encode.encode_rows``; a pad and, for
+    "bf16", a cast where the upload has no codes), queued behind the copy;
+    the block's scans queue behind the kernel. A block of SMALL_BYTES to
+    SLOT_BYTES is first written into one of two pinned slots the stage
+    keeps, used in turn, each grown to the largest such block it has held; a
+    slot is written only once its last copy has finished (an event a slot),
+    so the host fills one block while the card copies and scans the one
+    before. The codes and scales are the host's, bit for bit. On the card the
+    span ``serve.encode`` covers the host's part (the staging write, the
+    copy's launch as ``serve.copy_in``, the kernel's launch) and counts
+    ``rows``, ``on_card`` (rows encoded on the card) and ``bytes`` (what
+    crossed the link)."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._slots: list = [None, None]  # pinned f32 [rows, dim] blocks
+        self._copied: list = [None, None]  # event after each slot's last copy
+        self._turn = 0
+
+    def __call__(self, queries: np.ndarray, b_pad: int, dim: int, upload_dtype: str):
+        """(q, qscale | None) of ``queries`` [n, dim] f32 zero-padded to
+        ``b_pad`` rows in the ``upload_dtype`` encoding, on the device."""
+        if self.device.type != "cuda":
+            q, qscale = encode_queries(queries, b_pad, dim, upload_dtype)
+            with span("serve.copy_in"):
+                return q.to(self.device), None if qscale is None else qscale.to(self.device)
+        n = queries.shape[0]
+        with span("serve.encode", rows=n) as sp:
+            rows = self._rows_on_card(queries)
+            out = encode_rows(rows, b_pad, upload_dtype)
+            sp.add(on_card=n, bytes=rows.nbytes)
+        return out
+
+    def _rows_on_card(self, queries: np.ndarray) -> torch.Tensor:
+        if any(st < 0 for st in queries.strides):
+            queries = np.ascontiguousarray(queries)  # torch takes no negative strides
+        src = torch.from_numpy(queries)
+        if not SMALL_BYTES < queries.nbytes <= SLOT_BYTES:
+            with span("serve.copy_in"):
+                return src.to(self.device, non_blocking=True)
+        i = self._turn
+        self._turn ^= 1
+        if self._copied[i] is None:
+            self._copied[i] = torch.cuda.Event()
+        else:
+            self._copied[i].synchronize()
+        n, dim = queries.shape
+        slot = self._slots[i]
+        if slot is None or slot.shape[0] < n or slot.shape[1] != dim:
+            # the block it replaces is freed once its copy is done (torch's
+            # pinned allocator holds it until then)
+            slot = self._slots[i] = torch.empty((n, dim), dtype=torch.float32, pin_memory=True)
+        host = slot[:n]
+        host.copy_(src)  # torch's threads: ~5x numpy's one at 3.8 MB
+        with span("serve.copy_in"):
+            rows = host.to(self.device, non_blocking=True)
+            self._copied[i].record(torch.cuda.current_stream(self.device))
+        return rows
+
+
+def serve_pipelined(queries, batch_size, upload_block, upload, dispatch):
     """Queue ``dispatch(q, qscale, offset, sub_block)`` over fixed-size
     blocks of ``queries`` and fetch the results once: each upload block
     (``upload_block`` rows, >= ``batch_size``; None: one per scan block) is
-    encoded by ``pad_queries``, copied from pinned host memory without
-    blocking, and its ``batch_size`` scan blocks are queued behind the copy,
-    each the ``sub_block``-row window at ``offset`` of the upload block.
-    Returns host (ids, dists) trimmed to the queries."""
+    put on the device by ``upload(rows, b_pad)`` (the index's
+    :class:`QueryStage`: on the card the raw rows cross the link without
+    blocking and are encoded there), and its ``batch_size`` scan blocks are
+    queued behind it, each the ``sub_block``-row window at ``offset`` of the
+    upload block. Returns host (ids, dists) trimmed to the queries."""
     b_total = queries.shape[0]
     bs = _pad_pow2(min(batch_size, _pad_pow2(b_total)))
     ub = bs if upload_block is None else _pad_pow2(min(max(upload_block, bs), _pad_pow2(b_total)))
     pending = []
-    staged = []  # pinned host blocks stay alive until the final fetch
     for s in range(0, b_total, ub):
-        host = pad_queries(queries[s : s + ub], ub)
-        if device.type == "cuda":
-            with span("serve.pin"):
-                host = tuple(None if h is None else h.pin_memory() for h in host)
-            staged.append(host)
-        with span("serve.copy_in"):
-            q, qscale = (None if h is None else h.to(device, non_blocking=True) for h in host)
+        q, qscale = upload(queries[s : s + ub], ub)
         for off in range(0, min(ub, b_total - s), bs):
             pending.append(dispatch(q, qscale, off, bs))
     return _fetch(pending, b_total)

@@ -27,6 +27,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = (
     "fht", "fused_bin_scan", "packed_bin_scan", "packed_lb_scan", "build_sums", "select",
+    "encode_queries",
 )
 
 _P = ctypes.c_void_p
@@ -55,6 +56,7 @@ _SIGNATURES = {
     "top_k_clusters": ("select", "rabitq_top_k_clusters", (_I, _I, _IP)),
     "top_k_spilled": ("select", "rabitq_top_k_spilled", (_ULP, _I)),
     "top_k_short": ("select", "rabitq_top_k_short", (_P,) * 3 + (_L, _L, _I, _I, _I, _P)),
+    "encode_queries": ("encode_queries", "rabitq_encode_queries", (_P,) * 3 + (_L, _L, _I, _I, _P)),
 }
 
 _entries: dict = {}  # kernel name -> (library, entry point)

@@ -804,9 +804,9 @@ def _eagerly(index, run):
 
 
 def _entries_during(run, monkeypatch):
-    """(run()'s result, how many kernel launches the wrappers made in it):
-    every wrapper looks its kernel up in ``_cuda.entry`` just before it
-    launches, which a replay never does."""
+    """(run()'s result, the kernels the wrappers launched in it, by entry
+    point name): every wrapper looks its kernel up in ``_cuda.entry`` just
+    before it launches, which a replay never does."""
     from rabitq_tpu_torch.ops import _cuda
 
     calls = []
@@ -815,7 +815,7 @@ def _entries_during(run, monkeypatch):
     out = run()
     torch.cuda.synchronize()
     monkeypatch.setattr(_cuda, "entry", real)
-    return out, len(calls)
+    return out, calls
 
 
 def _ivf_case(cuda, total_bits, scan_dtype, nprobe):
@@ -863,7 +863,8 @@ def _mstg_case(cuda):
 def test_graphs_equal_the_eager_body(cuda, case, monkeypatch):
     """Each serving path on the card through its CUDA graphs equals the eager
     body on the same blocks, ids and distances; once its keys are captured,
-    a run launches no kernel outside a graph (one replay a block)."""
+    a run launches no kernel outside a graph (one replay a block) but the
+    query encoding of its int8 uploads (one launch an upload block)."""
     if case == "ivf7_compacted":
         monkeypatch.setenv("RABITQ_FUSED_COMPACT", "force")
         index, run = _ivf_case(cuda, 7, "fused8", 4)
@@ -881,7 +882,9 @@ def test_graphs_equal_the_eager_body(cuda, case, monkeypatch):
     fused = index._fused_scan
     replays = fused.stats["replays"]
     got, entries = _entries_during(run, monkeypatch)
-    assert entries == 0 and fused.stats["replays"] > replays and fused._graphs
+    blocks = {"brute_force_packed": 0, "mstg_dedup": 1}.get(case, 2)  # int8 upload blocks of 64
+    assert entries == ["encode_queries"] * blocks
+    assert fused.stats["replays"] > replays and fused._graphs
     want = _eagerly(index, run)
     for g, f, w in zip(got, first, want):
         np.testing.assert_array_equal(g, w)
@@ -1370,3 +1373,172 @@ def test_top_k_kernel_refuses_what_it_does_not_take(cuda):
         select.top_k(torch.zeros((2, 8), device=cuda), 9)
     v, i = select.top_k(torch.zeros((2, 8), device=cuda), 0)
     assert v.shape == i.shape == (2, 0)
+
+
+# ----------------------------------------------------------------------
+# query encoding on the card (ops/encode.py, scan.QueryStage)
+# ----------------------------------------------------------------------
+
+
+def _special_queries(n: int, dim: int, top: float) -> np.ndarray:
+    """``n`` random rows, the first few replaced (as far as ``n`` allows) by a
+    zero row, a row that lands on k + 0.5 after scaling (|x| max ``top``,
+    qmax, makes the scale 1.0), a row of one large value, a subnormal row,
+    a row holding a NaN and one holding +-inf."""
+    rng = np.random.default_rng(5)
+    q = (rng.standard_normal((n, dim)) * 3).astype(np.float32)
+    halves = np.resize(np.array([0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 6.5, -6.5], np.float32), dim)
+    halves[0] = top
+    large = np.zeros(dim, np.float32)
+    large[dim // 3] = -3.0e38
+    nan, inf = q[0].copy(), q[0].copy()
+    nan[1] = np.nan
+    inf[2], inf[5] = np.inf, -np.inf
+    special = [np.zeros(dim, np.float32), halves, large, q[0] * np.float32(1e-40), nan, inf]
+    for i, row in enumerate(special[: max(n - 1, 0)]):
+        q[1 + i] = row
+    return q
+
+
+def _assert_encoding_equal(got, want):
+    """Codes bitwise equal, padding rows included; scales bitwise equal, and
+    NaN where the other's is NaN (a NaN's bits are the platform's)."""
+    (got_q, got_s), (want_q, want_s) = (tuple(t.cpu() for t in got), want)
+    assert got_q.dtype == want_q.dtype and got_q.shape == want_q.shape
+    assert torch.equal(got_q.view(torch.uint8), want_q.view(torch.uint8))
+    nan = torch.isnan(want_s)
+    assert torch.equal(torch.isnan(got_s), nan)
+    assert torch.equal(got_s[~nan].view(torch.int32), want_s[~nan].view(torch.int32))
+
+
+@pytest.mark.parametrize("dim", [960, 33])
+@pytest.mark.parametrize("n,b_pad", [(1000, 1024), (70, 128), (1, 1)])
+@pytest.mark.parametrize("upload", ["int8", "int4"])
+def test_encode_kernel_bitwise(cuda, upload, n, b_pad, dim):
+    """The encode kernel against its plain version and the host's numpy
+    encoding, bit for bit, one launch a block; at one row, once for each
+    kind of row."""
+    from rabitq_tpu_torch.index.scan import _encode
+    from rabitq_tpu_torch.ops.encode import BITS, encode_rows_kernel, encode_rows_plain
+
+    bits = BITS[upload]
+    rows = _special_queries(max(n, 7), dim, float((1 << (bits - 1)) - 1))
+    blocks = [rows[:n]] if n > 1 else [rows[i : i + 1] for i in range(7)]
+    for q in blocks:
+        before = encode_rows_kernel.launches
+        got = encode_rows_kernel(torch.from_numpy(q).to(cuda), b_pad, bits)
+        torch.cuda.synchronize()
+        assert encode_rows_kernel.launches == before + 1
+        _assert_encoding_equal(got, encode_rows_plain(torch.from_numpy(q), b_pad, bits))
+        with np.errstate(invalid="ignore"):
+            _assert_encoding_equal(got, _encode(q, b_pad, dim, upload))
+
+
+def test_encode_kernel_refuses_what_it_does_not_take(cuda):
+    from rabitq_tpu_torch.ops.encode import encode_rows_kernel
+
+    with pytest.raises(ValueError):
+        encode_rows_kernel(torch.zeros((4, 8), device=cuda), 2, 8)  # more rows than the block
+    with pytest.raises(ValueError):
+        encode_rows_kernel(torch.zeros((4, 8), device=cuda, dtype=torch.float16), 4, 8)
+    with pytest.raises(ValueError):
+        encode_rows_kernel(torch.zeros((4, 8)), 4, 8)  # on the CPU
+
+
+def _host_encoded(card, queries, params, batch_size, upload_block):
+    """The host's path: each upload block encoded by numpy, copied to the
+    card, and its scan blocks dispatched as the pipelined search does."""
+    from rabitq_tpu_torch.index.scan import _fetch, encode_queries
+
+    row_allowed = card._scan_inputs(None)
+    b = queries.shape[0]
+    pending = []
+    for s in range(0, b, upload_block):
+        q, qscale = encode_queries(queries[s : s + upload_block], upload_block, card.dim,
+                                   card.upload_dtype)
+        q, qscale = q.to(card.device), None if qscale is None else qscale.to(card.device)
+        for off in range(0, min(upload_block, b - s), batch_size):
+            pending.append(card._dispatch_scan(q, qscale, params, row_allowed, offset=off,
+                                               sub_block=batch_size))
+    return _fetch(pending, b)
+
+
+@pytest.mark.parametrize("route", ["slot", "pageable"])
+@pytest.mark.parametrize("upload", ["int8", "int4", "f32", "bf16"])
+def test_pipelined_batch_encodes_on_the_card(cuda, upload, route, monkeypatch):
+    """A pipelined batch of three upload blocks: every row encoded on the
+    card (``on_card`` of ``serve.encode``, one kernel launch a block where the
+    upload has codes, the raw rows' bytes over the link, the copy inside the
+    encode span), ids and distances bitwise equal to encoding each block on
+    the host and dispatching the same blocks, and no graph captured again;
+    the blocks through the stage's pinned slots (as the 1,000-row blocks of a
+    batch) or copied from pageable memory (as one query, or a whole call
+    above the slots' size)."""
+    from rabitq_tpu_torch.index import scan
+    from rabitq_tpu_torch.ops.encode import encode_rows_kernel
+    from rabitq_tpu_torch.utils import profiling
+
+    if route == "slot":
+        monkeypatch.setattr(scan, "SMALL_BYTES", 0)
+    else:
+        monkeypatch.setattr(scan, "SLOT_BYTES", 0)
+    data, _, card = _cpu_and_card_indexes(cuda)
+    card.upload_dtype = upload
+    params = SearchParams(top_k=10, nprobe=8)
+    queries = data[:150] + 0.01
+
+    def run():
+        return card.batch_search_arrays_pipelined(queries, params, batch_size=32, upload_block=64)
+
+    run()  # captures
+    captures = len(card._fused_scan.stats["capture_s"])
+    before = encode_rows_kernel.launches
+    profiling.clear()
+    try:
+        with profiling.recording():
+            ids, d = run()
+        found = profiling.spans()
+    finally:
+        profiling.clear()
+    enc = [s for s in found if s.name == "serve.encode"]
+    assert [(s.counts["rows"], s.counts["on_card"], s.counts["bytes"]) for s in enc] == [
+        (n, n, n * 200 * 4) for n in (64, 64, 22)]
+    copies = [s for s in found if s.name == "serve.copy_in"]
+    assert [s.parent for s in copies] == [s.id for s in enc]
+    assert encode_rows_kernel.launches == before + (3 if upload in ("int8", "int4") else 0)
+    assert (card._stage._slots[0] is None) == (route == "pageable")
+    h_ids, h_d = _host_encoded(card, queries, params, 32, 64)
+    np.testing.assert_array_equal(ids, h_ids)
+    np.testing.assert_array_equal(d, h_d)
+    assert len(card._fused_scan.stats["capture_s"]) == captures
+
+
+def test_staging_block_is_reused_safely(cuda, monkeypatch):
+    """Calls in a row with different query sets (the last a view with a
+    negative stride), pipelined and in one block, each give their own answers
+    (those of the host's path); a second call of the same shape pins no new
+    memory: the stage keeps the same blocks. A block above the slots' size
+    is copied from pageable memory and leaves the slots as they were."""
+    from rabitq_tpu_torch.index import scan
+
+    monkeypatch.setattr(scan, "SMALL_BYTES", 0)
+    monkeypatch.setattr(scan, "SLOT_BYTES", 100 * 200 * 4)
+    data, _, card = _cpu_and_card_indexes(cuda)
+    card.upload_dtype = "int8"
+    params = SearchParams(top_k=10, nprobe=8)
+    sets = [data[:150] + 0.01, data[1000:1150] - 0.01, (data[3000:3150] * 1.01)[::-1]]
+    piped = [card.batch_search_arrays_pipelined(sets[0], params, batch_size=32, upload_block=64)]
+    slots = [s.data_ptr() for s in card._stage._slots]
+    piped += [card.batch_search_arrays_pipelined(q, params, batch_size=32, upload_block=64)
+              for q in sets[1:]]
+    assert [s.data_ptr() for s in card._stage._slots] == slots
+    for (ids, d), q in zip(piped, sets):
+        h_ids, h_d = _host_encoded(card, q, params, 32, 64)
+        np.testing.assert_array_equal(ids, h_ids)
+        np.testing.assert_array_equal(d, h_d)
+    whole = [card.batch_search_arrays(q, params) for q in sets]  # one block of 150 rows each
+    assert [tuple(s.shape) for s in card._stage._slots] == [(64, 200), (64, 200)]
+    for (ids, d), q in zip(whole, sets):
+        h_ids, h_d = _host_encoded(card, q, params, 256, 256)
+        np.testing.assert_array_equal(ids, h_ids)
+        np.testing.assert_array_equal(d, h_d)
