@@ -1627,9 +1627,9 @@ def check_reproducible_mstg(index, data, build_s):
     reports = [index.build_report, again.build_report]
     del again, h2
     torch.cuda.empty_cache()
-    phases = [f"clustering {r['clustering_s']} s (levels {r['clustering']['levels_s']}, polish "
-              f"and means {r['clustering']['polish_s']} s), closure {r['closure_s']} s, quantize "
-              f"{r['quantize_s']} s, upload {r['upload_s']} s" for r in reports]
+    phases = [f"clustering {r['clustering_s']:.2f} s (levels {r['clustering']['levels_s']}, "
+              f"polish and means {r['clustering']['polish_s']} s), closure {r['closure_s']:.2f} s, "
+              f"quantize {r['quantize_s']:.2f} s, upload {r['upload_s']:.2f} s" for r in reports]
     log(f"reproducible MSTG: the headline build run again: {again_s:.2f} s ({phases[1]}) against "
         f"the first's {build_s:.2f} s ({phases[0]}); {index.posting_list_count()} lists in both, "
         f"every list's members and every host array bitwise equal; launches {launches}")
@@ -2000,10 +2000,10 @@ def mstg_variant(name, data, queries, closure_epsilon=None):
     r = index.build_report
     sizes = np.diff(index._offsets)
     c = r["clustering"]
-    log(f"MSTG {name} build: {build_s:.2f} s (clustering {r['clustering_s']} s: "
+    log(f"MSTG {name} build: {build_s:.2f} s (clustering {r['clustering_s']:.2f} s: "
         f"{c['splits']} splits over levels of {c['levels_s']} s, polish and means "
         f"{c['polish_s']} s; closure "
-        f"{r['closure_s']} s, quantize {r['quantize_s']} s, upload {r['upload_s']} s); "
+        f"{r['closure_s']:.2f} s, quantize {r['quantize_s']:.2f} s, upload {r['upload_s']:.2f} s); "
         f"{rows} rows, {index.posting_list_count()} posting lists (max_posting_size "
         f"{cfg.max_posting_size}, closure_epsilon {cfg.closure_epsilon}), list size p50 "
         f"{np.percentile(sizes, 50):.0f} / p95 {np.percentile(sizes, 95):.0f} / max "

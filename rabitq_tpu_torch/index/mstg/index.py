@@ -33,13 +33,21 @@ index is downloaded from the device layout at first use
 (``layout.host_order_planes``). Files: the native single-file format v1003
 (v1001/v1002 read), byte-identical to the JAX package's, and the reference's
 bincode v1 set (``ref_io.py``).
+
+Spans (``utils/profiling.py``), with the IVF index's names where the step is
+the same: a public search is the root ``mstg.search`` or ``mstg.batch``
+(``queries``, ``ef``, ``lists``), with ``serve.encode``, ``search.dispatch``
+(``tiles``, ``plane_tiles``, ``dense``, ``rerank``, ``dedup``; ``mstg.dedup``
+and ``graph.replay`` inside), ``serve.fetch`` and ``serve.results`` inside;
+``build`` is ``mstg.build``, with ``build.upload``, ``mstg.clustering``,
+``mstg.closure`` and ``mstg.quantize``, whose durations are the build
+report's seconds.
 """
 
 from __future__ import annotations
 
 import os
 import struct
-import time
 import zlib
 from dataclasses import dataclass
 
@@ -66,7 +74,7 @@ from ...ops.rotation import FhtKacRotator, make_rotator
 from ...types import Metric, RotatorType, SearchDiagnostics, SearchResult
 from ...utils.device import resolve_device, synchronize
 from ...utils.logging import get_logger
-from ...utils.profiling import Span
+from ...utils.profiling import Span, span
 from ...utils.transfer import upload_dataset
 from ..build import build_codes_device, exact_t_rows
 from ..layout import assemble_device_layout, cluster_of_rows, host_order_planes, pad_rows
@@ -244,72 +252,71 @@ class MstgIndex:
         if len(data.shape) != 2 or data.shape[0] == 0 or data.shape[1] == 0:
             raise InvalidConfig("cannot build index from empty data")
         n, orig_dim = data.shape
-        t0 = time.perf_counter()
-        data_dev, upload_report = upload_dataset(data, config.data_upload, device=dev)
-        t_upload = time.perf_counter()
-        rotator = None
-        if config.use_rotator:
-            # clustering and closure run on the original rows (the rotation
-            # is an isometry); the codes and the stored centroids are rotated
-            rotator = make_rotator(orig_dim, RotatorType.FhtKacRotator, seed)
-        dim = rotator.padded_dim if rotator is not None else orig_dim
+        with Span("mstg.build", rows=n) as total:
+            with Span("build.upload") as upload:
+                data_dev, upload_report = upload_dataset(data, config.data_upload, device=dev)
+            rotator = None
+            if config.use_rotator:
+                # clustering and closure run on the original rows (the rotation
+                # is an isometry); the codes and the stored centroids are rotated
+                rotator = make_rotator(orig_dim, RotatorType.FhtKacRotator, seed)
+            dim = rotator.padded_dim if rotator is not None else orig_dim
 
-        # step 1: hierarchical balanced clustering
-        with Span("mstg.clustering", n=n):
-            clusters = hierarchical_cluster(
-                data, max_cluster_size=config.max_posting_size,
-                branching_factor=config.branching_factor,
-                balance_weight=config.balance_weight, seed=seed, data_dev=data_dev,
-                refine_iters=config.refine_iters, assign_dtype=auto_assign_dtype(n, orig_dim),
-            )
-        t_cluster = time.perf_counter()
+            # step 1: hierarchical balanced clustering
+            with Span("mstg.clustering", n=n) as clustering:
+                clusters = hierarchical_cluster(
+                    data, max_cluster_size=config.max_posting_size,
+                    branching_factor=config.branching_factor,
+                    balance_weight=config.balance_weight, seed=seed, data_dev=data_dev,
+                    refine_iters=config.refine_iters, assign_dtype=auto_assign_dtype(n, orig_dim),
+                )
 
-        # step 2: closure assignment with the RNG rule
-        with Span("mstg.closure", C=len(clusters.centroids)):
-            members = closure_assign(
-                data, clusters.centroids, config.closure_epsilon, config.max_replicas,
-                data_dev=data_dev,
-            )
-        t_closure = time.perf_counter()
+            # step 2: closure assignment with the RNG rule
+            with Span("mstg.closure", C=len(clusters.centroids)) as closure:
+                members = closure_assign(
+                    data, clusters.centroids, config.closure_epsilon, config.max_replicas,
+                    data_dev=data_dev,
+                )
 
-        # the STORED centroids rounded through the configured precision: the
-        # residual base, the centroid scoring operands and the file bytes
-        centroids = clusters.centroids
-        if rotator is not None:
-            centroids = rotator.rotate(torch.from_numpy(centroids).to(dev)).cpu().numpy()
-        centroids = apply_centroid_precision(centroids, config.centroid_precision)
-
-        # step 3: per-posting-list residual quantization
-        ex_bits = config.rabitq_bits - 1
-        t_const = 0.0
-        t_rows = None
-        if ex_bits > 0 and config.faster_config:
-            t_const = compute_const_scaling_factor(dim, ex_bits, seed, device=dev)
-        sizes = [m.size for m in members]
-        offsets = np.zeros(len(members) + 1, np.int64)
-        np.cumsum(sizes, out=offsets[1:])
-        ids = np.concatenate(members) if members else np.zeros(0, np.int64)
-        row_list = np.repeat(np.arange(len(members), dtype=np.int32), sizes)
-        with Span("mstg.quantize", rows=ids.shape[0]):
-            if ex_bits > 0 and not config.faster_config:
-                # reference default: exact per-vector t sweep on the host
-                host = data if isinstance(data, np.ndarray) else data_dev.cpu().numpy()
-                if rotator is None:
-                    t_rows = exact_t_rows(host, centroids, row_list, ids, None, ex_bits)
-                else:
-                    t_rows = exact_t_rows(
-                        host, None, row_list, ids, rotator, ex_bits, centroids_rotated=centroids
-                    )
-            codes = build_codes_device(
-                data_dev, torch.from_numpy(centroids).to(dev), row_list, rotator=rotator,
-                ex_bits=ex_bits, metric=config.metric, use_t_const=config.faster_config,
-                t_const=t_const, t_rows=t_rows, order=ids,
-            )
-            # the [R] per-row fields come to the host now; the code planes
-            # stay on the device and feed the layout
-            small = {k: codes[k].cpu().numpy() for k in _SMALL_FIELDS}
-        synchronize(dev)
-        t_end = time.perf_counter()
+            # step 3: per-posting-list residual quantization, from the STORED
+            # centroids rounded through the configured precision: the residual
+            # base, the centroid scoring operands and the file bytes
+            with Span("mstg.quantize") as quantize:
+                centroids = clusters.centroids
+                if rotator is not None:
+                    centroids = rotator.rotate(torch.from_numpy(centroids).to(dev)).cpu().numpy()
+                centroids = apply_centroid_precision(centroids, config.centroid_precision)
+                ex_bits = config.rabitq_bits - 1
+                t_const = 0.0
+                t_rows = None
+                if ex_bits > 0 and config.faster_config:
+                    t_const = compute_const_scaling_factor(dim, ex_bits, seed, device=dev)
+                sizes = [m.size for m in members]
+                offsets = np.zeros(len(members) + 1, np.int64)
+                np.cumsum(sizes, out=offsets[1:])
+                ids = np.concatenate(members) if members else np.zeros(0, np.int64)
+                row_list = np.repeat(np.arange(len(members), dtype=np.int32), sizes)
+                quantize.add(rows=ids.shape[0])
+                if ex_bits > 0 and not config.faster_config:
+                    # reference default: exact per-vector t sweep on the host
+                    host = data if isinstance(data, np.ndarray) else data_dev.cpu().numpy()
+                    if rotator is None:
+                        t_rows = exact_t_rows(host, centroids, row_list, ids, None, ex_bits)
+                    else:
+                        t_rows = exact_t_rows(
+                            host, None, row_list, ids, rotator, ex_bits,
+                            centroids_rotated=centroids,
+                        )
+                codes = build_codes_device(
+                    data_dev, torch.from_numpy(centroids).to(dev), row_list, rotator=rotator,
+                    ex_bits=ex_bits, metric=config.metric, use_t_const=config.faster_config,
+                    t_const=t_const, t_rows=t_rows, order=ids,
+                )
+                # the [R] per-row fields come to the host now; the code planes
+                # stay on the device and feed the layout
+                small = {k: codes[k].cpu().numpy() for k in _SMALL_FIELDS}
+                synchronize(dev)
+            total.add(lists=len(members), replication=ids.shape[0] / max(n, 1))
         meta = {"ids": ids, "list_offsets": offsets, "centroids": centroids, "small": small}
         index = cls(
             config, orig_dim, None, scan_dtype, rotator=rotator, device=dev,
@@ -317,12 +324,12 @@ class MstgIndex:
         )
         index.build_report = {
             "upload": upload_report,
-            "upload_s": round(t_upload - t0, 2),
-            "clustering_s": round(t_cluster - t_upload, 2),
+            "upload_s": upload.seconds,
+            "clustering_s": clustering.seconds,
             "clustering": clusters.report,
-            "closure_s": round(t_closure - t_cluster, 2),
-            "quantize_s": round(t_end - t_closure, 2),
-            "total_s": round(t_end - t0, 2),
+            "closure_s": closure.seconds,
+            "quantize_s": quantize.seconds,
+            "total_s": total.seconds,
         }
         return index
 
@@ -596,32 +603,43 @@ class MstgIndex:
         dists). With replicas the scan returns the whole re-ranked candidate
         set (``rerank``, at least top_k times the replication factor + 16,
         so that top_k distinct ids survive) and the device dedup cuts it to
-        top_k after the scan; without, the scan extracts top_k."""
-        gather_rows = self._gather_budget(params.ef_search)
-        cl_starts = cl_sizes = max_tiles = None
-        if gather_rows is not None:
-            cl_starts, cl_sizes = self._cluster_ranges()
-        else:
-            b = q.shape[0] if sub_block is None else sub_block
-            max_tiles = self._fused_max_tiles(params.ef_search, batch=b)
-        dedup = self._has_replicas()
-        rerank = max(
-            params.resolved_rerank(),
-            int(np.ceil(params.top_k * self.replication_factor())) + 16,
-        )
-        ids, dists = self._scan(
-            q, qscale, params, offset=offset, sub_block=sub_block, cl_starts=cl_starts,
-            cl_sizes=cl_sizes, gather_rows=gather_rows,
-            top_k=rerank if dedup else params.top_k, rerank=rerank, max_tiles=max_tiles,
-            fused_exact=self._fused_exact_ok(),
-            # dedup path: keep the kernel's best-first candidate order through
-            # the dedup, which sorts the rows it keeps
-            fused_exact_sort=not dedup,
-            locality_depth=int(os.environ.get("RABITQ_LOCALITY", "1")),
-        )
-        if not dedup:
-            return ids, dists
-        return self._dedup_topk_device(ids, dists, top_k=params.top_k)
+        top_k after the scan; without, the scan extracts top_k. The span
+        ``search.dispatch`` covers it, with the tiles the bin scan walks
+        (``tiles`` of the plane's ``plane_tiles``; ``dense`` where it walks
+        them all, 0 for both on the gather scan), ``rerank`` and ``dedup``."""
+        with span("search.dispatch") as sp:
+            gather_rows = self._gather_budget(params.ef_search)
+            cl_starts = cl_sizes = max_tiles = None
+            plane_tiles = pad_rows(self.total_rows, TN) // TN
+            if gather_rows is not None:
+                cl_starts, cl_sizes = self._cluster_ranges()
+                tiles = 0
+            else:
+                b = q.shape[0] if sub_block is None else sub_block
+                max_tiles = self._fused_max_tiles(params.ef_search, batch=b)
+                tiles = plane_tiles if max_tiles is None else max_tiles
+            dedup = self._has_replicas()
+            rerank = max(
+                params.resolved_rerank(),
+                int(np.ceil(params.top_k * self.replication_factor())) + 16,
+            )
+            sp.add(tiles=tiles, plane_tiles=plane_tiles,
+                   dense=int(gather_rows is None and max_tiles is None), rerank=rerank,
+                   dedup=int(dedup))
+            ids, dists = self._scan(
+                q, qscale, params, offset=offset, sub_block=sub_block, cl_starts=cl_starts,
+                cl_sizes=cl_sizes, gather_rows=gather_rows,
+                top_k=rerank if dedup else params.top_k, rerank=rerank, max_tiles=max_tiles,
+                fused_exact=self._fused_exact_ok(),
+                # dedup path: keep the kernel's best-first candidate order
+                # through the dedup, which sorts the rows it keeps
+                fused_exact_sort=not dedup,
+                locality_depth=int(os.environ.get("RABITQ_LOCALITY", "1")),
+            )
+            if not dedup:
+                return ids, dists
+            with span("mstg.dedup"):
+                return self._dedup_topk_device(ids, dists, top_k=params.top_k)
 
     @staticmethod
     def _dedup_topk_device(ids: torch.Tensor, dists: torch.Tensor, *, top_k: int):
@@ -652,24 +670,25 @@ class MstgIndex:
         self, ids: np.ndarray, dists: np.ndarray, top_k: int
     ) -> list[list[SearchResult]]:
         """SearchResult lists of host result rows, first (= best)
-        occurrence of each id only."""
-        valid = (ids >= 0) & np.isfinite(dists)
-        ids_safe = np.where(valid, ids, np.int64(-1))
-        sort_keys = np.argsort(ids_safe, axis=1, kind="stable")
-        sorted_ids = np.take_along_axis(ids_safe, sort_keys, axis=1)
-        first = np.ones_like(sorted_ids, bool)
-        first[:, 1:] = sorted_ids[:, 1:] != sorted_ids[:, :-1]
-        keep = np.zeros_like(valid)
-        np.put_along_axis(keep, sort_keys, first, axis=1)
-        keep &= valid
-        sign = 1.0 if self.config.metric is Metric.L2 else -1.0
-        out: list[list[SearchResult]] = []
-        for row_ids, row_d, row_keep in zip(ids, dists, keep):
-            sel = np.nonzero(row_keep)[0][:top_k]
-            out.append(
-                [SearchResult(id=int(row_ids[j]), score=sign * float(row_d[j])) for j in sel]
-            )
-        return out
+        occurrence of each id only (the span ``serve.results``)."""
+        with span("serve.results"):
+            valid = (ids >= 0) & np.isfinite(dists)
+            ids_safe = np.where(valid, ids, np.int64(-1))
+            sort_keys = np.argsort(ids_safe, axis=1, kind="stable")
+            sorted_ids = np.take_along_axis(ids_safe, sort_keys, axis=1)
+            first = np.ones_like(sorted_ids, bool)
+            first[:, 1:] = sorted_ids[:, 1:] != sorted_ids[:, :-1]
+            keep = np.zeros_like(valid)
+            np.put_along_axis(keep, sort_keys, first, axis=1)
+            keep &= valid
+            sign = 1.0 if self.config.metric is Metric.L2 else -1.0
+            out: list[list[SearchResult]] = []
+            for row_ids, row_d, row_keep in zip(ids, dists, keep):
+                sel = np.nonzero(row_keep)[0][:top_k]
+                out.append(
+                    [SearchResult(id=int(row_ids[j]), score=sign * float(row_d[j])) for j in sel]
+                )
+            return out
 
     def _check_queries(self, queries) -> np.ndarray:
         if self.total_rows == 0:
@@ -679,22 +698,36 @@ class MstgIndex:
             raise DimensionMismatch(self.dim, queries.shape[1])
         return queries
 
+    def _root(self, params: MstgSearchParams):
+        """The root span of a public batch call (its caller adds ``queries``)."""
+        return span("mstg.batch", ef=params.ef_search, lists=self.posting_list_count())
+
     def search(self, query: np.ndarray, params: MstgSearchParams) -> list[SearchResult]:
-        return self.batch_search(np.asarray(query, np.float32)[None, :], params)[0]
+        with span("mstg.search", queries=1):
+            queries = self._check_queries(np.asarray(query, np.float32)[None, :])
+            return self._search(queries, params)[0]
 
     def batch_search(
         self, queries: np.ndarray, params: MstgSearchParams
     ) -> list[list[SearchResult]]:
         """(``mstg/index.rs:150-213``, batched as at 340) One dispatch for
         the batch, padded to a power of two."""
-        queries = self._check_queries(queries)
+        with self._root(params) as sp:
+            queries = self._check_queries(queries)
+            sp.add(queries=queries.shape[0])
+            return self._search(queries, params)
+
+    def _search(self, queries: np.ndarray, params: MstgSearchParams) -> list[list[SearchResult]]:
+        """``batch_search`` of checked queries, inside the caller's root span."""
         b = queries.shape[0]
         if params.top_k <= 0:
             return [[] for _ in range(b)]
         self._scan_planes()
         q, qscale = self._encode_queries(queries, _pad_pow2(b))
         ids, dists = self._dispatch_scan(q, qscale, params)
-        return self._dedup_results(ids.cpu().numpy()[:b], dists.cpu().numpy()[:b], params.top_k)
+        with span("serve.fetch"):
+            ids, dists = ids.cpu().numpy()[:b], dists.cpu().numpy()[:b]
+        return self._dedup_results(ids, dists, params.top_k)
 
     def upload_queries(self, queries: np.ndarray):
         """Encode the queries once with the current ``upload_dtype`` and keep
@@ -718,14 +751,16 @@ class MstgIndex:
         q, qscale, b_total = qcache
         if params.top_k <= 0:
             return [[] for _ in range(b_total)]
-        self._scan_planes()
-        bs = _pad_pow2(min(batch_size, q.shape[0]))
-        pending = [
-            self._dispatch_scan(q, qscale, params, offset=off, sub_block=bs)
-            for off in range(0, b_total, bs)
-        ]
-        ids, dists = _fetch(pending, b_total)
-        return self._dedup_results(ids, dists, params.top_k)
+        with self._root(params) as sp:
+            sp.add(queries=b_total)
+            self._scan_planes()
+            bs = _pad_pow2(min(batch_size, q.shape[0]))
+            pending = [
+                self._dispatch_scan(q, qscale, params, offset=off, sub_block=bs)
+                for off in range(0, b_total, bs)
+            ]
+            ids, dists = _fetch(pending, b_total)
+            return self._dedup_results(ids, dists, params.top_k)
 
     def _pipelined(self, queries, params, batch_size, upload_block):
         self._scan_planes()
@@ -747,11 +782,13 @@ class MstgIndex:
         behind it (``scan.serve_pipelined``); ``upload_block`` (>=
         batch_size) sets the copy granularity. Results equal
         ``batch_search``'s."""
-        queries = self._check_queries(queries)
-        if params.top_k <= 0:
-            return [[] for _ in range(queries.shape[0])]
-        ids, dists = self._pipelined(queries, params, batch_size, upload_block)
-        return self._dedup_results(ids, dists, params.top_k)
+        with self._root(params) as sp:
+            queries = self._check_queries(queries)
+            sp.add(queries=queries.shape[0])
+            if params.top_k <= 0:
+                return [[] for _ in range(queries.shape[0])]
+            ids, dists = self._pipelined(queries, params, batch_size, upload_block)
+            return self._dedup_results(ids, dists, params.top_k)
 
     def batch_search_arrays_pipelined(
         self,
@@ -763,14 +800,16 @@ class MstgIndex:
         """``batch_search_pipelined`` returning arrays (ids [B, top_k] int32
         with -1 padding, internal distances f32) instead of SearchResult
         lists; the dedup already ran on the device."""
-        queries = self._check_queries(queries)
-        b_total = queries.shape[0]
-        if params.top_k <= 0:
-            return (
-                np.full((b_total, 0), -1, np.int32),
-                np.full((b_total, 0), np.inf, np.float32),
-            )
-        return self._pipelined(queries, params, batch_size, upload_block)
+        with self._root(params) as sp:
+            queries = self._check_queries(queries)
+            b_total = queries.shape[0]
+            sp.add(queries=b_total)
+            if params.top_k <= 0:
+                return (
+                    np.full((b_total, 0), -1, np.int32),
+                    np.full((b_total, 0), np.inf, np.float32),
+                )
+            return self._pipelined(queries, params, batch_size, upload_block)
 
     def search_with_diagnostics(
         self, query: np.ndarray, params: MstgSearchParams
