@@ -12,7 +12,10 @@ Phases, one line each:
      [8192, 512] and [64, 16384] f32 (must be bitwise equal), with device
      times from a cold L2 and bound, and beside it the one library call
      that computes the same function ([8192, 512] times the 512 x 512
-     Sylvester matrix, torch.mm);
+     Sylvester matrix, torch.mm); then K1's int8-query mode (DENSE_S8)
+     bitwise against its plain version on synthetic inputs at the MSTG
+     cell's shape and at 2,560 columns, both walks, timed beside the
+     three-plane mode on the same query as f32;
   4. main path at full size: a seeded 1M x 960 dataset (the recipe of
      bench.py's make_workload, drawn on the card), IvfRabitqIndex.train
      (nlist 4096, 7 bits, FhtKac, faster config, fused8), then 2048 queries
@@ -90,6 +93,12 @@ Between 6 and 7, on the 7-bit index and the same data:
      ef the device dedup against the host dedup on the same candidates and
      recall beside the gather scan's (no bins) on the same index; the
      headline index is saved to a native file for the next phase;
+  MSTG cell: MstgIndex.build at the settings of the benchmark's cell
+     gist1m-mstg7.batch (portbench/configs/mstg-gist1m-7b.json: no rotator),
+     served with int8 and int4 uploads at ef 150 and int8 at ef 8: every K1
+     launch takes the query as int8 codes (DENSE_S8) and every dispatch
+     counts k1_int8 1, K1 bitwise against its plain version on each walk,
+     recall@10 (floor 0.90 at ef 150) and the graphs against the eager body;
   front ends: the IVF binding fit on the 1M rows (nlist 4096, 7 bits,
      fused8) and its batch_query of the 2048 queries at nprobe 64 (the
      pipelined branch; ids and distances equal to its index's
@@ -601,6 +610,8 @@ def check_bin_scan_run(run, label, walk=None, index=None):
     if walk is not None and seen != walk:
         raise AssertionError(f"bin scan ({label}): took the {seen} walk, expected {walk}")
     walk = seen
+    if kw.get("f_error") is None and kw.get("q_scale") is not None:
+        return check_s8_direct(args, kw, f"bin scan (direct int8 q, {walk})", label)
     if kw.get("f_error") is None:
         mode, kernel = "direct", fused_scan.fused_bin_scan_cuda
     else:
@@ -648,6 +659,103 @@ def check_bin_scan_run(run, label, walk=None, index=None):
         f"({bound_by}); query image {image_host:.0f} us on the host, {image_dev:.1f} us on "
         f"the device, of {wrapper_host:.0f} us the wrapper takes on the host")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, err=err)
+
+
+def check_s8_direct(args, kw, what, label):
+    """K1 on an int8 query (mode DENSE_S8) against its plain version on
+    these inputs: ``bins_val``, ``bins_idx`` and ``offered`` bitwise equal,
+    one launch counted under its walk. Times it, and beside it the
+    three-plane kernel (mode DENSE_BF16X3) on the same query as f32 (codes
+    * scale: the same function to f32 rounding). Returns
+    :func:`check_bin_scan_run`'s numbers, with ``bf16x3_ms``."""
+    import torch
+    from rabitq_tpu_torch.ops import fused_scan
+
+    kernel, plain = fused_scan.fused_bin_scan_cuda, fused_scan.fused_bin_scan_plain
+    key = "s8_dense" if args[8] is None else "s8_compact"
+    want = [t.cpu().numpy() for t in plain(*args, **kw)]
+    before = kernel.launches[key]
+    got = kernel(*args, **kw)
+    torch.cuda.synchronize()
+    if kernel.launches[key] != before + 1:
+        raise AssertionError(f"{what}: launch not counted under {key}")
+    for name, g, w in zip(("bins_val", "bins_idx", "offered"), got, want):
+        require_bitwise(f"{what}: {name}", g.cpu().numpy(), w)
+    ms = cuda_ms(lambda: kernel(*args, **kw), 10)
+    args32 = (args[0], args[1].float() * kw["q_scale"][:, None]) + tuple(args[2:])
+    bf16x3_ms = cuda_ms(lambda: kernel(*args32), 10)
+    plain_ms = cuda_ms(lambda: plain(*args, **kw), 2)
+    bound, bound_by = bin_scan_bound(args, kw)
+    log(f"{what} ({label}, q {tuple(args[1].shape)}, plane {tuple(args[0].shape)}): bins_val, "
+        f"bins_idx, offered bitwise equal to the plain version; kernel {ms:.3f} ms, "
+        f"three-plane kernel on the f32 query {bf16x3_ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"bound {bound:.3f} ms ({bound_by})")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, err=0.0,
+                bf16x3_ms=bf16x3_ms)
+
+
+def s8_bin_inputs(n_tiles, d, live, c, bq, p_probe, seed):
+    """Direct-mode bin scan inputs with an int8 query, drawn on the card:
+    ``n_tiles`` tiles of a ``d``-wide TOTAL plane (codes 0..127 in the
+    first ``live`` columns, zeros after, as a width-padded plane), ``c``
+    clusters of random sizes in cluster-sorted rows, 200 padding rows, 5% of
+    rows masked, int8 query codes with per-query scales, each query probing
+    a cluster with probability ``p_probe``. Returns (args, kw, probe)."""
+    import numpy as np
+    import torch
+    from rabitq_tpu_torch.ops import fused_scan as fs
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    n = n_tiles * fs.TN
+    sizes = rng.multinomial(n - 200, np.ones(c) / c)
+    cluster_of = np.zeros(n, np.int32)
+    cluster_of[: n - 200] = np.repeat(np.arange(c, dtype=np.int32), sizes)
+    allowed = (np.arange(n) < n - 200) & (rng.random(n) > 0.05)
+    plane = torch.zeros((n, d), dtype=torch.int8, device=dev)
+    plane[:, :live] = torch.randint(0, 128, (n, live), generator=g, device=dev,
+                                    dtype=torch.int8)
+    q = torch.zeros((bq, d), dtype=torch.int8, device=dev)
+    q[:, :live] = torch.randint(-127, 128, (bq, live), generator=g, device=dev,
+                                dtype=torch.int8)
+    q_scale = torch.rand(bq, generator=g, device=dev) * 0.05 + 0.01
+    fa = torch.randn(n, generator=g, device=dev) * 1e3
+    fa[~torch.from_numpy(allowed).to(dev)] = fs.BIG
+    fr = torch.randn(n, generator=g, device=dev) * 0.05
+    probe = torch.rand((bq, c), generator=g, device=dev) < p_probe
+    g1 = torch.full((bq, fs._pad_clusters(c)), fs.BIG, device=dev)
+    g1[:, :c] = torch.where(probe, torch.rand((bq, c), generator=g, device=dev) * 50, fs.BIG)
+    k1x = -63.5 * (q.float() * q_scale[:, None]).sum(1)
+    c_blk = torch.from_numpy(fs.tile_cluster_blocks(cluster_of, allowed)).to(dev)
+    args = (plane, q, fa, fr, torch.from_numpy(cluster_of).to(dev), k1x,
+            g1.to(torch.bfloat16), c_blk, None, None)
+    return args, {"q_scale": q_scale}, probe
+
+
+def check_s8_shapes():
+    """K1's int8-query mode (DENSE_S8) on synthetic inputs: at the MSTG
+    cell's shape (1,000,448 rows in 1,954 tiles, 962 lists, 960 columns
+    padded to 1,024, a 256-query block) and at the widest plane the EXACT
+    scan serves (2,560 columns), each through the dense
+    walk and compacted lists (:func:`check_s8_direct`): the bitwise check
+    and the times; the launches of the kernel line come from the serving
+    paths of :func:`check_mstg_cell`. Returns {(shape, walk): numbers}."""
+    import torch
+    from rabitq_tpu_torch.ops import fused_scan as fs
+
+    out = {}
+    for shape, (n_tiles, d, live, c, p_probe) in {
+            "mstg_cell": (1954, 1024, 960, 962, 0.01), "wide": (200, 2560, 2560, 180, 0.03)}.items():
+        args, kw, probe = s8_bin_inputs(n_tiles, d, live, c, 256, p_probe, seed=17)
+        out[(shape, "dense")] = check_s8_direct(args, kw, "bin scan (direct int8 q, dense)", shape)
+        tiles, tcount = fs.compaction_lists(args[2], args[4], probe, 32, n_tiles)
+        out[(shape, "compacted")] = check_s8_direct(
+            args[:8] + (tiles, tcount), kw, "bin scan (direct int8 q, compacted)",
+            f"{shape}, {int(tcount.sum())} tiles listed over {tcount.numel()} blocks")
+        del args, kw, probe, tiles, tcount
+        torch.cuda.empty_cache()
+    return out
 
 
 def plane_agreement(got, want, what):
@@ -1111,6 +1219,8 @@ def zero_launches():
     encode_rows_kernel.launches = 0
     fht_kernel.launches = 0
     fused_bin_scan_cuda.dense_launches = fused_bin_scan_cuda.compact_launches = 0
+    for key in fused_bin_scan_cuda.launches:
+        fused_bin_scan_cuda.launches[key] = 0
     for key in fused_bin_scan_packed_cuda.launches:
         fused_bin_scan_packed_cuda.launches[key] = 0
     packed_lb_scan_cuda.launches = packed_lb_plane_cuda.launches = 0
@@ -2173,6 +2283,98 @@ def check_mstg(data, data_np, queries, centers):
             seg_polish)
 
 
+def check_mstg_cell(data, queries, gt):
+    """MSTG at the settings of the benchmark's cell ``gist1m-mstg7.batch``
+    (``portbench/configs/mstg-gist1m-7b.json``: the reference's defaults, no
+    rotator) on the 1M rows, so that K1 takes the query as int8 codes (mode
+    DENSE_S8). Three serving paths, the launch counters zeroed just before
+    each and read just after: int8 uploads at the cell's ef (the dense walk),
+    int4 uploads at the same ef, and int8 uploads at ef 8 (the compacted walk
+    where MSTG's tile gate gives a budget). On each, every K1
+    launch is a DENSE_S8 launch, every ``search.dispatch`` span counts
+    ``k1_int8`` 1, and the results are well formed; the int8 path at the
+    cell's ef has recall@10 of at least RECALL_FLOOR, and the graphs equal
+    the eager body there (:func:`check_fused`). K1 is held bitwise against
+    its plain version on the int8 paths' own inputs (one 256-query block),
+    once a walk. Returns ({path: launches}, {walk: K1 check})."""
+    import numpy as np
+    import torch
+    from rabitq_tpu_torch import MstgConfig, MstgIndex, MstgSearchParams
+    from rabitq_tpu_torch.index.mstg.config import ScalarPrecision
+    from rabitq_tpu_torch.ops.encode import encode_rows_kernel
+    from rabitq_tpu_torch.ops.fused_scan import fused_bin_scan_cuda
+    from rabitq_tpu_torch.utils import profiling
+
+    with open(os.path.join(ROOT, "portbench", "configs", "mstg-gist1m-7b.json")) as f:
+        cell = json.load(f)
+    ix, sv = cell["index"], cell["serving"]
+    cfg = MstgConfig(
+        max_posting_size=ix["max_posting_size"], branching_factor=ix["branching_factor"],
+        balance_weight=ix["balance_weight"], closure_epsilon=ix["closure_epsilon"],
+        max_replicas=ix["max_replicas"], rabitq_bits=ix["total_bits"],
+        faster_config=ix["faster_config"],
+        centroid_precision=ScalarPrecision(ix["centroid_precision"]), refine_ex=ix["refine_ex"],
+        refine_iters=ix["refine_iters"], use_rotator=ix["use_rotator"])
+    t0 = time.perf_counter()
+    index = MstgIndex.build(data, cfg, seed=ix["seed"], scan_dtype=ix["scan_dtype"],
+                            device="cuda")
+    torch.cuda.synchronize()
+    log(f"MSTG cell build: {time.perf_counter() - t0:.2f} s, {index.posting_list_count()} "
+        f"posting lists, rotator {index.rotator is not None}")
+    queries_np = queries.cpu().numpy()
+    n = len(queries_np)
+    ef = sv["nprobe"]
+
+    def serve(ef):
+        return index.batch_search_arrays_pipelined(
+            queries_np, MstgSearchParams(top_k=10, ef_search=ef,
+                                         pruning_epsilon=sv["pruning_epsilon"]),
+            batch_size=sv["batch_size"], upload_block=sv["upload_block"])
+
+    launches, k1 = {}, {}
+    for upload, at in (("int8", ef), ("int4", ef), ("int8", 8)):
+        name = f"MSTG cell {upload} ef={at}"
+        index.upload_dtype = upload
+        serve(at)  # captures the graphs
+        zero_launches()
+        profiling.clear()
+        with profiling.recording():
+            ids, dists = serve(at)
+        marks = [sp.counts.get("k1_int8") for sp in profiling.spans()
+                 if sp.name == "search.dispatch"]
+        profiling.clear()
+        got = launches[name] = read_launches(name, ("fused_bin_scan", "select"))
+        got["encode_queries"] = encode_rows_kernel.launches  # one an upload block
+        got.update({f"fused_bin_scan_{k}": v for k, v in fused_bin_scan_cuda.launches.items()})
+        s8 = got["fused_bin_scan_s8_dense"] + got["fused_bin_scan_s8_compact"]
+        if s8 != got["fused_bin_scan"] or s8 != n // sv["batch_size"]:
+            raise AssertionError(f"{name}: {s8} DENSE_S8 launches of {got['fused_bin_scan']} "
+                                 f"K1 launches, expected {n // sv['batch_size']}")
+        if marks != [1] * (n // sv["batch_size"]):
+            raise AssertionError(f"{name}: search.dispatch counts k1_int8 {marks}")
+        if ids.shape != (n, 10) or (ids < 0).any() or not np.isfinite(dists).all():
+            raise AssertionError(f"{name}: malformed results {ids.shape}")
+        walk = "dense" if got["fused_bin_scan_s8_dense"] else "compacted"
+        recall = recall_at(ids, gt, 10)
+        log(f"serve {name}: recall@10 {recall:.4f}, {walk} walk, every K1 launch DENSE_S8 and "
+            f"every dispatch k1_int8 1")
+        if upload == "int8" and walk not in k1:
+            params = MstgSearchParams(top_k=10, ef_search=at,
+                                      pruning_epsilon=sv["pruning_epsilon"])
+            k1[walk] = check_bin_scan_run(lambda: index.batch_search(queries_np[:256], params),
+                                          name, index=index)
+        if (upload, at) == ("int8", ef):
+            if walk != "dense":
+                raise AssertionError(f"{name}: K1 took the {walk} walk, the cell's is dense")
+            if recall < RECALL_FLOOR:
+                raise AssertionError(f"{name}: recall@10 {recall:.4f} < {RECALL_FLOOR}")
+            check_fused(name, index, lambda: serve(ef), n // sv["batch_size"],
+                        -(-n // sv["upload_block"]))
+    del index
+    torch.cuda.empty_cache()
+    return launches, k1
+
+
 def intervals_union(spans):
     """Sorted, merged [start, end) intervals of ``spans``."""
     out = []
@@ -2886,7 +3088,7 @@ def main() -> int:
     # the arguments of each library's shared-memory getter
     dynamic = {"fht": {"rows of 512": (512,), "rows of 16384": (16384,),
                        "rows of 32768 and more": (32768,)},
-               "fused_bin_scan": {"direct": ()},
+               "fused_bin_scan": {"direct": (0,), "dense_s8": (1,)},
                "packed_bin_scan": {"bits_bf16": (0,), "bits_s8": (1,)},
                "packed_lb_scan": {"both epilogues": ()},
                "build_sums": {}, "select": {}, "encode_queries": {}}
@@ -2903,6 +3105,9 @@ def main() -> int:
             f"{sizes or 'none'}")
 
     fht_rows = check_fht()
+    t0 = time.perf_counter()
+    check_s8_shapes()
+    log(f"phase seconds: K1 int8 query {time.perf_counter() - t0:.1f}")
 
     # ---- main path ----
     dev = torch.device("cuda")
@@ -3021,6 +3226,9 @@ def main() -> int:
     mstg_s = time.perf_counter() - t0 - sharded_s["MSTG"] - jax_s["MSTG"] - REPRO_S["MSTG"]
     log(f"phase seconds: MSTG {mstg_s:.1f} (without the sharded MSTG check, the JAX-shaped "
         f"calls and the second build)")
+    t0 = time.perf_counter()
+    mstg_cell, k1_cell = check_mstg_cell(data, queries, gt)
+    log(f"phase seconds: MSTG cell {time.perf_counter() - t0:.1f}")
     log(f"phase seconds: JAX-shaped calls {sum(jax_s.values()):.1f} ("
         + ", ".join(f"{k} {v:.1f}" for k, v in jax_s.items()) + ")")
     t0 = time.perf_counter()
@@ -3164,10 +3372,11 @@ def main() -> int:
     packed_src = "rabitq_tpu_torch/csrc/packed_bin_scan.cu"
     paths = ((launches, launches8, persist, resident, gather, brute, streamed, jax_ivf, jax_bf,
               jax_mstg, repro_ivf, repro_mstg)
-             + tuple(mstg.values()) + tuple(front.values()) + tuple(sharded.values()))
+             + tuple(mstg.values()) + tuple(mstg_cell.values()) + tuple(front.values())
+             + tuple(sharded.values()))
     kernels = [
         entry("fht", "rabitq_tpu_torch/csrc/fht.cu", "rabitq_tpu/ops/pallas_fht.py:49",
-              sum(p["fht"] for p in paths), fht_rows[(8192, 512)]),
+              sum(p.get("fht", 0) for p in paths), fht_rows[(8192, 512)]),
         entry("fused_bin_scan_compact", scan_src, scan_tpu,
               launches["fused_bin_scan_compact"], compact),
         entry("fused_bin_scan_dense", scan_src, scan_tpu,
@@ -3221,6 +3430,14 @@ def main() -> int:
         entry(f"fused_bin_scan_mstg_{variant}_ef{ef}", scan_src, scan_tpu,
               mstg[(variant, ef)]["fused_bin_scan"], r)
         for (variant, ef), r in k1_mstg.items()
+    ]
+    # mode DENSE_S8 on the MSTG cell's paths: launches over all of them
+    kernels += [
+        {**entry(f"fused_bin_scan_s8_mstg_cell_{walk}", scan_src, scan_tpu,
+                 sum(p[f"fused_bin_scan_s8_{'dense' if walk == 'dense' else 'compact'}"]
+                     for p in mstg_cell.values()), r),
+         "bf16x3_ms": r["bf16x3_ms"]}
+        for walk, r in k1_cell.items()
     ]
     kernels += [
         entry("fused_bin_scan_sharded_compact", scan_src, scan_tpu,

@@ -5,9 +5,12 @@
 // in direct mode (_tile_update, _kernel for the dense walk, _kernel_compact
 // for the compacted tile lists). For query b and row n of tile t:
 //
-//   g  = bf16 g1[b, cluster_of[n]]   if cluster_of[n] lies in tile t's
-//        W-wide cluster window starting at 128 * c_blk[t], else 0
-//   lb = fa[n] + fr[n] * (<plane[n], q[b]> + k1x[b]) + g     (f32, this order)
+//   g   = bf16 g1[b, cluster_of[n]]   if cluster_of[n] lies in tile t's
+//         W-wide cluster window starting at 128 * c_blk[t], else 0
+//   dot = <plane[n], q[b]>                          (f32 query)
+//         f32(<plane[n], q8[b]>) * q_scale[b]       (int8 query: an exact
+//                                                    integer dot, rounded once)
+//   lb  = fa[n] + fr[n] * (dot + k1x[b]) + g        (f32, this order)
 //
 // bins_val[b, l] is the minimum of lb over rows n == l (mod L), bins_idx the
 // row that first reached it in ascending tile order (strict <, so the first
@@ -17,17 +20,23 @@
 // Bound on the H100: operations. Each (query, row) pair costs D multiply-adds
 // against D bytes of codes shared by every query of the batch, so the work
 // is a matrix product and its bound the bf16 tensor rate. Design: the dot
-// runs on the tensor cores (mma_tile.cuh, mode DENSE_BF16X3). The int8 codes
-// are exact in bf16; the f32 query arrives as three bf16 planes hi + mid + lo
-// (ops/fused_scan.py split_bf16x3, laid out by query_image), so each product
-// is exact in f32 and the sum keeps f32 accuracy at three tensor-core
-// products a column. The bin of row n depends only on its tile t (group
+// runs on the tensor cores (mma_tile.cuh). An f32 query (mode DENSE_BF16X3):
+// the int8 codes are exact in bf16; the query arrives as three bf16 planes
+// hi + mid + lo (ops/fused_scan.py split_bf16x3, laid out by query_image), so
+// each product is exact in f32 and the sum keeps f32 accuracy at three
+// tensor-core products a column. A query that is an integer grid with a
+// per-query scale (an int8 or int4 upload that is not rotated; mode DENSE_S8,
+// S8Walk): one s8 product a column with an exact s32 sum, the codes and a
+// byte of query a column straight from shared memory, so that L2 carries
+// the codes and a sixth as many query bytes as before. The bin of row n depends only on its tile t (group
 // t % GROUPS) and its place u in the tile, so a block owns QB queries x one
 // group x RU of the tile's rows, and its bins stay in registers, indexed like
 // the accumulator fragment, for the whole walk: no atomics on the bins, and
 // the first-wins tie rule holds because each block walks its tiles in
 // ascending order (dense walk), or in list order (compacted walk; the lists
 // are built ascending).
+
+#include <type_traits>
 
 #include "mma_tile.cuh"
 
@@ -36,9 +45,12 @@ namespace {
 using namespace mma_tile;
 using G = Geo<DENSE_BF16X3>;
 
+// MODE DENSE_BF16X3 or DENSE_S8
+template <int MODE>
 __global__ void __launch_bounds__(THREADS, 2)
 bin_scan_kernel(const int8_t* __restrict__ plane,    // [n_tiles * TN, d]
-                const uint8_t* __restrict__ q_image, // [bp / QB, d / 64 stages] of G::Q_BYTES
+                const uint8_t* __restrict__ q_image, // [bp / QB, img_bytes]
+                const float* __restrict__ q_scale,   // [bp] (DENSE_S8)
                 const float* __restrict__ fa,        // [n_tiles * TN]
                 const float* __restrict__ fr,        // [n_tiles * TN]
                 const int* __restrict__ cluster_of,  // [n_tiles * TN]
@@ -69,11 +81,15 @@ bin_scan_kernel(const int8_t* __restrict__ plane,    // [n_tiles * TN, d]
     }
   }
   Offered off;
-  float kx[4][2];
+  constexpr bool INT8 = MODE == DENSE_S8;
+  float kx[4][2], qs[4][2];
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
 #pragma unroll
-    for (int e = 0; e < 2; ++e) kx[j][e] = k1x[q0 + frag_query(j, e)];
+    for (int e = 0; e < 2; ++e) {
+      kx[j][e] = k1x[q0 + frag_query(j, e)];
+      if constexpr (INT8) qs[j][e] = q_scale[q0 + frag_query(j, e)];
+    }
   }
 
   int steps;
@@ -86,9 +102,11 @@ bin_scan_kernel(const int8_t* __restrict__ plane,    // [n_tiles * TN, d]
     steps = (n_tiles - group + GROUPS - 1) / GROUPS;
   }
 
-  Walk<DENSE_BF16X3> walk(reinterpret_cast<const uint8_t*>(plane), d,
-                          q_image + (int64_t)blockIdx.x * (d / G::CODE_BYTES) * G::Q_BYTES,
-                          list, steps, group, n_tiles, r0, smem);
+  // a block's image: three bf16 planes of d columns, or a byte a column
+  const int64_t img_bytes = INT8 ? (int64_t)QB * d : (int64_t)(d / G::CODE_BYTES) * G::Q_BYTES;
+  std::conditional_t<INT8, S8Walk, Walk<DENSE_BF16X3>> walk(
+      reinterpret_cast<const uint8_t*>(plane), d, q_image + blockIdx.x * img_bytes, list, steps,
+      group, n_tiles, r0, smem);
   while (walk.valid()) {
     const int t = walk.tile();
     const int64_t row_base = (int64_t)t * TN + r0;
@@ -106,7 +124,7 @@ bin_scan_kernel(const int8_t* __restrict__ plane,    // [n_tiles * TN, d]
         cln[mt][h] = cluster_of[n];
       }
     }
-    float acc[2][16];
+    typename Acc<MODE>::type acc[2][16];
     walk.dot(acc);
 
     // epilogue: f32 in the reference's order, no contraction
@@ -138,8 +156,13 @@ bin_scan_kernel(const int8_t* __restrict__ plane,    // [n_tiles * TN, d]
           for (int e = 0; e < 2; ++e) {
             const int i = 4 * j + 2 * h + e;
             const float g = inwin ? g1v[j][e] : 0.0f;
+            float dot;
+            if constexpr (INT8)
+              dot = __fmul_rn(__int2float_rn(acc[mt][i]), qs[j][e]);
+            else
+              dot = acc[mt][i];
             const float lb = __fadd_rn(
-                __fadd_rn(fan[mt][h], __fmul_rn(frn[mt][h], __fadd_rn(acc[mt][i], kx[j][e]))), g);
+                __fadd_rn(fan[mt][h], __fmul_rn(frn[mt][h], __fadd_rn(dot, kx[j][e]))), g);
             off.add(mt, j, h, e, lb < 0.5f * BIG);
             if (lb < bval[mt][i]) {
               bval[mt][i] = lb;
@@ -174,14 +197,37 @@ bin_scan_kernel(const int8_t* __restrict__ plane,    // [n_tiles * TN, d]
   }
 }
 
+template <int MODE>
+int launch(const void* plane, const void* q_image, const void* q_scale, const void* fa,
+           const void* fr, const void* cluster_of, const void* k1x, const void* g1,
+           const void* c_blk, const void* tiles, const void* tcount, void* out_val,
+           void* out_idx, void* offered, int n_tiles, int d, int bp, int c_pad, int list_len,
+           int tb, void* stream) {
+  static bool prepared[MAX_DEVICES] = {};  // one per instantiation
+  const cudaError_t err = prepare_launch(bin_scan_kernel<MODE>, Geo<MODE>::SMEM_BYTES, prepared);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(bp / QB, GROUPS * SLICES);
+  bin_scan_kernel<MODE><<<grid, THREADS, Geo<MODE>::SMEM_BYTES, (cudaStream_t)stream>>>(
+      (const int8_t*)plane, (const uint8_t*)q_image, (const float*)q_scale, (const float*)fa,
+      (const float*)fr, (const int*)cluster_of, (const float*)k1x,
+      (const __nv_bfloat16*)g1, (const int*)c_blk, (const int*)tiles,
+      (const int*)tcount, (float*)out_val, (int*)out_idx, (int*)offered,
+      n_tiles, d, c_pad, list_len, tb);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// dynamic shared memory a block of the kernel takes, bytes
-extern "C" int rabitq_bin_scan_smem_bytes() { return G::SMEM_BYTES; }
+// dynamic shared memory a block of the kernel takes, bytes, for an f32
+// query (q_is_int8 == 0) or an int8 one
+extern "C" int rabitq_bin_scan_smem_bytes(int q_is_int8) {
+  return q_is_int8 ? Geo<DENSE_S8>::SMEM_BYTES : G::SMEM_BYTES;
+}
 
-// q_image: the query as ops/fused_scan.py query_image lays it out for mode
-// "direct" (three bf16 planes in swizzled stage tiles).
-extern "C" int rabitq_bin_scan(const void* plane, const void* q_image,
+// q_image: the query as ops/fused_scan.py query_image lays it out, for mode
+// "dense_s8" when q_scale is given (an int8 query), else for mode "direct"
+// (three bf16 planes in swizzled stage tiles).
+extern "C" int rabitq_bin_scan(const void* plane, const void* q_image, const void* q_scale,
                                const void* fa, const void* fr,
                                const void* cluster_of, const void* k1x,
                                const void* g1, const void* c_blk,
@@ -189,15 +235,12 @@ extern "C" int rabitq_bin_scan(const void* plane, const void* q_image,
                                void* out_val, void* out_idx, void* offered,
                                int n_tiles, int d, int bp, int c_pad,
                                int list_len, int tb, void* stream) {
-  static bool prepared[MAX_DEVICES] = {};
-  const cudaError_t err = prepare_launch(bin_scan_kernel, G::SMEM_BYTES, prepared);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(bp / QB, GROUPS * SLICES);
-  bin_scan_kernel<<<grid, THREADS, G::SMEM_BYTES, (cudaStream_t)stream>>>(
-      (const int8_t*)plane, (const uint8_t*)q_image, (const float*)fa,
-      (const float*)fr, (const int*)cluster_of, (const float*)k1x,
-      (const __nv_bfloat16*)g1, (const int*)c_blk, (const int*)tiles,
-      (const int*)tcount, (float*)out_val, (int*)out_idx, (int*)offered,
-      n_tiles, d, c_pad, list_len, tb);
-  return (int)cudaGetLastError();
+  if (q_scale == nullptr)
+    return launch<DENSE_BF16X3>(plane, q_image, q_scale, fa, fr, cluster_of, k1x, g1, c_blk,
+                                tiles, tcount, out_val, out_idx, offered, n_tiles, d, bp, c_pad,
+                                list_len, tb, stream);
+  if (d % Geo<DENSE_S8>::CODE_BYTES) return (int)cudaErrorInvalidValue;
+  return launch<DENSE_S8>(plane, q_image, q_scale, fa, fr, cluster_of, k1x, g1, c_blk, tiles,
+                          tcount, out_val, out_idx, offered, n_tiles, d, bp, c_pad, list_len, tb,
+                          stream);
 }

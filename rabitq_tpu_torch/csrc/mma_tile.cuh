@@ -1,10 +1,10 @@
 // Tensor-core tile of the scans: <codes, q> for a block of RU = 128 stored
 // rows x QB = 32 queries, on Hopper's warpgroup matrix multiply
 // (wgmma.mma_async, sm_90a), shared by fused_bin_scan.cu (the int8 TOTAL plane
-// against an f32 query), packed_bin_scan.cu (1-bit planes against a bf16 or an
-// int8 query) and packed_lb_scan.cu (1-bit planes against a bf16 query, no
-// bins). It takes the place of the TPU kernels' MXU dots in
-// rabitq_tpu/ops/pallas_fused_scan.py (_tile_update) and
+// against an f32 query, or against an int8 one: S8Walk), packed_bin_scan.cu
+// (1-bit planes against a bf16 or an int8 query) and packed_lb_scan.cu (1-bit
+// planes against a bf16 query, no bins). It takes the place of the TPU
+// kernels' MXU dots in rabitq_tpu/ops/pallas_fused_scan.py (_tile_update) and
 // rabitq_tpu/ops/pallas_scan.py (_lb_kernel).
 //
 // Bound on the H100: operations at the tensor rate; the CUDA-core register
@@ -54,6 +54,8 @@
 //                 k*Db + 32c + 16jg .. (bit-plane order).
 //   BITS_S8       32 packed bytes a row; 2 B tiles; k-step i = 4*jg + kp is
 //                 bits 2kp and 2kp + 1 of the same 16 bytes (32 s8 values).
+//   DENSE_S8      128 code bytes a row; 1 B tile (S8Walk below); k-step s =
+//                 columns 128c + 32s .. + 32, in order.
 
 #pragma once
 
@@ -81,7 +83,7 @@ constexpr int STAGES = 4;  // ring depth
 constexpr int AHEAD = STAGES - 2;
 constexpr int B_TILE_BYTES = QB * 128;
 
-enum Mode { DENSE_BF16X3 = 0, BITS_BF16 = 1, BITS_S8 = 2 };
+enum Mode { DENSE_BF16X3 = 0, BITS_BF16 = 1, BITS_S8 = 2, DENSE_S8 = 3 };
 
 template <int MODE>
 struct Geo {
@@ -97,12 +99,29 @@ struct Geo {
   static_assert(2 * SMEM_BYTES <= 227 * 1024, "two blocks share an SM's shared memory");
 };
 
+// DENSE_S8 (S8Walk below): a stage's RU code rows unpadded, in the 128-byte
+// swizzle that wgmma reads by descriptor, and its one B tile
+template <>
+struct Geo<DENSE_S8> {
+  static constexpr int CODE_BYTES = 128;  // a row, a stage: one swizzled row
+  static constexpr int CODE_TILE = RU * CODE_BYTES;
+  static constexpr int Q_BYTES = B_TILE_BYTES;
+  static constexpr int STAGE_BYTES = CODE_TILE + Q_BYTES;
+  static constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024;  // + alignment slack
+  static_assert(STAGE_BYTES % 1024 == 0, "tiles stay 1024-byte aligned");
+  static_assert(2 * SMEM_BYTES <= 227 * 1024, "two blocks share an SM's shared memory");
+};
+
 template <int MODE>
 struct Acc {
   using type = float;
 };
 template <>
 struct Acc<BITS_S8> {
+  using type = int;
+};
+template <>
+struct Acc<DENSE_S8> {
   using type = int;
 };
 
@@ -179,6 +198,23 @@ __device__ __forceinline__ void wgmma_m64n32k32(int (&d)[16], const uint32_t (&a
         "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
         "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d[16] += A (64 x 32 s8, shared memory) * B (32 x 32 s8, shared memory), s32
+__device__ __forceinline__ void wgmma_m64n32k32_ss(int (&d)[16], uint64_t desc_a,
+                                                   uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
 // Two int8 values (bytes LO and LO + 1 of w ^ 0x80808080) as one bf16x2
@@ -551,6 +587,131 @@ class Walk {
   int row_bytes_, n_chunks_, steps_, group_, n_tiles_, r0_;
   int frag_word_;
   int s_, slot_;          // consumer: walk step, ring slot
+  int p_s_, p_c_, p_slot_;  // producer: walk step, stage of its tile, ring slot
+};
+
+// ---------------------------------------------------------------- DENSE_S8
+
+// The walk of Walk<MODE> for an int8 query against the int8 plane (a query
+// that is an integer grid times a per-query scale): neither operand needs a
+// conversion, so both reach the tensor cores from shared memory through
+// descriptors and no thread touches a code byte. A stage is 128 columns: the
+// block's RU code rows as one [128 rows][128 bytes] K-major tile in the
+// 128-byte swizzle (the copy writes 16-byte unit u of row r at unit
+// u ^ (r % 8), the layout b_descriptor names), against the [32 queries][128
+// bytes] B tile of the same columns, which each stage carries as in
+// Walk<MODE>; four m64n32k32 k-steps a stage, s32 accumulators over the
+// whole row, exact.
+class S8Walk {
+  using G = Geo<DENSE_S8>;
+
+ public:
+  __device__ __forceinline__ S8Walk(const uint8_t* codes, int row_bytes, const uint8_t* q_image,
+                                    const int* list, int steps, int group, int n_tiles, int r0,
+                                    unsigned char* smem_raw)
+      : codes_(codes), q_image_(q_image), list_(list), row_bytes_(row_bytes),
+        n_chunks_(row_bytes / G::CODE_BYTES), steps_(steps), group_(group),
+        n_tiles_(n_tiles), r0_(r0) {
+    const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
+    saddr_ = raw + ((1024u - (raw & 1023u)) & 1023u);
+    s_ = first_valid(0);
+    p_s_ = s_;
+    p_c_ = 0;
+    p_slot_ = 0;
+    slot_ = 0;
+#pragma unroll
+    for (int i = 0; i < AHEAD; ++i) load_next();
+  }
+
+  __device__ __forceinline__ bool valid() const { return s_ < steps_; }
+  __device__ __forceinline__ int tile() const { return tile_at(s_); }
+  __device__ __forceinline__ void next() { s_ = first_valid(s_ + 1); }
+
+  // acc[mt][4j + 2h + e] as Walk<MODE>::dot, the exact integer dot
+  __device__ __forceinline__ void dot(int (&acc)[2][16]) {
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) acc[mt][i] = 0;
+    }
+    for (int c = 0; c < n_chunks_; ++c) {
+      cp_async_wait<AHEAD - 1>();
+      // the slot load_next refills was read by the wgmma group of two stages ago
+      wgmma_wait<1>();
+      fence_proxy_async();
+      __syncthreads();
+      load_next();
+      const uint32_t stage = saddr_ + slot_ * G::STAGE_BYTES;
+      const uint64_t desc_a = b_descriptor(stage);
+      const uint64_t desc_b = b_descriptor(stage + G::CODE_TILE);
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+          wgmma_m64n32k32_ss(acc[mt], desc_a + mt * ((64 * G::CODE_BYTES) >> 4) + s * 2,
+                             desc_b + s * 2);
+      }
+      wgmma_commit();
+      slot_ = (slot_ + 1) % STAGES;
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) pin(acc[mt][i]);
+    }
+  }
+
+ private:
+  __device__ __forceinline__ int tile_at(int s) const {
+    if (list_ == nullptr) return group_ + s * GROUPS;
+    const int t = list_[s];  // uniform across the block
+    return (t < 0 || t >= n_tiles_ || t % GROUPS != group_) ? -1 : t;
+  }
+  __device__ __forceinline__ int first_valid(int s) const {
+    while (s < steps_ && tile_at(s) < 0) ++s;
+    return s;
+  }
+
+  // as Walk<MODE>::load_next: the next (tile, stage) into the next ring slot,
+  // and always a committed group
+  __device__ __forceinline__ void load_next() {
+    if (p_s_ < steps_) {
+      const int tid = threadIdx.x;
+      const uint32_t dst = saddr_ + p_slot_ * G::STAGE_BYTES;
+      const uint8_t* gq = q_image_ + (int64_t)p_c_ * B_TILE_BYTES;
+#pragma unroll
+      for (int l = 0; l < B_TILE_BYTES / 16 / THREADS; ++l) {
+        const int id = tid + l * THREADS;
+        cp_async16(dst + G::CODE_TILE + id * 16, gq + id * 16);
+      }
+      constexpr int UNITS = G::CODE_BYTES / 16;  // 8: one swizzle row
+      const uint8_t* gc = codes_ + ((int64_t)tile_at(p_s_) * TN + r0_) * row_bytes_ +
+                          (int64_t)p_c_ * G::CODE_BYTES;
+#pragma unroll
+      for (int l = 0; l < RU * UNITS / THREADS; ++l) {
+        const int id = tid + l * THREADS;
+        const int row = id / UNITS;
+        const int u = id % UNITS;
+        cp_async16(dst + row * G::CODE_BYTES + ((u ^ (row & 7)) << 4),
+                   gc + (int64_t)row * row_bytes_ + u * 16);
+      }
+      if (++p_c_ == n_chunks_) {
+        p_c_ = 0;
+        p_s_ = first_valid(p_s_ + 1);
+      }
+    }
+    cp_async_commit();
+    p_slot_ = (p_slot_ + 1) % STAGES;
+  }
+
+  const uint8_t* codes_;
+  const uint8_t* q_image_;
+  const int* list_;
+  uint32_t saddr_;
+  int row_bytes_, n_chunks_, steps_, group_, n_tiles_, r0_;
+  int s_, slot_;            // consumer: walk step, ring slot
   int p_s_, p_c_, p_slot_;  // producer: walk step, stage of its tile, ring slot
 };
 

@@ -743,8 +743,10 @@ class IvfRabitqIndex:
         resident upload block and the scan covers the window at ``offset``.
         The gather scan serves the block where ``_gather_budget`` allows
         it. The span ``search.dispatch`` covers it, down to the graph's
-        input copies and output clones."""
-        with span("search.dispatch"):
+        input copies and output clones, and counts ``k1_int8`` (1 where the
+        bin scan takes the query as int8 codes: never, since the rotation
+        makes it f32)."""
+        with span("search.dispatch", k1_int8=0):
             return self._dispatch(q, qscale, params, row_allowed, offset, sub_block, **scan_kw)
 
     def _dispatch(self, q, qscale, params, row_allowed, offset, sub_block, **scan_kw):

@@ -84,6 +84,7 @@ from ..scan import (
     _pad_pow2,
     ex_plane_is_total,
     gather_budget_bucket,
+    integer_grid,
     is_fused,
     make_fused_search,
     probe_k_bucket,
@@ -606,7 +607,9 @@ class MstgIndex:
         top_k after the scan; without, the scan extracts top_k. The span
         ``search.dispatch`` covers it, with the tiles the bin scan walks
         (``tiles`` of the plane's ``plane_tiles``; ``dense`` where it walks
-        them all, 0 for both on the gather scan), ``rerank`` and ``dedup``."""
+        them all, 0 for both on the gather scan), ``rerank``, ``dedup`` and
+        ``k1_int8`` (1 where the bin scan takes the query as int8 codes: an
+        un-rotated ``scan.integer_grid`` on the EXACT bin scan)."""
         with span("search.dispatch") as sp:
             gather_rows = self._gather_budget(params.ef_search)
             cl_starts = cl_sizes = max_tiles = None
@@ -623,14 +626,17 @@ class MstgIndex:
                 params.resolved_rerank(),
                 int(np.ceil(params.top_k * self.replication_factor())) + 16,
             )
+            fused_exact = self._fused_exact_ok()
+            k1_int8 = (gather_rows is None and fused_exact and self.rotator is None
+                       and integer_grid(q, qscale))
             sp.add(tiles=tiles, plane_tiles=plane_tiles,
                    dense=int(gather_rows is None and max_tiles is None), rerank=rerank,
-                   dedup=int(dedup))
+                   dedup=int(dedup), k1_int8=int(k1_int8))
             ids, dists = self._scan(
                 q, qscale, params, offset=offset, sub_block=sub_block, cl_starts=cl_starts,
                 cl_sizes=cl_sizes, gather_rows=gather_rows,
                 top_k=rerank if dedup else params.top_k, rerank=rerank, max_tiles=max_tiles,
-                fused_exact=self._fused_exact_ok(),
+                fused_exact=fused_exact,
                 # dedup path: keep the kernel's best-first candidate order
                 # through the dedup, which sorts the rows it keeps
                 fused_exact_sort=not dedup,

@@ -158,15 +158,21 @@ def decode_queries(q: torch.Tensor, qscale: torch.Tensor | None, dim: int) -> to
     """Upload encoding -> f32 raw queries: f32, bf16, symmetric int8 with a
     per-query scale, or int4 nibble pairs (uint8, lo = even dim) with a
     per-query scale, sign-extended here."""
-    if q.dtype == torch.uint8:
-        b8 = q.view(torch.int8)
-        lo = torch.bitwise_right_shift(torch.bitwise_left_shift(b8, 4), 4)
-        hi = torch.bitwise_right_shift(b8, 4)
-        q = torch.stack([lo, hi], dim=-1).reshape(q.shape[0], -1)[:, :dim]
-    q = q.to(torch.float32)
+    q = _query_codes(q, dim).to(torch.float32)
     if qscale is not None:
         q = q * qscale[:, None]
     return q
+
+
+def _query_codes(q: torch.Tensor, dim: int) -> torch.Tensor:
+    """An upload block as it is, int4 nibble pairs unpacked to int8 codes of
+    ``dim`` columns."""
+    if q.dtype != torch.uint8:
+        return q
+    b8 = q.view(torch.int8)
+    lo = torch.bitwise_right_shift(torch.bitwise_left_shift(b8, 4), 4)
+    hi = torch.bitwise_right_shift(b8, 4)
+    return torch.stack([lo, hi], dim=-1).reshape(q.shape[0], -1)[:, :dim]
 
 
 # on the card, what a block of raw query rows takes to the link: a block of at
@@ -367,6 +373,7 @@ def scan_kernel(
     fused_exact: bool = False,
     fused_exact_sort: bool = True,
     locality_depth: int = 1,
+    q_int8: tuple[torch.Tensor, torch.Tensor] | None = None,  # (codes [B, D] int8, scale [B])
 ):
     """Returns (result_ids [B, top_k] int32, -1 padded; result_dist
     [B, top_k] f32 internal distances, +inf padded). For InnerProduct the
@@ -384,7 +391,13 @@ def scan_kernel(
     ``ops/select.top_k``, ``lax.top_k``'s contract: ties to the lower index.
 
     With ``gather_rows`` (a static per-query row budget, cluster-sorted rows
-    and the TOTAL refine plane) the gather scan serves the block instead."""
+    and the TOTAL refine plane) the gather scan serves the block instead.
+
+    ``q_int8``, where given, is ``q_rot`` as an integer grid: ``q_rot ==
+    codes * scale[:, None]`` (an un-rotated int8 or int4 upload,
+    :func:`_fused_body`). The fused EXACT scan's bin kernel then takes it in
+    place of the f32 query (K1 on the int8 tensor cores); everything else
+    reads ``q_rot``."""
     b = q_rot.shape[0]
     n_rows = ids.shape[0]
     n_clusters = centroids.shape[0]
@@ -437,6 +450,7 @@ def scan_kernel(
             fa_eff = torch.where(row_allowed, f_add, BIG)
             fr_in, k1x_full = f_rescale, qc.k1x_sum_q
         q_in, k1x_in, g_add_in, g_err_in, probe_in = q_rot, k1x_full, g_add, g_error, probe_mask
+        grid = q_int8 if fused_exact else None
         inv = None
         if max_tiles is not None:
             # locality sort: queries sharing a best centroid (and, at depth 2,
@@ -449,15 +463,20 @@ def scan_kernel(
             inv = torch.argsort(order, stable=True)
             q_in, k1x_in = q_rot[order], k1x_full[order]
             g_add_in, g_err_in, probe_in = g_add[order], g_error[order], probe_mask[order]
+            if grid is not None:
+                grid = (grid[0][order], grid[1][order])
         if fused_exact and plane.shape[1] != q_in.shape[1]:
             q_in = torch.nn.functional.pad(q_in, (0, plane.shape[1] - q_in.shape[1]))
+            if grid is not None:
+                grid = (torch.nn.functional.pad(grid[0], (0, plane.shape[1] - grid[0].shape[1])),
+                        grid[1])
         packed_kw = {} if fused_exact else dict(
             f_error=f_error, g_err=g_err_in, int8_stage1=scan_dtype == "fused8"
         )
         cand_idx, cand_ok, cand_val, probed = fused_select(
             q_in, plane, fa_eff, fr_in, cluster_of, k1x_in, g_add_in, probe_in,
             fused_cblk, top_k if fused_exact else rerank, max_tiles=max_tiles,
-            direct_plane=fused_exact, **packed_kw,
+            direct_plane=fused_exact, q_int8=grid, **packed_kw,
         )
         if inv is not None:
             cand_idx, cand_ok, cand_val, probed = (
@@ -709,18 +728,33 @@ def _fused_body(rotate_fn, dim, q, *args, qscale=None, offset=None, sub_block=No
     ``sub_block`` rows at ``offset`` where given, int4 nibble pairs decoded
     to ``dim`` columns, f32 with the per-query scale applied, ``rotate_fn``
     (None: the queries are already in the index's space), then
-    :func:`scan_kernel` with the remaining arguments. What a CPU tensor
-    runs, what a CUDA graph records, and the eager witness the graphs are
-    held against on the card."""
+    :func:`scan_kernel` with the remaining arguments. An int8 or int4 upload
+    that is not rotated reaches the scan as an integer grid too (``q_int8``:
+    the codes and their scales). What a CPU tensor runs, what a CUDA graph
+    records, and the eager witness the graphs are held against on the
+    card."""
     if sub_block is not None:
         q = q[offset : offset + sub_block]
         if qscale is not None:
             qscale = qscale[offset : offset + sub_block]
     if q.dtype == torch.uint8 and dim is None:
         raise ValueError("int4 uploads need make_fused_search(dim=)")
-    q = decode_queries(q, qscale, dim)
-    q_rot = rotate_fn(q) if rotate_fn is not None else q
-    return scan_kernel(q_rot, *args, **kwargs)
+    codes = _query_codes(q, dim)
+    q = decode_queries(codes, qscale, dim)
+    if rotate_fn is not None:
+        return scan_kernel(rotate_fn(q), *args, **kwargs)
+    if integer_grid(codes, qscale):
+        kwargs = {**kwargs, "q_int8": (codes, qscale)}
+    return scan_kernel(q, *args, **kwargs)
+
+
+def integer_grid(q: torch.Tensor, qscale: torch.Tensor | None) -> bool:
+    """Whether an upload block ``q`` is an integer grid: int8 codes, or
+    int4 nibble pairs, with per-query scales. Where no rotation turns it to
+    f32, the fused EXACT scan's bin kernel (K1) takes the codes and scales
+    in place of the f32 query (:func:`_fused_body`); MSTG's
+    ``search.dispatch`` span counts that as ``k1_int8``."""
+    return qscale is not None and q.dtype in (torch.int8, torch.uint8)
 
 
 def _launch_counters():
@@ -732,7 +766,8 @@ def _launch_counters():
         (vars(packed_lb_scan_cuda), "launches"),
         (vars(packed_lb_plane_cuda), "launches"),
     ]
-    return slots + [(d, k) for d in (fused_bin_scan_packed_cuda.launches, top_k_cuda.launches)
+    return slots + [(d, k) for d in (fused_bin_scan_cuda.launches,
+                                     fused_bin_scan_packed_cuda.launches, top_k_cuda.launches)
                     for k in d]
 
 

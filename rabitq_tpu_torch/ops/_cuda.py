@@ -38,7 +38,7 @@ _ULP = ctypes.POINTER(ctypes.c_ulonglong)
 # entry point -> (source, C symbol, argtypes in order)
 _SIGNATURES = {
     "fht": ("fht", "rabitq_fht", (_P, _P, _L, _I, _P)),
-    "fused_bin_scan": ("fused_bin_scan", "rabitq_bin_scan", (_P,) * 13 + (_I,) * 6 + (_P,)),
+    "fused_bin_scan": ("fused_bin_scan", "rabitq_bin_scan", (_P,) * 14 + (_I,) * 6 + (_P,)),
     "packed_bin_scan": (
         "packed_bin_scan", "rabitq_packed_bin_scan", (_P,) * 16 + (_I,) * 7 + (_P,),
     ),

@@ -15,7 +15,9 @@ the g term applies only inside it, as the TPU kernel's one-hot window does.
 Two modes, told apart by the shapes as in the reference:
 
 * direct (EXACT): ``plane`` is the dense int8 TOTAL plane, ``q`` f32 of the
-  same width, ``g = g1[b, cluster_of[n]]``, and ``lb`` is the final distance;
+  same width, or int8 with a per-query ``q_scale`` (a query that is an
+  integer grid: the exact integer dot, rounded to f32 once, times the
+  scale), ``g = g1[b, cluster_of[n]]``, and ``lb`` is the final distance;
 * packed (stage 1 of the two-stage scan): ``plane`` holds 1-bit planes
   ``[Np, Db]`` uint8, ``q`` is ``8 * Db`` wide in bit-plane order
   (``packed_scan.permute_query``), bf16 or int8 with a per-query
@@ -37,8 +39,8 @@ sets the list length, and a 32-query block is also the kernel's block.
 The kernels run their dot on the tensor cores (``csrc/mma_tile.cuh``) and
 take the query as an image laid out for them: :func:`split_bf16x3` makes an
 f32 query three bf16 planes whose products with int8 codes are exact, and
-:func:`query_image` writes the planes as the swizzled tiles the kernels copy
-straight into shared memory.
+:func:`query_image` writes the planes (or an int8 query's bytes) as the
+swizzled tiles the kernels copy straight into shared memory.
 """
 
 from __future__ import annotations
@@ -211,23 +213,23 @@ def _check_bin_scan_args(
         raise ValueError("tiles and tcount go together")
     if tiles is not None and (bq % tiles.shape[0] or tcount.shape != (tiles.shape[0],)):
         raise ValueError("tiles must hold one list per equal query block")
+    if (q.dtype == torch.int8) != (q_scale is not None):
+        raise ValueError("q_scale goes with an int8 query, and only with one")
+    if q_scale is not None and q_scale.shape != (bq,):
+        raise ValueError("q_scale must be [Bp]")
     if packed:
         if d % 128 or f_error is None or g2 is None:
             raise ValueError("packed mode needs Db % 128 == 0, f_error and g2")
         if f_error.shape != (n,) or g2.shape != g1.shape:
             raise ValueError("f_error must be [Np] and g2 shaped as g1")
-        if (q.dtype == torch.int8) != (q_scale is not None):
-            raise ValueError("q_scale goes with an int8 query, and only with one")
-        if q_scale is not None and q_scale.shape != (bq,):
-            raise ValueError("q_scale must be [Bp]")
-    elif f_error is not None or g2 is not None or q_scale is not None:
-        raise ValueError("f_error, g2 and q_scale belong to packed mode")
+    elif f_error is not None or g2 is not None:
+        raise ValueError("f_error and g2 belong to packed mode")
     return packed
 
 
 def fused_bin_scan(
     plane: torch.Tensor,  # [Np, D] int8 TOTAL plane, or [Np, Db] uint8 bit planes
-    q: torch.Tensor,  # [Bp, D] f32, or [Bp, 8*Db] bf16 / int8 in bit-plane order
+    q: torch.Tensor,  # [Bp, D] f32 / int8, or [Bp, 8*Db] bf16 / int8 in bit-plane order
     fa_eff: torch.Tensor,  # [Np] f32 f_add (f_add_ex in direct mode), BIG on masked rows
     f_rescale: torch.Tensor,  # [Np] f32
     cluster_of: torch.Tensor,  # [Np] int32
@@ -253,7 +255,7 @@ def fused_bin_scan(
     if plane.is_cuda:
         if packed:
             return fused_bin_scan_packed_cuda(*args, f_error=f_error, g2=g2, q_scale=q_scale)
-        return fused_bin_scan_cuda(*args)
+        return fused_bin_scan_cuda(*args, q_scale=q_scale)
     if plane.device.type != "cpu":
         raise ValueError(f"no bin scan for device {plane.device}")
     return fused_bin_scan_plain(*args, f_error=f_error, g2=g2, q_scale=q_scale)
@@ -268,7 +270,10 @@ def fused_bin_scan_plain(
     block), the same f32 epilogue order, and strict-< updates, so the first
     row wins a tie. In packed mode (``q`` 8 x the plane's width) the bits
     are unpacked in bit-plane order, an int8 dot is exact and scaled by
-    ``q_scale``, and ``f_error`` is rounded to bf16 before its product."""
+    ``q_scale``, and ``f_error`` is rounded to bf16 before its product. In
+    direct mode an int8 query's dot is the exact integer dot (in float64,
+    exact below 2**53: at most 128 * 127 * 2560 here), rounded to f32 and
+    times ``q_scale``, as the kernel computes it."""
     n, d = plane.shape
     bq = q.shape[0]
     dev = q.device
@@ -294,13 +299,15 @@ def fused_bin_scan_plain(
     val = torch.full((nb, tb, GROUPS, TN), BIG, dtype=torch.float32, device=dev)
     idx = torch.full((nb, tb, GROUPS, TN), -1, dtype=torch.int32, device=dev)
     offered = torch.zeros((nb, tb, 128), dtype=torch.int32, device=dev)
-    qv = q.to(torch.float32).reshape(nb, tb, q.shape[1])
+    int_direct = not packed and q_scale is not None
+    dot_dtype = torch.float64 if int_direct else torch.float32
+    qv = q.to(dot_dtype).reshape(nb, tb, q.shape[1])
     kx = k1x.reshape(nb, tb, 1, 1)
     g1f = g1.to(torch.float32).reshape(nb, tb, c_pad)
+    qs = None if q_scale is None else q_scale.reshape(nb, tb, 1, 1)
     if packed:
         g2f = g2.to(torch.float32).reshape(nb, tb, c_pad)
         neg_fe = (-f_error).to(torch.bfloat16).to(torch.float32)
-        qs = None if q_scale is None else q_scale.reshape(nb, tb, 1, 1)
     lane = torch.arange(TN, device=dev)
     for t, act in zip(steps, actives):
         m = t.shape[1]
@@ -309,10 +316,12 @@ def fused_bin_scan_plain(
         codes = plane[rows.reshape(-1)]
         if packed:
             codes = unpack_bitplanes(codes)
-        codes = codes.reshape(nb, m * TN, -1).to(torch.float32)
+        codes = codes.reshape(nb, m * TN, -1).to(dot_dtype)
         acc = torch.bmm(qv, codes.transpose(1, 2)).reshape(nb, tb, m, TN)
-        if packed and qs is not None:
-            acc = acc * qs  # the int8 dot is exact in f32
+        if qs is not None:
+            # the int8 dot is exact (packed: in f32; direct: in float64, then
+            # rounded to f32 once)
+            acc = acc.to(torch.float32) * qs
         fa = fa_eff[rows][:, None]  # [nb, 1, m, TN]
         fr = f_rescale[rows][:, None]
         cl = cluster_of[rows].to(torch.int64)
@@ -357,7 +366,8 @@ def split_bf16x3(q: torch.Tensor) -> torch.Tensor:
 # Stage geometry of csrc/mma_tile.cuh by mode: (code bytes of a row per
 # stage, B tiles per stage, query planes, bytes per query element). A B tile
 # is [32 queries][128 bytes] with the 128-byte swizzle and holds 4 k-steps.
-_IMAGE_MODES = {"direct": (64, 3, 3, 2), "bits_bf16": (32, 4, 1, 2), "bits_s8": (32, 2, 1, 1)}
+_IMAGE_MODES = {"direct": (64, 3, 3, 2), "bits_bf16": (32, 4, 1, 2), "bits_s8": (32, 2, 1, 1),
+                "dense_s8": (128, 1, 1, 1)}
 
 
 @functools.lru_cache(maxsize=32)
@@ -374,7 +384,9 @@ def query_image_index(mode: str, width: int) -> np.ndarray:
     gives slots 2t, 2t+1 from bytes 0, 1 and 2t+8, 2t+9 from bytes 2, 3) and
     byte ``4 * ((kap % 8) // 2) + 2 * (kap % 2) + kap // 8`` in bits_bf16
     (bytes 0, 2 and 1, 3); a 32-wide s8 k-step is bit 2kp of 16 bytes in
-    order, then bit 2kp + 1 of the same bytes."""
+    order, then bit 2kp + 1 of the same bytes. In dense_s8 (an int8 query
+    against the int8 plane, both operands read by descriptor) the columns
+    stay in order: stage c's tile holds columns ``128 * c ..``."""
     code_bytes, tiles, planes, elem = _IMAGE_MODES[mode]
     if width % code_bytes:
         raise ValueError(f"{mode}: width {width} is not a multiple of {code_bytes}")
@@ -387,6 +399,8 @@ def query_image_index(mode: str, width: int) -> np.ndarray:
     if mode == "direct":
         col = code_bytes * c + 16 * s + 4 * ((kap % 8) // 2) + kap % 2 + 2 * (kap // 8)
         return ((tl * 32 + n) * width + col).reshape(-1)
+    if mode == "dense_s8":
+        return (n * width + code_bytes * c + kk).reshape(-1)
     i = 4 * tl + s  # k-step of the stage
     if mode == "bits_bf16":
         jg, k = i // 8, i % 8
@@ -404,7 +418,8 @@ _image_index_on: dict = {}  # (mode, width, device) -> index tensor
 def query_image(q: torch.Tensor, mode: str, width: int) -> torch.Tensor:
     """The kernels' query image of ``q``: ``[Bp // 32, stages * tiles * 4096]``
     bytes' worth of ``q.dtype``. ``q`` is ``[3, Bp, D]`` bf16 planes in
-    direct mode, else ``[Bp, 8 * Db]`` bf16 or int8 in bit-plane order."""
+    direct mode, ``[Bp, D]`` int8 in dense_s8, else ``[Bp, 8 * Db]`` bf16 or
+    int8 in bit-plane order."""
     planes = _IMAGE_MODES[mode][2]
     k = q.shape[-1]
     q = q.reshape(planes, -1, 32, k)
@@ -430,32 +445,44 @@ def _check_cuda_batch(bq: int, tiles) -> int:
 
 
 def fused_bin_scan_cuda(
-    plane, q, fa_eff, f_rescale, cluster_of, k1x, g1, c_blk, tiles=None, tcount=None
+    plane, q, fa_eff, f_rescale, cluster_of, k1x, g1, c_blk, tiles=None, tcount=None,
+    *, q_scale=None,
 ):
-    """The CUDA kernel, fed the query as three bf16 planes
-    (:func:`split_bf16x3`, :func:`query_image`). Counts its launches in
-    ``fused_bin_scan_cuda.dense_launches`` (no tile lists) and
-    ``fused_bin_scan_cuda.compact_launches`` (tile lists)."""
+    """The CUDA kernel. An f32 query goes in as three bf16 planes
+    (:func:`split_bf16x3`, :func:`query_image` "direct"); an int8 query with
+    its ``q_scale`` as its bytes (mode DENSE_S8, image "dense_s8"). Counts its
+    launches in ``fused_bin_scan_cuda.dense_launches`` (no tile lists) and
+    ``fused_bin_scan_cuda.compact_launches`` (tile lists), and those with an
+    int8 query also in ``fused_bin_scan_cuda.launches`` under ``s8_dense``
+    and ``s8_compact``."""
     n, d = plane.shape
     bq = q.shape[0]
+    int8_q = q_scale is not None
     want = (
-        (plane, torch.int8), (q, torch.float32), (fa_eff, torch.float32),
-        (f_rescale, torch.float32), (cluster_of, torch.int32), (k1x, torch.float32),
-        (g1, torch.bfloat16), (c_blk, torch.int32),
+        (plane, torch.int8), (q, torch.int8 if int8_q else torch.float32),
+        (fa_eff, torch.float32), (f_rescale, torch.float32), (cluster_of, torch.int32),
+        (k1x, torch.float32), (g1, torch.bfloat16), (c_blk, torch.int32),
     )
+    if int8_q:
+        want += ((q_scale, torch.float32),)
     if tiles is not None:
         want += ((tiles, torch.int32), (tcount, torch.int32))
     _cuda.check_inputs(want, plane.device, "bin scan")
-    if d % 64 or plane.data_ptr() % 16 or q.data_ptr() % 16:
-        raise ValueError("bin scan needs D % 64 == 0 and 16-byte aligned planes")
+    if d % (128 if int8_q else 64) or plane.data_ptr() % 16 or q.data_ptr() % 16:
+        raise ValueError("bin scan needs D % 64 == 0 (an int8 query: D % 128 == 0) and "
+                         "16-byte aligned planes")
     tb = _check_cuda_batch(bq, tiles)
     val = torch.empty((bq, n_bins()), dtype=torch.float32, device=q.device)
     idx = torch.empty((bq, n_bins()), dtype=torch.int32, device=q.device)
     offered = torch.zeros((bq, 128), dtype=torch.int32, device=q.device)
-    q_img = query_image(split_bf16x3(q), "direct", d)
+    if int8_q:
+        q_img = query_image(q, "dense_s8", d)
+    else:
+        q_img = query_image(split_bf16x3(q), "direct", d)
     fn = _cuda.entry("fused_bin_scan")
     err = fn(
-        plane.data_ptr(), q_img.data_ptr(), fa_eff.data_ptr(), f_rescale.data_ptr(),
+        plane.data_ptr(), q_img.data_ptr(), q_scale.data_ptr() if int8_q else None,
+        fa_eff.data_ptr(), f_rescale.data_ptr(),
         cluster_of.data_ptr(), k1x.data_ptr(), g1.data_ptr(), c_blk.data_ptr(),
         tiles.data_ptr() if tiles is not None else None,
         tcount.data_ptr() if tiles is not None else None,
@@ -469,11 +496,14 @@ def fused_bin_scan_cuda(
         fused_bin_scan_cuda.dense_launches += 1
     else:
         fused_bin_scan_cuda.compact_launches += 1
+    if int8_q:
+        fused_bin_scan_cuda.launches["s8_dense" if tiles is None else "s8_compact"] += 1
     return val, idx, offered
 
 
 fused_bin_scan_cuda.dense_launches = 0
 fused_bin_scan_cuda.compact_launches = 0
+fused_bin_scan_cuda.launches = {"s8_dense": 0, "s8_compact": 0}
 
 
 def fused_bin_scan_packed_cuda(
@@ -591,21 +621,29 @@ def fused_select(
     int8_stage1: bool = False,
     direct_plane: bool = True,
     with_values: bool = True,
+    q_int8: tuple[torch.Tensor, torch.Tensor] | None = None,  # (codes [B, D] int8, scale [B])
 ):
     """Bin scan + selection of the ``rerank`` best bins per query. Returns
     (cand_idx [B, R] int32 rows, cand_ok [B, R] bool, cand_val [B, R] f32
     bin minima best-first, probed [B] int32 offered-row counts); without
     ``with_values`` the values are left out, as in the reference.
 
-    ``direct_plane`` (the port's default) is the EXACT mode. Otherwise
-    ``plane`` holds packed bit planes, the query is permuted to bit-plane
-    order in bf16, and ``int8_stage1`` quantizes it symmetrically per row
-    for the int8 dot."""
+    ``direct_plane`` (the port's default) is the EXACT mode; there
+    ``q_int8``, where given, is ``q_rot`` as an integer grid (``q_rot ==
+    codes * scale[:, None]``, an un-rotated int8 or int4 upload), and the
+    bin scan takes it in place of the f32 query (its exact integer dot,
+    rounded to f32 once). Otherwise ``plane`` holds packed bit planes, the
+    query is permuted to bit-plane order in bf16, and ``int8_stage1``
+    quantizes it symmetrically per row for the int8 dot."""
     b = q_rot.shape[0]
     tb = min(TB, ((b + 31) // 32) * 32)
     b_pad = ((b + tb - 1) // tb) * tb
     if b_pad != b:
         q_rot = torch.nn.functional.pad(q_rot, (0, 0, 0, b_pad - b))
+        if q_int8 is not None:
+            codes, scale = q_int8
+            q_int8 = (torch.nn.functional.pad(codes, (0, 0, 0, b_pad - b)),
+                      torch.nn.functional.pad(scale, (0, b_pad - b)))
         k1x = torch.nn.functional.pad(k1x, (0, b_pad - b))
         g_add = torch.nn.functional.pad(g_add, (0, 0, 0, b_pad - b))
         probe_mask = torch.nn.functional.pad(probe_mask, (0, 0, 0, b_pad - b))
@@ -617,7 +655,10 @@ def fused_select(
     if c_pad != c:
         g1 = torch.nn.functional.pad(g1, (0, c_pad - c), value=BIG)
     extra = {}
-    if direct_plane:
+    if direct_plane and q_int8 is not None:
+        q_in = q_int8[0].contiguous()
+        extra["q_scale"] = q_int8[1].to(torch.float32).contiguous()
+    elif direct_plane:
         q_in = q_rot.to(torch.float32).contiguous()
     else:
         q_in = permute_query(q_rot, q_rot.shape[1]).contiguous()

@@ -5,7 +5,10 @@ package's Pallas ``fused_bin_scan`` in interpret mode and its
 
 Tolerances: ``offered`` equal; bin values rtol 1e-5 (the f32 dot sums in
 another order); ``bins_idx`` equal on >= 99.5% of bins (a reordered sum can
-flip a near-tie inside a bin).
+flip a near-tie inside a bin). The same holds for an int8 query with its
+per-query scale (an integer grid: the exact integer dot, rounded once)
+against the JAX package's f32 scan of ``codes * scale``, and against the
+port's own f32 mode; its integer dot is bitwise an int64 product's.
 
 Packed mode (stage 1 of the two-stage scan: bit planes, a bf16 or int8
 query in bit-plane order, the ``- f_error * g_error`` term): ``offered``
@@ -56,6 +59,14 @@ def _inputs(seed, bq=64, c=96, dup=True):
                 g_add=g_add, probe=probe, c_blk=c_blk)
 
 
+def _as_int8(q):
+    """(codes int8, scale f32) of an f32 ``[B, D]`` query, as the int8
+    upload makes them, and ``codes * scale`` in f32: the same query."""
+    scale = np.maximum(np.abs(q).max(axis=1), 1e-30).astype(np.float32) / np.float32(127.0)
+    codes = np.clip(np.rint(q / scale[:, None]), -127, 127).astype(np.int8)
+    return codes, scale, codes.astype(np.float32) * scale[:, None]
+
+
 def _g1(x):
     c = x["g_add"].shape[1]
     g1 = np.full((x["q"].shape[0], tfs._pad_clusters(c)), tfs.BIG, np.float32)
@@ -74,10 +85,15 @@ def _compare_bins(j_out, t_out):
     return jo.sum()
 
 
+@pytest.mark.parametrize("int8_q", [False, True])
 @pytest.mark.parametrize("case", CASES)
 @pytest.mark.parametrize("compact", [False, True])
-def test_bin_scan_matches_jax(compact, case):
+def test_bin_scan_matches_jax(compact, case, int8_q):
     x = _inputs(5, c=case[0], dup=case[1])
+    t_q, q_scale = torch.from_numpy(x["q"]), None
+    if int8_q:
+        codes, scale, x["q"] = _as_int8(x["q"])  # JAX scans codes * scale in f32
+        t_q, q_scale = torch.from_numpy(codes), torch.from_numpy(scale)
     g1 = _g1(x)
     bq = x["q"].shape[0]
     tiles = tcount = None
@@ -98,12 +114,12 @@ def test_bin_scan_matches_jax(compact, case):
         tcount=None if tcount is None else jnp.asarray(tcount),
     )
     t_out = tfs.fused_bin_scan(
-        torch.from_numpy(x["plane"]), torch.from_numpy(x["q"]), torch.from_numpy(x["fa_eff"]),
+        torch.from_numpy(x["plane"]), t_q, torch.from_numpy(x["fa_eff"]),
         torch.from_numpy(x["fr"]), torch.from_numpy(x["cluster_of"]),
         torch.from_numpy(x["k1x"]), torch.from_numpy(g1).to(torch.bfloat16),
         torch.from_numpy(x["c_blk"]),
         tiles=None if tiles is None else torch.from_numpy(tiles),
-        tcount=None if tcount is None else torch.from_numpy(tcount),
+        tcount=None if tcount is None else torch.from_numpy(tcount), q_scale=q_scale,
     )
     assert t_out[0].shape == (bq, tfs.n_bins())
     assert _compare_bins(j_out, t_out) > 0
@@ -135,6 +151,98 @@ def test_fused_select_matches_jax(max_tiles, case):
     np.testing.assert_array_equal(t_ok, j_ok)
     np.testing.assert_allclose(t_val[j_ok], j_val[j_ok], rtol=1e-5, atol=1e-4)
     assert np.mean(t_idx == j_idx) >= 0.995
+
+
+def _direct_args(x, q, g1, tiles=None, tcount=None):
+    return (torch.from_numpy(x["plane"]), q, torch.from_numpy(x["fa_eff"]),
+            torch.from_numpy(x["fr"]), torch.from_numpy(x["cluster_of"]),
+            torch.from_numpy(x["k1x"]), torch.from_numpy(g1).to(torch.bfloat16),
+            torch.from_numpy(x["c_blk"]), tiles, tcount)
+
+
+@pytest.mark.parametrize("width", [128, 1024, 2560])
+@pytest.mark.parametrize("compact", [False, True])
+def test_int8_direct_mode_is_the_f32_mode_on_codes_times_scale(compact, width):
+    """The plain version's int8 direct mode against its f32 mode on ``s * c``
+    (the same query to f32 rounding), over both walks and the widths the
+    EXACT scan serves: a plane of 960 live columns padded to 1024, and the
+    widest, 2560, whose dots pass 2**24."""
+    rng = np.random.default_rng(width)
+    n_tiles, bq = 18, 64
+    x = _inputs(11, bq=bq, c=300, dup=False)
+    n = n_tiles * tfs.TN
+    for key in ("fa_eff", "fr", "cluster_of"):
+        x[key] = x[key][:n]
+    x["plane"] = rng.integers(0, 128, (n, width)).astype(np.int8)
+    q = rng.normal(size=(bq, width)).astype(np.float32)
+    if width == 1024:
+        q[:, 960:] = 0.0
+        x["plane"][:, 960:] = 0
+    codes, scale, q32 = _as_int8(q)
+    x["k1x"] = (-63.5 * q32.sum(1)).astype(np.float32)
+    x["c_blk"] = tfs.tile_cluster_blocks(x["cluster_of"], x["fa_eff"] < tfs.BIG / 2)
+    g1 = _g1(x)
+    tiles = tcount = None
+    if compact:
+        tiles, tcount = tfs.compaction_lists(
+            torch.from_numpy(x["fa_eff"]), torch.from_numpy(x["cluster_of"]),
+            torch.from_numpy(x["probe"]), 32, n_tiles)
+    got = tfs.fused_bin_scan(*_direct_args(x, torch.from_numpy(codes), g1, tiles, tcount),
+                             q_scale=torch.from_numpy(scale))
+    want = tfs.fused_bin_scan_plain(*_direct_args(x, torch.from_numpy(q32), g1, tiles, tcount))
+    # the f32 mode rounds at every add of its width-long sum (dots ~1e3 to 4e3
+    # here, cancelled by k1x): atol as tests/test_torch_cuda.py's kernel-vs-
+    # plain comparison of two f32 sums at these widths
+    (wv, wi, wo), (gv, gi, go) = want, got
+    assert torch.equal(go, wo) and int(go.sum()) > 0
+    filled = wv < tfs.BIG / 2
+    assert torch.equal(gv < tfs.BIG / 2, filled)
+    atol = {128: 1e-4, 1024: 1e-3, 2560: 4e-3}[width]
+    torch.testing.assert_close(gv[filled], wv[filled], rtol=1e-5, atol=atol)
+    assert float((gi == wi).float().mean()) >= 0.995
+
+
+def test_int8_direct_dot_is_the_int64_dot():
+    """With fa = 0, fr = 1, k1x = 0 and g = 0 over 16 tiles, bin n holds row
+    n's dot: f32(the integer dot) * scale, bitwise, on a plane 2560 wide
+    whose extreme rows (127 against +-127) reach 4.1e7, past f32's 2**24."""
+    rng = np.random.default_rng(3)
+    n, d, bq = 16 * tfs.TN, 2560, 32
+    plane = rng.integers(-128, 128, (n, d)).astype(np.int8)
+    plane[:64] = 127
+    codes = rng.integers(-127, 128, (bq, d)).astype(np.int8)
+    codes[:4] = 127
+    codes[4:8] = -127
+    scale = (rng.random(bq) * 0.1 + 0.01).astype(np.float32)
+    dot64 = codes.astype(np.int64) @ plane.astype(np.int64).T
+    assert np.abs(dot64).max() > 2**24
+    want = dot64.astype(np.float32) * scale[:, None]
+    zero = torch.zeros(n)
+    val, idx, offered = tfs.fused_bin_scan_plain(
+        torch.from_numpy(plane), torch.from_numpy(codes), zero, torch.ones(n),
+        torch.zeros(n, dtype=torch.int32), torch.zeros(bq),
+        torch.zeros((bq, 256), dtype=torch.bfloat16), torch.zeros(16, dtype=torch.int32),
+        q_scale=torch.from_numpy(scale))
+    np.testing.assert_array_equal(val.numpy().view(np.int32), want.view(np.int32))
+    np.testing.assert_array_equal(idx.numpy(), np.broadcast_to(np.arange(n), (bq, n)))
+    assert int(offered.sum()) == bq * n
+
+
+def test_direct_mode_argument_checks():
+    x = _inputs(1, bq=32)
+    codes, scale, q32 = _as_int8(x["q"])
+    g1 = _g1(x)
+    with pytest.raises(ValueError, match="q_scale"):
+        tfs.fused_bin_scan(*_direct_args(x, torch.from_numpy(codes), g1))  # no q_scale
+    with pytest.raises(ValueError, match="q_scale"):
+        tfs.fused_bin_scan(*_direct_args(x, torch.from_numpy(q32), g1),
+                           q_scale=torch.from_numpy(scale))  # f32 query
+    with pytest.raises(ValueError, match="q_scale"):
+        tfs.fused_bin_scan(*_direct_args(x, torch.from_numpy(codes), g1),
+                           q_scale=torch.from_numpy(scale[:16]))  # not [Bp]
+    with pytest.raises(ValueError):
+        tfs.fused_bin_scan_cuda(*_direct_args(x, torch.from_numpy(codes), g1),
+                                q_scale=torch.from_numpy(scale))  # CPU tensors
 
 
 def test_compaction_lists_cover_probed_tiles():

@@ -10,7 +10,9 @@ Tolerances: the FHT is bitwise equal; ``offered`` equal; ``bins_idx``
 >= 99.9% equal; bin values rtol 1e-5 with atol 1e-3: the f32 dot sums in
 another order, and its terms (~1e3 here, scaled by f_rescale) leave ~1e-4
 absolute noise on distances that cancel to near zero. The packed bin scan
-with an int8 query has an exact dot: values rtol 1e-6. The packed
+with an int8 query has an exact dot: values rtol 1e-6. The direct bin scan
+with an int8 query (mode DENSE_S8) computes what its plain version computes,
+in the same order: bins_val, bins_idx and offered bitwise equal. The packed
 lower-bound planes are bf16: +-inf entries equal, every finite entry within
 one bf16 ulp of the plain version's (a reordered f32 sum can move a value
 across a rounding boundary) and >= 99% bitwise equal.
@@ -104,6 +106,21 @@ def _bin_inputs(device, bq, n_tiles=24, d=256, c=300, seed=0):
     )
 
 
+def _as_s8(x):
+    """``x``'s f32 query as an integer grid, as an int8 upload makes it:
+    ``x["q"]`` int8 codes, ``x["q_scale"]`` the per-query scales."""
+    q = x["q"]
+    x["q_scale"] = torch.clamp_min(q.abs().amax(1), 1e-30) / 127.0
+    x["q"] = torch.clamp(torch.round(q / x["q_scale"][:, None]), -127, 127).to(torch.int8)
+    return x
+
+
+def _assert_bitwise(kernel_out, plain_out):
+    for k, p in zip(kernel_out, plain_out):
+        assert k.dtype == p.dtype and torch.equal(k.view(torch.int32), p.view(torch.int32))
+    assert int(kernel_out[2].sum()) > 0
+
+
 def _assert_bins_match(kernel_out, plain_out, exact_dot=False, atol=1e-3):
     (kv, ki, ko), (pv, pi, po) = kernel_out, plain_out
     assert torch.equal(ko, po) and int(ko.sum()) > 0
@@ -139,6 +156,59 @@ def test_bin_scan_kernel_matches_plain(cuda, compact, bq, shape):
     # here): 0.0029 seen.
     _assert_bins_match(fs.fused_bin_scan_cuda(*args), fs.fused_bin_scan_plain(*args),
                        atol=4e-3 if d == 2560 else 1e-3)
+
+
+def _s8_bitwise(args, q_scale):
+    """The DENSE_S8 kernel once, held bitwise to the plain version; the
+    launch counted under its walk."""
+    key = "s8_dense" if args[8] is None else "s8_compact"
+    counts = (dict(fs.fused_bin_scan_cuda.launches),
+              fs.fused_bin_scan_cuda.dense_launches + fs.fused_bin_scan_cuda.compact_launches)
+    got = fs.fused_bin_scan(*args, q_scale=q_scale)
+    want = fs.fused_bin_scan_plain(*args, q_scale=q_scale)
+    _assert_bitwise(got, want)
+    assert fs.fused_bin_scan_cuda.launches == {**counts[0], key: counts[0][key] + 1}
+    assert (fs.fused_bin_scan_cuda.dense_launches
+            + fs.fused_bin_scan_cuda.compact_launches) == counts[1] + 1
+
+
+# (row tiles, plane width): the base case; dim 960 padded to 1024 columns;
+# 1536 and the widest the EXACT scan serves
+@pytest.mark.parametrize("shape", [(24, 256), (19, 1024), (18, 1536), (18, 2560)])
+@pytest.mark.parametrize("compact", [False, True])
+@pytest.mark.parametrize("bq", [32, 96])
+def test_bin_scan_s8_kernel_bitwise(cuda, compact, bq, shape):
+    n_tiles, d = shape
+    x = _bin_inputs(cuda, bq, n_tiles=n_tiles, d=d)
+    if d == 1024:
+        x["q"][:, 960:] = 0.0
+        x["plane"][:, 960:] = 0
+    _as_s8(x)
+    tiles = tcount = None
+    if compact:
+        tiles, tcount = fs.compaction_lists(x["fa"], x["cl"], x["probe"], 32, n_tiles)
+    args = (x["plane"], x["q"], x["fa"], x["fr"], x["cl"], x["k1x"], x["g1"], x["c_blk"],
+            tiles, tcount)
+    _s8_bitwise(args, x["q_scale"])
+
+
+@pytest.mark.parametrize("compact", [False, True])
+def test_bin_scan_s8_kernel_at_the_mstg_cell_shape(cuda, compact):
+    """The MSTG cell's dense walk: 962 lists over 1,000,448 rows (1,954 tiles),
+    960 columns padded to 1,024, a 256-query block."""
+    n_tiles, bq = 1954, 256
+    x = _bin_inputs(cuda, bq, n_tiles=n_tiles, d=1024, c=962)
+    x["q"][:, 960:] = 0.0
+    x["plane"][:, 960:] = 0
+    _as_s8(x)
+    tiles = tcount = None
+    if compact:
+        g = torch.Generator(device=cuda).manual_seed(1)
+        fewer = x["probe"] & (torch.rand(x["probe"].shape, generator=g, device=cuda) < 0.05)
+        tiles, tcount = fs.compaction_lists(x["fa"], x["cl"], fewer, 32, n_tiles)
+    args = (x["plane"], x["q"], x["fa"], x["fr"], x["cl"], x["k1x"], x["g1"], x["c_blk"],
+            tiles, tcount)
+    _s8_bitwise(args, x["q_scale"])
 
 
 @pytest.mark.parametrize("mode,width", [("direct", 1024), ("direct", 2560), ("bf16", 128),
@@ -191,24 +261,31 @@ def _stray_lists(device, n_blocks, n_tiles):
     return torch.from_numpy(tiles).to(device), torch.from_numpy(tcount).to(device)
 
 
-def test_bin_scan_kernel_skips_stray_list_slots(cuda):
+@pytest.mark.parametrize("int8_q", [False, True])
+def test_bin_scan_kernel_skips_stray_list_slots(cuda, int8_q):
     x = _bin_inputs(cuda, 64, n_tiles=21)
+    kw = {"q_scale": _as_s8(x)["q_scale"]} if int8_q else {}
     tiles, tcount = _stray_lists(cuda, 2, 21)
     args = (x["plane"], x["q"], x["fa"], x["fr"], x["cl"], x["k1x"], x["g1"], x["c_blk"],
             tiles, tcount)
-    _assert_bins_match(fs.fused_bin_scan_cuda(*args), fs.fused_bin_scan_plain(*args))
+    got, want = fs.fused_bin_scan_cuda(*args, **kw), fs.fused_bin_scan_plain(*args, **kw)
+    if int8_q:
+        _assert_bitwise(got, want)
+    else:
+        _assert_bins_match(got, want)
 
 
-@pytest.mark.parametrize("mode", ["direct", "bf16", "int8"])
+@pytest.mark.parametrize("mode", ["direct", "direct_s8", "bf16", "int8"])
 @pytest.mark.parametrize("compact", [False, True])
 def test_bin_scan_kernels_first_row_wins_a_tie(cuda, compact, mode):
     """Rows 8192 apart share a bin. Copies of tile 0's rows in tiles 16 and
     32 reach exactly its values: the bin must keep tile 0's row."""
     n_tiles, bq = 35, 32
-    x = _bin_inputs(cuda, bq, n_tiles=n_tiles, c=1) if mode == "direct" else _packed_inputs(
+    direct = mode.startswith("direct")
+    x = _bin_inputs(cuda, bq, n_tiles=n_tiles, c=1) if direct else _packed_inputs(
         cuda, bq, mode == "int8", n_tiles=n_tiles, c=1)
     x["g1"][:, 0] = 25.0  # every query probes the one cluster
-    per_row = [x["plane"], x["fa"], x["fr"]] + ([x["fe"]] if mode != "direct" else [])
+    per_row = [x["plane"], x["fa"], x["fr"]] + ([] if direct else [x["fe"]])
     for a in per_row:
         a[8192:8192 + fs.TN] = a[: fs.TN]
         a[16384:16384 + fs.TN] = a[: fs.TN]
@@ -218,7 +295,11 @@ def test_bin_scan_kernels_first_row_wins_a_tie(cuda, compact, mode):
         tcount = torch.tensor([n_tiles], dtype=torch.int32, device=cuda)
     args = (x["plane"], x["q"], x["fa"], x["fr"], x["cl"], x["k1x"], x["g1"], x["c_blk"],
             tiles, tcount)
-    kw = {} if mode == "direct" else dict(f_error=x["fe"], g2=x["g2"], q_scale=x["q_scale"])
+    if direct:
+        kw = {"q_scale": _as_s8(x)["q_scale"]} if mode == "direct_s8" else {}
+        args = (x["plane"], x["q"]) + args[2:]
+    else:
+        kw = dict(f_error=x["fe"], g2=x["g2"], q_scale=x["q_scale"])
     kv, ki, ko = fs.fused_bin_scan(*args, **kw)
     pv, pi, po = fs.fused_bin_scan_plain(*args, **kw)
     # (the plain version's batched product on the card need not give a row's
@@ -233,25 +314,33 @@ def test_bin_scan_kernels_first_row_wins_a_tie(cuda, compact, mode):
     torch.testing.assert_close(kv[filled], pv[filled], rtol=1e-5, atol=1e-3)
 
 
-@pytest.mark.parametrize("mode", ["direct", "int8"])
+@pytest.mark.parametrize("mode", ["direct", "direct_s8", "int8"])
 def test_bin_scan_offered_counts_past_16_bits(cuda, mode):
     """A compacted list of 70000 slots that all name tile 0: the blocks of
     its bin group walk the tile 70000 times, so each offered count passes
     65535. The kernels flush their 16-bit counters inside the walk; the plain
     version walks every slot too."""
     n_tiles, bq, slots = 16, 32, 70000
-    x = _bin_inputs(cuda, bq, n_tiles=n_tiles, c=1) if mode == "direct" else _packed_inputs(
+    direct = mode.startswith("direct")
+    x = _bin_inputs(cuda, bq, n_tiles=n_tiles, c=1) if direct else _packed_inputs(
         cuda, bq, True, n_tiles=n_tiles, c=1)
     x["g1"][:, 0] = 25.0  # every query probes the one cluster
     tiles = torch.zeros((1, slots), dtype=torch.int32, device=cuda)
     tcount = torch.tensor([slots], dtype=torch.int32, device=cuda)
     args = (x["plane"], x["q"], x["fa"], x["fr"], x["cl"], x["k1x"], x["g1"], x["c_blk"],
             tiles, tcount)
-    kw = {} if mode == "direct" else dict(f_error=x["fe"], g2=x["g2"], q_scale=x["q_scale"])
+    if direct:
+        kw = {"q_scale": _as_s8(x)["q_scale"]} if mode == "direct_s8" else {}
+        args = (x["plane"], x["q"]) + args[2:]
+    else:
+        kw = dict(f_error=x["fe"], g2=x["g2"], q_scale=x["q_scale"])
     kv, ki, ko = fs.fused_bin_scan(*args, **kw)
     pv, pi, po = fs.fused_bin_scan_plain(*args, **kw)
     assert int(ko.max()) > 0xFFFF
-    _assert_bins_match((kv, ki, ko), (pv, pi, po), exact_dot=mode == "int8")
+    if mode == "direct_s8":
+        _assert_bitwise((kv, ki, ko), (pv, pi, po))
+    else:
+        _assert_bins_match((kv, ki, ko), (pv, pi, po), exact_dot=mode == "int8")
 
 
 def _packed_inputs(device, bq, int8_q, db=128, seed=0, **geometry):

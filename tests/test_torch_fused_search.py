@@ -193,19 +193,21 @@ def test_launch_counts_add_and_take_back():
     """A graph adds the launches its capture counted at each replay, and
     takes the capture's own counts back: one slot per wrapper counter."""
     from rabitq_tpu_torch.ops.fht import fht_kernel
-    from rabitq_tpu_torch.ops.fused_scan import fused_bin_scan_packed_cuda
+    from rabitq_tpu_torch.ops.fused_scan import fused_bin_scan_cuda, fused_bin_scan_packed_cuda
     from rabitq_tpu_torch.ops.select import top_k_cuda
 
     before = tscan._read_launches()
-    assert len(before) == 9 + len(top_k_cuda.launches)  # the selection: a slot a site and type
+    assert len(before) == 11 + len(top_k_cuda.launches)  # the selection: a slot a site and type
     delta = list(range(1, len(before) + 1))
     tscan._add_launches(delta)
     after = tscan._read_launches()
     assert [a - b for a, b in zip(after, before)] == delta
     assert fht_kernel.launches == before[0] + 1
+    assert list(fused_bin_scan_cuda.launches.values()) == [
+        b + d for b, d in zip(before[5:7], delta[5:7])]
     assert list(fused_bin_scan_packed_cuda.launches.values()) == [
-        b + d for b, d in zip(before[5:9], delta[5:9])]
-    assert list(top_k_cuda.launches.values()) == [b + d for b, d in zip(before[9:], delta[9:])]
+        b + d for b, d in zip(before[7:11], delta[7:11])]
+    assert list(top_k_cuda.launches.values()) == [b + d for b, d in zip(before[11:], delta[11:])]
     tscan._add_launches(delta, -1)
     assert tscan._read_launches() == before
 

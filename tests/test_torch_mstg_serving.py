@@ -181,6 +181,99 @@ def test_the_build_keeps_one_root_and_reports_its_spans(served):
     assert children["mstg.quantize"].counts["rows"] == index.total_rows
 
 
+def _k1_int8_marks(index, queries, upload):
+    """``k1_int8`` of each ``search.dispatch`` span of one pipelined call
+    served with ``upload`` queries, and the direct bin scans it made, as
+    (query dtype, given a scale) pairs."""
+    from rabitq_tpu_torch.ops import fused_scan
+
+    real, seen = fused_scan.fused_bin_scan, []
+
+    def spy(plane, q, *a, f_error=None, q_scale=None, **kw):
+        if f_error is None:
+            seen.append((q.dtype, q_scale is not None))
+        return real(plane, q, *a, f_error=f_error, q_scale=q_scale, **kw)
+
+    saved = index.upload_dtype
+    index.upload_dtype = upload
+    fused_scan.fused_bin_scan = spy
+    profiling.clear()
+    try:
+        with profiling.recording():
+            index.batch_search_arrays_pipelined(queries, _params_of(index), 16, 32)
+    finally:
+        fused_scan.fused_bin_scan = real
+        index.upload_dtype = saved
+    found = profiling.spans()
+    profiling.clear()
+    return [s.counts["k1_int8"] for s in found if s.name == "search.dispatch"], seen
+
+
+def _params_of(index):
+    if isinstance(index, tr.MstgIndex):
+        return tr.MstgSearchParams(top_k=10, ef_search=8)
+    return tr.SearchParams(top_k=10, nprobe=4)
+
+
+# the rotated indexes' rows: a slice of the served rows, so that they build fast
+SMALL_ROWS, SMALL_DIM = 2048, 256
+
+
+@pytest.fixture(scope="module")
+def rotated(served):
+    """The served index's configuration, with its FhtKac rotator, built on
+    a slice of its rows."""
+    config, rows, _, _, _ = served
+    config = json.loads(json.dumps(config))
+    config["index"]["use_rotator"] = True
+    return spec.program_kind("mstg").build(config, rows[:SMALL_ROWS, :SMALL_DIM], CPU)
+
+
+@pytest.mark.parametrize("kind, upload, want", [
+    ("mstg", "int8", 1), ("mstg", "int4", 1), ("mstg", "f32", 0), ("mstg", "bf16", 0),
+    ("mstg_rotated", "int8", 0), ("ivf", "int8", 0)])
+def test_k1_takes_int8_codes_only_from_an_unrotated_integer_upload(served, request, kind, upload,
+                                                                    want):
+    """The bin scan takes the query as int8 codes exactly where it is an
+    integer grid: an int8 or int4 upload that no rotation turns to f32. The
+    dispatch spans count it (``k1_int8``)."""
+    _, rows, queries, index, _ = served
+    queries = queries[:40]
+    if kind == "mstg_rotated":
+        index = request.getfixturevalue("rotated")
+    elif kind == "ivf":
+        index = tr.IvfRabitqIndex.train(rows[:SMALL_ROWS, :SMALL_DIM], nlist=16, total_bits=7,
+                                        seed=3, scan_dtype="fused8", device="cpu")
+    if kind != "mstg":
+        queries = queries[:, :SMALL_DIM]
+    marks, seen = _k1_int8_marks(index, queries.numpy(), upload)
+    assert len(marks) == 3 and all(m == want for m in marks)
+    assert len(seen) == 3  # every dispatch ran the direct bin scan (K1's EXACT path)
+    assert all(s == ((torch.int8, True) if want else (torch.float32, False)) for s in seen)
+
+
+def test_int8_codes_answer_as_their_f32_values(served):
+    """One query set served as int8 uploads (K1 on the codes) and as the f32
+    values those codes decode to (K1's three-plane path): the same ids, and
+    distances equal to f32 rounding."""
+    from rabitq_tpu_torch.index.scan import decode_queries, encode_queries
+
+    config, _, queries, index, _ = served
+    q = queries.numpy()
+    codes, scale = encode_queries(q, q.shape[0], q.shape[1], "int8")
+    q32 = decode_queries(codes, scale, q.shape[1]).numpy()
+    saved = index.upload_dtype
+    try:
+        index.upload_dtype = "int8"
+        ids8, d8 = _serve(index, config, queries)
+        index.upload_dtype = "f32"
+        ids32, d32 = _serve(index, config, torch.from_numpy(q32))
+    finally:
+        index.upload_dtype = saved
+    np.testing.assert_array_equal(ids8, ids32)
+    np.testing.assert_allclose(d8, d32, rtol=1e-5, atol=1e-3)
+
+
 def _replicated(index):
     """An index over ``index``'s codes in which the first row of the second
     posting list carries the id of the first row of the first."""
