@@ -1218,7 +1218,6 @@ def zero_launches():
 
     encode_rows_kernel.launches = 0
     fht_kernel.launches = 0
-    fused_bin_scan_cuda.dense_launches = fused_bin_scan_cuda.compact_launches = 0
     for key in fused_bin_scan_cuda.launches:
         fused_bin_scan_cuda.launches[key] = 0
     for key in fused_bin_scan_packed_cuda.launches:
@@ -1243,21 +1242,29 @@ def select_counts():
     return counts
 
 
+def k1_walks():
+    """K1's launches by walk, f32 and int8 queries together: (dense,
+    compacted)."""
+    from rabitq_tpu_torch.ops.fused_scan import fused_bin_scan_cuda
+
+    n = fused_bin_scan_cuda.launches
+    return n["f32_dense"] + n["s8_dense"], n["f32_compact"] + n["s8_compact"]
+
+
 def read_launches(path, needed):
     """The launch counters after a path's run; fails if a kernel in
     ``needed`` never ran on it. The selection kernel's counts by site come
     back beside ``needed``'s, for the kernel line."""
     from rabitq_tpu_torch.ops.fht import fht_kernel
-    from rabitq_tpu_torch.ops.fused_scan import fused_bin_scan_cuda, fused_bin_scan_packed_cuda
+    from rabitq_tpu_torch.ops.fused_scan import fused_bin_scan_packed_cuda
     from rabitq_tpu_torch.ops.kmeans import running_sum_kernel, segment_sum_kernel
     from rabitq_tpu_torch.ops.packed_scan import packed_lb_plane_cuda
 
+    dense, compact = k1_walks()
     counts = {"fht": fht_kernel.launches, "segment_sum": segment_sum_kernel.launches,
               "running_sum": running_sum_kernel.launches,
-              "fused_bin_scan_dense": fused_bin_scan_cuda.dense_launches,
-              "fused_bin_scan_compact": fused_bin_scan_cuda.compact_launches,
-              "fused_bin_scan": fused_bin_scan_cuda.dense_launches
-              + fused_bin_scan_cuda.compact_launches,
+              "fused_bin_scan_dense": dense, "fused_bin_scan_compact": compact,
+              "fused_bin_scan": dense + compact,
               "packed_lb_plane": packed_lb_plane_cuda.launches}
     counts.update({f"fused_bin_scan_packed_{k}": v
                    for k, v in fused_bin_scan_packed_cuda.launches.items()})
@@ -1388,7 +1395,7 @@ def check_gather(index, queries_np, gt):
     os.environ["RABITQ_GATHER"] = "1"
     os.environ["RABITQ_GATHER_MAX"] = str(gather_budget_bucket(np.diff(index._offsets), nprobe))
     try:
-        budget = index._gather_budget(nprobe)
+        budget = index._plan.gather_rows(index.scan_dtype, nprobe)
         if budget is None:
             raise AssertionError("the gather scan's gate declined at nprobe 16")
         zero_launches()
@@ -2127,7 +2134,7 @@ def mstg_variant(name, data, queries, closure_epsilon=None):
     for ef in MSTG_EFS:
         zero_launches()
         serve_mstg(index, queries_np, ef)
-        tiles = index._fused_max_tiles(ef, batch=256)
+        tiles = index._plan.max_tiles(index.scan_dtype, ef)
         walk = "dense walk" if tiles is None else f"compacted walk, budget {tiles} tiles"
         qps = []
         for _ in range(QPS_RUNS):
@@ -2147,7 +2154,7 @@ def mstg_variant(name, data, queries, closure_epsilon=None):
             raise AssertionError(f"MSTG {name} ef={ef}: {dup_rows} result rows hold an id twice")
         recalls[ef] = recall_at(ids, gt, 10)
         log(f"serve MSTG {name} ef={ef} eps={MSTG_EPS}: recall@10 {recalls[ef]:.4f}; K1 gate: "
-            f"EXACT {index._fused_exact_ok()}, {walk} of {n_tiles}; dedup "
+            f"EXACT {index._plan.fused_exact(index.scan_dtype)}, {walk} of {n_tiles}; dedup "
             f"{index._has_replicas()}, no id twice in a row; pipelined int8 QPS over "
             f"{QPS_RUNS} runs (median [min, max]) {np.median(qps):.0f} "
             f"[{min(qps):.0f}, {max(qps):.0f}]")
@@ -2211,7 +2218,7 @@ def mstg_recall_witness(index, queries_np, gt):
         os.environ["RABITQ_GATHER"] = "1"
         os.environ["RABITQ_GATHER_MAX"] = str(gather_budget_bucket(np.diff(index._offsets), ef))
         try:
-            budget = index._gather_budget(ef)
+            budget = index._plan.gather_rows(index.scan_dtype, ef)
             if budget is None:
                 raise AssertionError(f"the gather scan's gate declined at ef {ef}")
             g_ids, _ = serve_mstg(index, queries_np, ef)
@@ -2345,7 +2352,8 @@ def check_mstg_cell(data, queries, gt):
         profiling.clear()
         got = launches[name] = read_launches(name, ("fused_bin_scan", "select"))
         got["encode_queries"] = encode_rows_kernel.launches  # one an upload block
-        got.update({f"fused_bin_scan_{k}": v for k, v in fused_bin_scan_cuda.launches.items()})
+        got.update({f"fused_bin_scan_{k}": v for k, v in fused_bin_scan_cuda.launches.items()
+                    if k.startswith("s8_")})
         s8 = got["fused_bin_scan_s8_dense"] + got["fused_bin_scan_s8_compact"]
         if s8 != got["fused_bin_scan"] or s8 != n // sv["batch_size"]:
             raise AssertionError(f"{name}: {s8} DENSE_S8 launches of {got['fused_bin_scan']} "
@@ -2475,7 +2483,7 @@ def streamed_compute_ms(tier, queries_np, params):
 
     def run():
         b, q_rot = tier._rotate(queries_np)
-        max_tiles = tier._fused_max_tiles(params.nprobe, q_rot.shape[0])
+        max_tiles = tier._plan.max_tiles(tier._scan_dtype, params.nprobe)
         out = [tier._scan_chunk(c, q_rot, params, None, max_tiles, probe_k) for c in resident]
         torch.cat([o[0] for o in out], dim=1).cpu()
 
@@ -2565,8 +2573,8 @@ def check_streamed(index, queries_np, gt):
             qps[nprobe].append(len(queries_np) / (time.perf_counter() - t0))
     launches = read_launches("streamed", ("fht", "fused_bin_scan_packed_int8_compact",
                                           "fused_bin_scan_packed_int8_dense", "select"))
-    walks = {16: tier._fused_max_tiles(16, len(queries_np)),
-             256: tier._fused_max_tiles(256, len(queries_np))}
+    walks = {16: tier._plan.max_tiles(tier._scan_dtype, 16),
+             256: tier._plan.max_tiles(tier._scan_dtype, 256)}
     for nprobe in (16, 256):
         ids, dists = results[nprobe]
         if ids.shape != (len(queries_np), 10) or (ids < 0).any() or not np.isfinite(dists).all():
@@ -2715,7 +2723,7 @@ def check_sharded_ivf(index, data, queries_np, gt, mem_qps):
     t0 = time.perf_counter()
     sh = sharding.ShardedIvfIndex(index, devices=[cuda] * SHARDS)
     torch.cuda.synchronize()
-    budgets = {nprobe: sh._fused_max_tiles(nprobe, SHARD_BLOCK) for nprobe in (16, 64, 256)}
+    budgets = {nprobe: sh._plan.max_tiles(sh.index.scan_dtype, nprobe) for nprobe in (16, 64, 256)}
     log(f"sharded IVF: {SHARDS} shards on {cuda} of {sh._slab_rows} rows each "
         f"({sh._slab_rows // TN} tiles), wrapped in {time.perf_counter() - t0:.2f} s; "
         f"per-shard tile budget a {SHARD_BLOCK}-query block: {budgets} (None: dense walk)")
@@ -3067,10 +3075,7 @@ def main() -> int:
         from rabitq_tpu_torch.ops import _cuda
         from rabitq_tpu_torch.ops.encode import encode_rows_kernel
         from rabitq_tpu_torch.ops.fht import fht_kernel
-        from rabitq_tpu_torch.ops.fused_scan import (
-            fused_bin_scan_cuda,
-            fused_bin_scan_packed_cuda,
-        )
+        from rabitq_tpu_torch.ops.fused_scan import fused_bin_scan_packed_cuda
         from rabitq_tpu_torch.ops.kmeans import running_sum_kernel, segment_sum_kernel
         from rabitq_tpu_torch.ops.packed_scan import packed_lb_plane_cuda, packed_lb_scan_cuda
     except ImportError as e:
@@ -3159,10 +3164,11 @@ def main() -> int:
             f"(median [min, max]): pipelined int8 {np.median(qps):.0f} "
             f"[{min(qps):.0f}, {max(qps):.0f}], one batch {np.median(qps_one):.0f} "
             f"[{min(qps_one):.0f}, {max(qps_one):.0f}]")
+    k1_dense, k1_compact = k1_walks()
     launches = {
         "fht": fht_kernel.launches,
-        "fused_bin_scan_dense": fused_bin_scan_cuda.dense_launches,
-        "fused_bin_scan_compact": fused_bin_scan_cuda.compact_launches,
+        "fused_bin_scan_dense": k1_dense,
+        "fused_bin_scan_compact": k1_compact,
         "segment_sum": segment_sum_kernel.launches,  # the train's k-means
         "running_sum": running_sum_kernel.launches,  # its k-means++ init
         "select": select_counts()["select"],  # centroid ranking, bins; the train's reseed
@@ -3259,9 +3265,10 @@ def main() -> int:
             scan_dtype="fused8", device=dev,
         )
     torch.cuda.synchronize()
+    exact8 = index8._plan.fused_exact(index8.scan_dtype)
     log(f"train total_bits=8: {time.perf_counter() - t0:.2f} s; report "
-        f"{json.dumps(index8.build_report)}; fused EXACT ok {index8._fused_exact_ok()}")
-    if index8._fused_exact_ok():
+        f"{json.dumps(index8.build_report)}; fused EXACT ok {exact8}")
+    if exact8:
         raise AssertionError("the total_bits=8 index must take the two-stage scan")
     del data
     torch.cuda.empty_cache()

@@ -16,11 +16,9 @@ where a row tile would span more than 128 clusters. "f32", "bf16", "int8"
 and "packed" are the dense scans. Assigning ``scan_dtype`` after
 construction re-lays the index on the device at the next search.
 
-The JAX package's experiment switches are read from the environment at each
-call, with its defaults: ``RABITQ_FUSED_EXACT=0`` (two-stage scan instead of
-the EXACT one), ``RABITQ_FUSED_COMPACT`` ("0": dense tile walk, "force":
-full-length tile lists), ``RABITQ_LOCALITY`` (locality-sort depth) and
-``RABITQ_GATHER=1`` / ``RABITQ_GATHER_MAX`` (the gather scan, opt-in).
+The index's ``scan_plan.ScanPlan`` makes that choice, the compaction and
+gather budgets among it, and reads the JAX package's experiment switches
+from the environment at each call.
 
 Persistence is the byte-compatible RBQ1 v3 format (``io/persistence.py``).
 
@@ -36,7 +34,6 @@ inside; ``scan.QueryStage``), ``serve.copy_in`` (on the CPU),
 from __future__ import annotations
 
 import math
-import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -44,46 +41,25 @@ import torch
 
 from ..errors import DimensionMismatch, EmptyIndex, InvalidConfig
 from ..ops import kmeans as kmeans_ops
-from ..ops.fused_scan import (
-    EXACT_MAX_WIDTH,
-    TB,
-    TN,
-    TWO_STAGE_MAX_WIDTH,
-    TWO_STAGE_MAX_WIDTH_INT8,
-    expected_tile_cost,
-    fused_geometry_ok,
-    probed_tile_bound,
-    tile_cluster_blocks,
-)
-from ..ops.packed_scan import pack_bitplanes
+from ..ops.fused_scan import TN
 from ..ops.quantize import compute_const_scaling_factor
 from ..ops.rotation import Rotator, deserialize_rotator, make_rotator
 from ..types import Metric, RotatorType, SearchDiagnostics, SearchParams, SearchResult
 from ..utils.device import resolve_device, synchronize
-from ..utils.logging import get_logger
 from ..utils.profiling import Span, span
 from ..utils.transfer import upload_dataset
 from .build import build_codes_device, exact_t_rows
-from .layout import (
-    DeviceLayout,
-    assemble_device_layout,
-    cluster_of_rows,
-    host_order_planes,
-    pad_rows,
-)
+from .layout import DeviceLayout, assemble_device_layout, host_order_planes
 from .scan import (
     QueryStage,
     _fetch,
     _pad_pow2,
-    ex_plane_is_total,
-    gather_budget_bucket,
     is_fused,
     make_fused_search,
     probe_k_bucket,
     serve_pipelined,
 )
-
-_log = get_logger("ivf")
+from .scan_plan import ScanPlan
 
 
 def allowed_id_table(filter_ids: np.ndarray, max_id: int) -> np.ndarray:
@@ -155,16 +131,14 @@ class IvfRabitqIndex:
         self._offsets: np.ndarray | None = host.cluster_offsets if host is not None else None
         self._layout: DeviceLayout | None = None
         self._layout_mode_built: str | None = None  # see _layout_mode
-        self._packed: torch.Tensor | None = None  # bit planes ("packed" and fused)
-        self._c_blk: torch.Tensor | None = None
-        self._geometry_ok: bool | None = None  # fused_geometry_ok of the clusters
-        self._max_tiles_cache: dict = {}
-        self._cl_ranges: tuple[torch.Tensor, torch.Tensor] | None = None
         self._host: HostCodes | None = host  # see host
         self._stage = QueryStage(self.device)  # the query blocks' way onto the device
         # decode + rotation + scan of a query block: one CUDA graph replay a
         # dispatch on the card (scan.make_fused_search)
         self._fused_scan = make_fused_search(self.rotator.rotate, dim=self.dim)
+        # which scan serves a block, its budgets, and what the layout derives for it
+        self._plan = ScanPlan(padded_dim, ex_bits, offsets=self._offsets,
+                              graphs=self._fused_scan, device=self.device)
 
     # ------------------------------------------------------------------
     # construction
@@ -376,19 +350,14 @@ class IvfRabitqIndex:
         cluster-sorted planes (host arrays or tensors)."""
         self._ids = ids
         self._offsets = offsets
-        self._geometry_ok = None
-        self._maybe_downgrade_fused()
+        self._plan.reset(offsets)  # and the graphs: they read the old layout's tensors
+        self.scan_dtype = self._plan.fit(self.scan_dtype)
         self._layout = assemble_device_layout(
             n=int(ids.shape[0]), ex_bits=self.ex_bits, cluster_sizes=np.diff(offsets),
             ids=ids, centroids=centroids, device=self.device, **planes,
             **self._layout_kwargs(),
         )
         self._layout_mode_built = self._layout_mode()
-        self._packed = None
-        self._c_blk = None
-        self._max_tiles_cache = {}
-        self._cl_ranges = None
-        self._fused_scan.clear()  # the graphs read the old layout's tensors
 
     def _layout_mode(self) -> str:
         """'sorted' (cluster-contiguous, TN-padded: the fused scans) or
@@ -611,57 +580,13 @@ class IvfRabitqIndex:
             ]
             return _fetch(pending, b_total)
 
-    def _maybe_downgrade_fused(self) -> None:
-        """The fused kernels need cluster-sorted tiles spanning <= 128
-        clusters and a plane within the two-stage width; other indexes are
-        served by the dense bf16 scan, as the reference does."""
-        if not is_fused(self.scan_dtype):
-            return
-        if self._geometry_ok is None:
-            self._geometry_ok = fused_geometry_ok(np.diff(self._offsets))
-        plane_w = self.padded_dim + (-self.padded_dim) % 128
-        limit = TWO_STAGE_MAX_WIDTH_INT8 if self.scan_dtype == "fused8" else TWO_STAGE_MAX_WIDTH
-        if not (self._geometry_ok and plane_w <= limit):
-            _log.warning(
-                "geometry unsuited for scan_dtype=%r (a row tile would span >128 "
-                "clusters, or the plane is wider than the two-stage fused scan "
-                "serves); falling back to bf16",
-                self.scan_dtype,
-            )
-            self.scan_dtype = "bf16"
-
-    def _fused_exact_ok(self) -> bool:
-        """Whether the fused scan runs in EXACT mode: it needs the TOTAL
-        refine plane and a plane within ``EXACT_MAX_WIDTH``; otherwise, or
-        with env ``RABITQ_FUSED_EXACT=0``, the two-stage scan serves the
-        index."""
-        if os.environ.get("RABITQ_FUSED_EXACT", "1") == "0":
-            return False
-        plane_w = self.padded_dim + (-self.padded_dim) % 128
-        return (
-            is_fused(self.scan_dtype)
-            and ex_plane_is_total(self.ex_bits)
-            and plane_w <= EXACT_MAX_WIDTH
-        )
-
     def _scan_inputs(self, filter_ids: np.ndarray | None) -> torch.Tensor:
         """Bring the layout, the packed plane and the tile windows up to
         date for the current ``scan_dtype``; returns the row mask of the
         scan: valid rows, narrowed by the user filter."""
-        self._maybe_downgrade_fused()
+        self.scan_dtype = self._plan.fit(self.scan_dtype)
         lay = self.layout
-        fused = is_fused(self.scan_dtype)
-        if (fused or self.scan_dtype == "packed") and self._packed is None:
-            if lay.packed is not None:  # fused layouts pre-pack
-                self._packed = lay.packed
-            else:
-                self._packed = pack_bitplanes(lay.binary, self.padded_dim)
-        if fused and self._c_blk is None:
-            n_pad = int(lay.ids.shape[0])
-            c_blk = tile_cluster_blocks(
-                cluster_of_rows(np.diff(self._offsets), n_pad), np.arange(n_pad) < len(self)
-            )
-            self._c_blk = torch.from_numpy(c_blk).to(self.device)
+        self._plan.prepare(lay, self.scan_dtype)
         row_allowed = lay.valid
         if filter_ids is not None:
             mask = torch.from_numpy(self._row_filter(filter_ids)).to(self.device)
@@ -679,55 +604,6 @@ class IvfRabitqIndex:
         mask[:n][safe] = allowed_of_id[idx[safe]]
         return mask[self.layout.perm]
 
-    def _fused_max_tiles(self, nprobe, batch: int | None = None) -> int | None:
-        """Probed-tile budget of the kernel's compacted walk, or None for
-        the dense walk: compaction is on when the EXPECTED per-block tile
-        count is under 0.6 of all tiles, sized by the SAFE bound (so no
-        probed tile is dropped), bucketed to a power of two. Env
-        ``RABITQ_FUSED_COMPACT=0`` turns compaction off, ``=force`` lists
-        every tile whatever the expected count."""
-        compact_env = os.environ.get("RABITQ_FUSED_COMPACT", "1")
-        if not is_fused(self.scan_dtype) or compact_env == "0":
-            return None
-        if compact_env == "force":
-            return pad_rows(len(self), TN) // TN
-        bt = TB if batch is None else min(TB, ((int(batch) + 31) // 32) * 32)
-        key = (int(nprobe), bt)
-        if key not in self._max_tiles_cache:
-            n_tiles = pad_rows(len(self), TN) // TN
-            sizes = np.diff(self._offsets)
-            if expected_tile_cost(sizes, int(nprobe), batch_tile=bt) >= 0.6 * n_tiles:
-                self._max_tiles_cache[key] = None
-            else:
-                bound = probed_tile_bound(sizes, int(nprobe), batch_tile=bt)
-                self._max_tiles_cache[key] = min(1 << (bound - 1).bit_length(), n_tiles)
-        return self._max_tiles_cache[key]
-
-    def _gather_budget(self, nprobe) -> int | None:
-        """Per-query row budget of the gather scan, or None for the bin
-        scans. Opt-in by env ``RABITQ_GATHER=1``: the gather scan scores
-        every probed row exactly (``index/scan.py``), and needs the
-        cluster-sorted layout ("fused"/"fused8") and the TOTAL refine plane.
-        The budget is the sum of the ``nprobe`` largest clusters rounded up
-        to a power of two (no probed row is ever dropped); it is declined
-        above env ``RABITQ_GATHER_MAX`` (16384) or at half the rows."""
-        if os.environ.get("RABITQ_GATHER", "0") != "1":
-            return None
-        if not is_fused(self.scan_dtype) or not ex_plane_is_total(self.ex_bits):
-            return None
-        bucket = gather_budget_bucket(np.diff(self._offsets), nprobe)
-        limit = int(os.environ.get("RABITQ_GATHER_MAX", "16384"))
-        if bucket is None or bucket > limit or 2 * bucket >= len(self):
-            return None
-        return bucket
-
-    def _cluster_ranges(self) -> tuple[torch.Tensor, torch.Tensor]:
-        """Device [C] first rows and sizes of the clusters (gather scan)."""
-        if self._cl_ranges is None:
-            offsets = torch.from_numpy(self._offsets).to(self.device)
-            self._cl_ranges = (offsets[:-1], offsets[1:] - offsets[:-1])
-        return self._cl_ranges
-
     def _pad_queries(self, queries: np.ndarray, b_pad: int):
         """(q, qscale | None) of ``queries`` padded to ``b_pad`` rows, on the
         index's device in the upload encoding (``scan.QueryStage``)."""
@@ -735,48 +611,33 @@ class IvfRabitqIndex:
 
     def _dispatch_scan(
         self, q, qscale, params: SearchParams, row_allowed, offset=None, sub_block=None,
-        **scan_kw,
+        diagnostics: bool = False,
     ):
         """Queue decode + rotation + scan of one padded query block through
         the index's fused search (one graph replay on the card); returns
         device tensors (callers fetch). With ``sub_block``, ``q`` is a
         resident upload block and the scan covers the window at ``offset``.
-        The gather scan serves the block where ``_gather_budget`` allows
-        it. The span ``search.dispatch`` covers it, down to the graph's
-        input copies and output clones, and counts ``k1_int8`` (1 where the
-        bin scan takes the query as int8 codes: never, since the rotation
-        makes it f32)."""
-        with span("search.dispatch", k1_int8=0):
-            return self._dispatch(q, qscale, params, row_allowed, offset, sub_block, **scan_kw)
-
-    def _dispatch(self, q, qscale, params, row_allowed, offset, sub_block, **scan_kw):
-        lay = self.layout
-        b = q.shape[0] if sub_block is None else sub_block
-        fused = is_fused(self.scan_dtype)
-        scan_kw.setdefault("fused_exact", self._fused_exact_ok())
-        scan_kw.setdefault("locality_depth", int(os.environ.get("RABITQ_LOCALITY", "1")))
-        if "gather_rows" not in scan_kw:
-            scan_kw["gather_rows"] = self._gather_budget(params.nprobe)
-        gather_rows = scan_kw.pop("gather_rows")
-        cl_starts = cl_sizes = max_tiles = None
-        if gather_rows is not None:
-            cl_starts, cl_sizes = self._cluster_ranges()
-        else:
-            max_tiles = self._fused_max_tiles(params.nprobe, batch=b)
-        return self._fused_scan(
-            q, lay.centroids, lay.binary, lay.ex, lay.f_add, lay.f_rescale,
-            lay.f_error, lay.f_add_ex, lay.f_rescale_ex, lay.cluster_of, row_allowed,
-            lay.ids, qscale=qscale, offset=offset, sub_block=sub_block,
-            nprobe=params.nprobe,
-            packed=self._packed if (fused or self.scan_dtype == "packed") else None,
-            fused_cblk=self._c_blk if fused else None,
-            cl_starts=cl_starts, cl_sizes=cl_sizes, gather_rows=gather_rows,
-            top_k=params.top_k, rerank=params.resolved_rerank(), metric=self.metric,
-            ex_bits=self.ex_bits, scan_dtype=self.scan_dtype, approx_topk=self.approx_topk,
-            max_tiles=max_tiles,
-            probe_k=probe_k_bucket(params.nprobe, self.cluster_count(), self.scan_dtype),
-            **scan_kw,
-        )
+        The scan is the plan's choice (``ScanPlan.scan_kw``); ``diagnostics``
+        takes the two-stage scan with its counters. The span
+        ``search.dispatch`` covers it, down to the graph's input copies and
+        output clones, and counts ``k1_int8`` (1 where the bin scan takes the
+        query as int8 codes: never, since the rotation makes it f32)."""
+        with span("search.dispatch") as sp:
+            lay = self.layout
+            kw, k1_int8 = self._plan.scan_kw(
+                self.scan_dtype, params.nprobe, q, qscale,
+                exact=not diagnostics, gather=not diagnostics)
+            sp.add(k1_int8=k1_int8)
+            return self._fused_scan(
+                q, lay.centroids, lay.binary, lay.ex, lay.f_add, lay.f_rescale,
+                lay.f_error, lay.f_add_ex, lay.f_rescale_ex, lay.cluster_of, row_allowed,
+                lay.ids, qscale=qscale, offset=offset, sub_block=sub_block,
+                nprobe=params.nprobe, top_k=params.top_k, rerank=params.resolved_rerank(),
+                metric=self.metric, ex_bits=self.ex_bits, scan_dtype=self.scan_dtype,
+                approx_topk=self.approx_topk, with_diagnostics=diagnostics,
+                probe_k=probe_k_bucket(params.nprobe, self.cluster_count(), self.scan_dtype),
+                **kw,
+            )
 
     def search_with_diagnostics(
         self, query: np.ndarray, params: SearchParams
@@ -789,9 +650,7 @@ class IvfRabitqIndex:
         query = self._check_queries(query)[:1]
         row_allowed = self._scan_inputs(None)
         ids, dists, diag = self._dispatch_scan(
-            torch.from_numpy(query).to(self.device), None, params, row_allowed,
-            with_diagnostics=True, fused_exact=False, gather_rows=None,
-        )
+            torch.from_numpy(query).to(self.device), None, params, row_allowed, diagnostics=True)
         results = []
         for i, dd in zip(ids[0].tolist(), dists[0].tolist()):
             if i < 0 or not np.isfinite(dd):

@@ -46,7 +46,6 @@ report's seconds.
 
 from __future__ import annotations
 
-import os
 import struct
 import zlib
 from dataclasses import dataclass
@@ -56,48 +55,32 @@ import torch
 
 from ...errors import DimensionMismatch, EmptyIndex, InvalidConfig, InvalidPersistence
 from ...ops import packing
-from ...ops.fused_scan import (
-    EXACT_MAX_WIDTH,
-    TB,
-    TN,
-    TWO_STAGE_MAX_WIDTH,
-    TWO_STAGE_MAX_WIDTH_INT8,
-    expected_tile_cost,
-    fused_geometry_ok,
-    probed_tile_bound,
-    tile_cluster_blocks,
-)
+from ...ops.fused_scan import TN
 from ...ops.kmeans import auto_assign_dtype
-from ...ops.packed_scan import pack_bitplanes
 from ...ops.quantize import compute_const_scaling_factor
 from ...ops.rotation import FhtKacRotator, make_rotator
 from ...types import Metric, RotatorType, SearchDiagnostics, SearchResult
 from ...utils.device import resolve_device, synchronize
-from ...utils.logging import get_logger
 from ...utils.profiling import Span, span
 from ...utils.transfer import upload_dataset
 from ..build import build_codes_device, exact_t_rows
-from ..layout import assemble_device_layout, cluster_of_rows, host_order_planes, pad_rows
+from ..layout import assemble_device_layout, host_order_planes
 from ..scan import (
     QueryStage,
     _fetch,
     _pad_pow2,
-    ex_plane_is_total,
-    gather_budget_bucket,
-    integer_grid,
     is_fused,
     make_fused_search,
     probe_k_bucket,
     serve_pipelined,
     sort_result_rows,
 )
+from ..scan_plan import ScanPlan
 from .clustering import hierarchical_cluster
 from .closure import closure_assign
 from .config import MstgConfig, MstgSearchParams, ScalarPrecision
 from .metadata import PostingListDirectory
 from .scalar_quant import apply_centroid_precision, dequantize_centroids, quantize_centroids
-
-_log = get_logger("mstg")
 
 _MAGIC = b"MSTG"
 # native single-file format (distinct from the reference's bincode-v1
@@ -175,15 +158,17 @@ class MstgIndex:
         self.build_report: dict | None = None
         self._layout = None
         self._layout_mode_built: str | None = None
-        self._packed: torch.Tensor | None = None
-        self._c_blk: torch.Tensor | None = None
-        self._geometry_ok: bool | None = None
-        self._max_tiles_cache: dict = {}
-        self._cl_ranges: tuple[torch.Tensor, torch.Tensor] | None = None
         # decode + optional rotation + scan of a query block: one CUDA graph
         # replay a dispatch on the card (scan.make_fused_search)
         self._fused_scan = make_fused_search(
             rotator.rotate if rotator is not None else None, dim=self.dim
+        )
+        # which scan serves a block, its budgets, and what the layout derives
+        # for it; the budgets count rows, replicas included
+        self._plan = ScanPlan(
+            self.quant_dim, config.rabitq_bits - 1, refine_ex=config.refine_ex,
+            rotated=rotator is not None, offsets=self._offsets, graphs=self._fused_scan,
+            device=self.device,
         )
         self._stage = QueryStage(self.device)  # the query blocks' way onto the device
 
@@ -453,96 +438,8 @@ class MstgIndex:
                 **{k: src[k] for k in _PLANE_FIELDS}, **kwargs,
             )
             self._layout_mode_built = mode
-            self._packed = None
-            self._c_blk = None
-            self._max_tiles_cache = {}
-            self._cl_ranges = None
-            self._fused_scan.clear()  # the graphs read the old layout's tensors
+            self._plan.reset(self._offsets)  # and the graphs: they read the old layout
         return self._layout
-
-    def _maybe_downgrade_fused(self) -> None:
-        """The fused kernels need list-sorted tiles spanning <= 128 posting
-        lists and a plane within the two-stage width; other indexes are
-        served by the dense bf16 scan, as the reference does."""
-        if not is_fused(self.scan_dtype):
-            return
-        if self._geometry_ok is None:
-            self._geometry_ok = fused_geometry_ok(np.diff(self._offsets))
-        plane_w = self.quant_dim + (-self.quant_dim) % 128
-        limit = TWO_STAGE_MAX_WIDTH_INT8 if self.scan_dtype == "fused8" else TWO_STAGE_MAX_WIDTH
-        if not (self._geometry_ok and plane_w <= limit):
-            _log.warning(
-                "posting-list geometry unsuited for scan_dtype=%r (a row tile would span "
-                ">128 posting lists, or the plane is wider than the two-stage fused scan "
-                "serves); falling back to bf16",
-                self.scan_dtype,
-            )
-            self.scan_dtype = "bf16"
-
-    def _fused_max_tiles(self, ef_search, batch: int | None = None) -> int | None:
-        """Probed-tile budget of the kernel's compacted walk, or None for the
-        dense walk (``IvfRabitqIndex._fused_max_tiles``; ef_search plays
-        nprobe, posting lists play clusters, and the tiles count every row,
-        replicas included). Env ``RABITQ_FUSED_COMPACT``: "0" dense walk,
-        "force" every tile listed."""
-        compact_env = os.environ.get("RABITQ_FUSED_COMPACT", "1")
-        if (
-            not is_fused(self.scan_dtype)
-            or compact_env == "0"
-            or not isinstance(ef_search, (int, np.integer))
-        ):
-            return None
-        n_tiles = pad_rows(self.total_rows, TN) // TN
-        if compact_env == "force":
-            return n_tiles
-        bt = TB if batch is None else min(TB, ((int(batch) + 31) // 32) * 32)
-        key = (int(ef_search), bt)
-        if key not in self._max_tiles_cache:
-            sizes = np.diff(self._offsets)
-            if expected_tile_cost(sizes, int(ef_search), batch_tile=bt) >= 0.6 * n_tiles:
-                self._max_tiles_cache[key] = None  # most tiles probed anyway: dense walk
-            else:
-                bound = probed_tile_bound(sizes, int(ef_search), batch_tile=bt)
-                self._max_tiles_cache[key] = min(1 << (bound - 1).bit_length(), n_tiles)
-        return self._max_tiles_cache[key]
-
-    def _fused_exact_ok(self) -> bool:
-        """Whether the fused scan runs in EXACT mode (the TOTAL refine plane
-        within ``EXACT_MAX_WIDTH``, refinement on); env
-        ``RABITQ_FUSED_EXACT=0`` takes the two-stage scan instead."""
-        if os.environ.get("RABITQ_FUSED_EXACT", "1") == "0":
-            return False
-        plane_w = self.quant_dim + (-self.quant_dim) % 128
-        return (
-            is_fused(self.scan_dtype)
-            and self.config.refine_ex
-            and ex_plane_is_total(self.config.rabitq_bits - 1)
-            and plane_w <= EXACT_MAX_WIDTH
-        )
-
-    def _gather_budget(self, ef_search) -> int | None:
-        """Per-query row budget of the gather scan, or None for the bin
-        scans (``IvfRabitqIndex._gather_budget``; opt-in by env
-        ``RABITQ_GATHER=1``, declined above ``RABITQ_GATHER_MAX`` or at half
-        the rows). The ef largest lists bound the probed set: pruning only
-        shrinks it."""
-        if os.environ.get("RABITQ_GATHER", "0") != "1":
-            return None
-        ex_bits = self.config.rabitq_bits - 1
-        if not (is_fused(self.scan_dtype) and self.config.refine_ex and ex_plane_is_total(ex_bits)):
-            return None
-        bucket = gather_budget_bucket(np.diff(self._offsets), ef_search)
-        limit = int(os.environ.get("RABITQ_GATHER_MAX", "16384"))
-        if bucket is None or bucket > limit or 2 * bucket >= self.total_rows:
-            return None
-        return bucket
-
-    def _cluster_ranges(self) -> tuple[torch.Tensor, torch.Tensor]:
-        """Device [C] first rows and sizes of the posting lists (gather scan)."""
-        if self._cl_ranges is None:
-            offsets = torch.from_numpy(self._offsets).to(self.device)
-            self._cl_ranges = (offsets[:-1], offsets[1:] - offsets[:-1])
-        return self._cl_ranges
 
     def _has_replicas(self) -> bool:
         """Whether closure assignment replicated any vector. Without
@@ -554,20 +451,9 @@ class MstgIndex:
     def _scan_planes(self):
         """Bring the layout, the packed plane and the tile windows up to date
         for the current ``scan_dtype``; returns the layout."""
-        self._maybe_downgrade_fused()
+        self.scan_dtype = self._plan.fit(self.scan_dtype)
         lay = self.layout
-        fused = is_fused(self.scan_dtype)
-        if (fused or self.scan_dtype == "packed") and self._packed is None:
-            if lay.packed is not None:  # fused layouts pre-pack
-                self._packed = lay.packed
-            else:
-                self._packed = pack_bitplanes(lay.binary, self.quant_dim)
-        if fused and self._c_blk is None:
-            n_pad = int(lay.ids.shape[0])
-            c_blk = tile_cluster_blocks(
-                cluster_of_rows(np.diff(self._offsets), n_pad), np.arange(n_pad) < self.total_rows
-            )
-            self._c_blk = torch.from_numpy(c_blk).to(self.device)
+        self._plan.prepare(lay, self.scan_dtype)
         return lay
 
     # ------------------------------------------------------------------
@@ -585,12 +471,9 @@ class MstgIndex:
         fused search with MSTG's fixed options; ``scan_kw`` holds the
         per-call ones."""
         lay = self.layout
-        fused = is_fused(self.scan_dtype)
         return self._fused_scan(
             q, lay.centroids, *lay.scan_args(), qscale=qscale, offset=offset,
             sub_block=sub_block, nprobe=params.ef_search, prune_epsilon=params.pruning_epsilon,
-            packed=self._packed if (fused or self.scan_dtype == "packed") else None,
-            fused_cblk=self._c_blk if fused else None,
             metric=self.config.metric, ex_bits=self.config.rabitq_bits - 1,
             scan_dtype=self.scan_dtype, use_prune_epsilon=True, refine_ex=self.config.refine_ex,
             clamp_l2=True, centroid_select_l2=True, approx_topk=self.approx_topk,
@@ -611,36 +494,25 @@ class MstgIndex:
         ``k1_int8`` (1 where the bin scan takes the query as int8 codes: an
         un-rotated ``scan.integer_grid`` on the EXACT bin scan)."""
         with span("search.dispatch") as sp:
-            gather_rows = self._gather_budget(params.ef_search)
-            cl_starts = cl_sizes = max_tiles = None
-            plane_tiles = pad_rows(self.total_rows, TN) // TN
-            if gather_rows is not None:
-                cl_starts, cl_sizes = self._cluster_ranges()
-                tiles = 0
-            else:
-                b = q.shape[0] if sub_block is None else sub_block
-                max_tiles = self._fused_max_tiles(params.ef_search, batch=b)
-                tiles = plane_tiles if max_tiles is None else max_tiles
+            kw, k1_int8 = self._plan.scan_kw(self.scan_dtype, params.ef_search, q, qscale)
+            plane_tiles = self._plan.plane_tiles
+            gathered = kw["gather_rows"] is not None
+            max_tiles = kw.get("max_tiles")
+            tiles = 0 if gathered else plane_tiles if max_tiles is None else max_tiles
             dedup = self._has_replicas()
             rerank = max(
                 params.resolved_rerank(),
                 int(np.ceil(params.top_k * self.replication_factor())) + 16,
             )
-            fused_exact = self._fused_exact_ok()
-            k1_int8 = (gather_rows is None and fused_exact and self.rotator is None
-                       and integer_grid(q, qscale))
             sp.add(tiles=tiles, plane_tiles=plane_tiles,
-                   dense=int(gather_rows is None and max_tiles is None), rerank=rerank,
-                   dedup=int(dedup), k1_int8=int(k1_int8))
+                   dense=int(not gathered and max_tiles is None), rerank=rerank,
+                   dedup=int(dedup), k1_int8=k1_int8)
             ids, dists = self._scan(
-                q, qscale, params, offset=offset, sub_block=sub_block, cl_starts=cl_starts,
-                cl_sizes=cl_sizes, gather_rows=gather_rows,
-                top_k=rerank if dedup else params.top_k, rerank=rerank, max_tiles=max_tiles,
-                fused_exact=fused_exact,
+                q, qscale, params, offset=offset, sub_block=sub_block,
+                top_k=rerank if dedup else params.top_k, rerank=rerank,
                 # dedup path: keep the kernel's best-first candidate order
                 # through the dedup, which sorts the rows it keeps
-                fused_exact_sort=not dedup,
-                locality_depth=int(os.environ.get("RABITQ_LOCALITY", "1")),
+                fused_exact_sort=not dedup, **kw,
             )
             if not dedup:
                 return ids, dists
@@ -827,9 +699,11 @@ class MstgIndex:
         (``mstg/index.rs:349-362``)."""
         self._scan_planes()
         q = torch.from_numpy(np.asarray(query, np.float32).reshape(1, self.dim)).to(self.device)
+        kw, _ = self._plan.scan_kw(self.scan_dtype, params.ef_search, q, None,
+                                   exact=False, gather=False)
         ids, dists, diag = self._scan(
             q, None, params, top_k=params.top_k, rerank=params.resolved_rerank(),
-            with_diagnostics=True, max_tiles=self._fused_max_tiles(params.ef_search, batch=1),
+            with_diagnostics=True, **kw,
         )
         sign = 1.0 if self.config.metric is Metric.L2 else -1.0
         results = [

@@ -759,13 +759,7 @@ def integer_grid(q: torch.Tensor, qscale: torch.Tensor | None) -> bool:
 
 def _launch_counters():
     """(dict, key) of every kernel wrapper's launch counter."""
-    slots = [
-        (vars(fht_kernel), "launches"),
-        (vars(fused_bin_scan_cuda), "dense_launches"),
-        (vars(fused_bin_scan_cuda), "compact_launches"),
-        (vars(packed_lb_scan_cuda), "launches"),
-        (vars(packed_lb_plane_cuda), "launches"),
-    ]
+    slots = [(vars(f), "launches") for f in (fht_kernel, packed_lb_scan_cuda, packed_lb_plane_cuda)]
     return slots + [(d, k) for d in (fused_bin_scan_cuda.launches,
                                      fused_bin_scan_packed_cuda.launches, top_k_cuda.launches)
                     for k in d]

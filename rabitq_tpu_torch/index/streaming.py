@@ -21,12 +21,10 @@ chunk i-1's scan, so at most two slabs are resident at once.
 
 from __future__ import annotations
 
-import os
-
 import numpy as np
 import torch
 
-from ..ops.fused_scan import TB, TN, sliced_max_tiles
+from ..ops.fused_scan import TN
 from ..types import Metric, SearchParams, SearchResult
 from ..utils.device import resolve_device
 from .ivf import IvfRabitqIndex, allowed_id_table
@@ -45,7 +43,7 @@ class StreamedIvfIndex:
         self.index = index
         # fused chunks stream packed 1-bit planes; the "packed" scan has no
         # chunked variant and takes the dense bf16 scan
-        index._maybe_downgrade_fused()
+        index.scan_dtype = index._plan.fit(index.scan_dtype)
         self._scan_dtype = "bf16" if index.scan_dtype == "packed" else index.scan_dtype
         self._fused = is_fused(self._scan_dtype)
         h = index.host  # downloads the host copy of a trained index once
@@ -70,39 +68,19 @@ class StreamedIvfIndex:
                  for k, v in c.items()}
             )
         self._centroids = torch.tensor(h.centroids, dtype=torch.float32, device=self.device)
-        self._max_tiles_cache: dict = {}
+        # the compaction budget, valid for every chunk's own slice of the rows
+        self._plan = index._plan.sliced(
+            [(s, min(s + chunk_rows, n)) for s in range(0, n, chunk_rows)])
         self._copy_stream = None
         # release the wrapped index's device planes: the point of this tier
         # is that they do not fit. The host copy stays (save, fetch, and the
         # index's own re-layout)
         index._layout = None
-        index._packed = None
-        index._fused_scan.clear()
+        index._plan.reset()
 
     @property
     def n_chunks(self) -> int:
         return len(self._chunks)
-
-    def _fused_max_tiles(self, nprobe, batch) -> int | None:
-        """Compaction budget of the bin kernel's walk, valid for every chunk:
-        the max over the chunks' slices of the local probed-tile bound
-        (``sliced_max_tiles``, for a block of ``TB`` queries), cached per
-        (nprobe, block); None for the dense walk. Env
-        ``RABITQ_FUSED_COMPACT=0`` turns compaction off (read at each
-        call)."""
-        if not self._fused or not isinstance(nprobe, (int, np.integer)):
-            return None
-        if os.environ.get("RABITQ_FUSED_COMPACT", "1") == "0":
-            return None
-        bt = min(TB, ((int(batch) + 31) // 32) * 32)
-        key = (int(nprobe), bt)
-        if key not in self._max_tiles_cache:
-            n = len(self.index)
-            slices = [(s, min(s + self.chunk_rows, n)) for s in range(0, n, self.chunk_rows)]
-            self._max_tiles_cache[key] = sliced_max_tiles(
-                np.diff(self.index.host.cluster_offsets), int(nprobe), slices, bt
-            )
-        return self._max_tiles_cache[key]
 
     def _uploads(self):
         """Yield each chunk's tensors on the device, in order. On the card:
@@ -190,7 +168,7 @@ class StreamedIvfIndex:
         if filter_ids is not None:
             table = allowed_id_table(filter_ids, int(self.index.host.ids.max(initial=0)))
             allowed = torch.from_numpy(table).to(self.device)
-        max_tiles = self._fused_max_tiles(params.nprobe, q_rot.shape[0])
+        max_tiles = self._plan.max_tiles(self._scan_dtype, params.nprobe)
         probe_k = probe_k_bucket(params.nprobe, self.index.cluster_count(), self.index.scan_dtype)
         pending = [
             self._scan_chunk(cur, q_rot, params, allowed, max_tiles, probe_k)

@@ -451,10 +451,9 @@ def fused_bin_scan_cuda(
     """The CUDA kernel. An f32 query goes in as three bf16 planes
     (:func:`split_bf16x3`, :func:`query_image` "direct"); an int8 query with
     its ``q_scale`` as its bytes (mode DENSE_S8, image "dense_s8"). Counts its
-    launches in ``fused_bin_scan_cuda.dense_launches`` (no tile lists) and
-    ``fused_bin_scan_cuda.compact_launches`` (tile lists), and those with an
-    int8 query also in ``fused_bin_scan_cuda.launches`` under ``s8_dense``
-    and ``s8_compact``."""
+    launches in ``fused_bin_scan_cuda.launches`` by query and walk:
+    ``f32_dense``, ``f32_compact``, ``s8_dense`` and ``s8_compact`` (the
+    dense walk without tile lists, the compacted one with them)."""
     n, d = plane.shape
     bq = q.shape[0]
     int8_q = q_scale is not None
@@ -492,18 +491,12 @@ def fused_bin_scan_cuda(
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _cuda.check_launch(err, "fused_bin_scan")
-    if tiles is None:
-        fused_bin_scan_cuda.dense_launches += 1
-    else:
-        fused_bin_scan_cuda.compact_launches += 1
-    if int8_q:
-        fused_bin_scan_cuda.launches["s8_dense" if tiles is None else "s8_compact"] += 1
+    key = ("s8" if int8_q else "f32") + ("_dense" if tiles is None else "_compact")
+    fused_bin_scan_cuda.launches[key] += 1
     return val, idx, offered
 
 
-fused_bin_scan_cuda.dense_launches = 0
-fused_bin_scan_cuda.compact_launches = 0
-fused_bin_scan_cuda.launches = {"s8_dense": 0, "s8_compact": 0}
+fused_bin_scan_cuda.launches = {"f32_dense": 0, "f32_compact": 0, "s8_dense": 0, "s8_compact": 0}
 
 
 def fused_bin_scan_packed_cuda(

@@ -28,7 +28,6 @@ there is none; ``make_mesh(devices=["cpu"] * n)`` runs on the CPU.
 from __future__ import annotations
 
 import contextlib
-import os
 import time
 from dataclasses import dataclass
 
@@ -39,7 +38,7 @@ from ..index.build import build_codes_device, exact_t_rows
 from ..index.ivf import IvfRabitqIndex
 from ..index.scan import _pad_pow2, is_fused, probe_k_bucket, scan_kernel
 from ..ops import select
-from ..ops.fused_scan import TB, TN, sliced_max_tiles, tile_cluster_blocks
+from ..ops.fused_scan import TN, tile_cluster_blocks
 from ..ops.kmeans import KMeansResult, _assign_blocks, _kmeanspp_init, segment_sum_counts
 from ..ops.packed_scan import _KERNEL_RU, pack_bitplanes
 from ..ops.prng import PRNGKey
@@ -226,7 +225,7 @@ class _ShardedLayout:
     def __init__(self, index, mesh: Mesh | None, devices, plane_dim: int):
         self.index = index
         self.mesh = mesh or make_mesh(devices=devices)
-        index._maybe_downgrade_fused()  # degenerate geometry -> dense path
+        index.scan_dtype = index._plan.fit(index.scan_dtype)  # degenerate geometry -> dense
         lay = index.layout
         n_dev = self.mesh.shape[SHARD_AXIS]
         rows = int(lay.ids.shape[0])
@@ -261,28 +260,12 @@ class _ShardedLayout:
         elif self._packed_mode:
             (self._packed,) = shard_rows(self.mesh, pack_bitplanes(binary, plane_dim))
         (self._centroids,) = replicate(self.mesh, lay.centroids)
-        self._max_tiles_cache: dict = {}
-
-    def _fused_max_tiles(self, nprobe, batch):
-        """Per-SHARD probed-tile budget: each shard's kernel sees only its
-        own slice (``_slab_rows`` rows of the cluster-sorted rows), so the
-        budget is the max of the per-slice bounds (``sliced_max_tiles``),
-        not the whole index's, which routinely exceeds a slice's tile count
-        and would leave compaction off. Cached per (nprobe, batch tile);
-        ``RABITQ_FUSED_COMPACT=0`` (the dense walk) is read at each call."""
-        if not self._fused or not isinstance(nprobe, (int, np.integer)):
-            return None
-        if os.environ.get("RABITQ_FUSED_COMPACT", "1") == "0":
-            return None
-        bt = min(TB, ((int(batch) + 31) // 32) * 32)
-        key = (int(nprobe), bt)
-        if key not in self._max_tiles_cache:
-            rows = self._slab_rows
-            slices = [(i * rows, (i + 1) * rows) for i in range(self.mesh.shape[SHARD_AXIS])]
-            self._max_tiles_cache[key] = sliced_max_tiles(
-                np.diff(self.index._offsets), int(nprobe), slices, bt
-            )
-        return self._max_tiles_cache[key]
+        # each shard's kernel sees only its own slice of the cluster-sorted
+        # rows, so the compaction budget is the max of the per-slice bounds,
+        # not the whole index's, which routinely exceeds a slice's tile count
+        # and would leave compaction off
+        rows = self._slab_rows
+        self._plan = index._plan.sliced([(i * rows, (i + 1) * rows) for i in range(n_dev)])
 
 
 class ShardedIvfIndex(_ShardedLayout):
@@ -412,9 +395,9 @@ class ShardedIvfIndex(_ShardedLayout):
             top_k=params.top_k, nprobe=params.nprobe, rerank=params.resolved_rerank(),
             metric=index.metric, ex_bits=index.ex_bits, scan_dtype=index.scan_dtype,
             approx_topk=index.approx_topk,
-            max_tiles=self._fused_max_tiles(params.nprobe, q.shape[0]),
+            max_tiles=self._plan.max_tiles(index.scan_dtype, params.nprobe),
             probe_k=probe_k_bucket(params.nprobe, index.cluster_count(), index.scan_dtype),
-            fused_exact=index._fused_exact_ok(),
+            fused_exact=self._plan.fused_exact(index.scan_dtype),
         )
         return ids.cpu().numpy()[:b], dists.cpu().numpy()[:b]
 
@@ -461,8 +444,8 @@ class ShardedMstgIndex(_ShardedLayout):
             scan_dtype=index.scan_dtype, use_prune_epsilon=True,
             refine_ex=index.config.refine_ex, clamp_l2=True, centroid_select_l2=True,
             approx_topk=index.approx_topk,
-            max_tiles=self._fused_max_tiles(params.ef_search, q_rep[0].shape[0]),
-            fused_exact=index._fused_exact_ok(),
+            max_tiles=self._plan.max_tiles(index.scan_dtype, params.ef_search),
+            fused_exact=self._plan.fused_exact(index.scan_dtype),
             # dedup: each shard's candidates stay in the kernel's best-first
             # order, as MstgIndex keeps them through its dedup
             fused_exact_sort=not dedup,

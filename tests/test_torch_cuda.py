@@ -158,18 +158,21 @@ def test_bin_scan_kernel_matches_plain(cuda, compact, bq, shape):
                        atol=4e-3 if d == 2560 else 1e-3)
 
 
+def _k1_launches() -> int:
+    """K1's launches, every query kind and walk."""
+    return sum(fs.fused_bin_scan_cuda.launches.values())
+
+
 def _s8_bitwise(args, q_scale):
     """The DENSE_S8 kernel once, held bitwise to the plain version; the
     launch counted under its walk."""
     key = "s8_dense" if args[8] is None else "s8_compact"
-    counts = (dict(fs.fused_bin_scan_cuda.launches),
-              fs.fused_bin_scan_cuda.dense_launches + fs.fused_bin_scan_cuda.compact_launches)
+    counts = dict(fs.fused_bin_scan_cuda.launches)
     got = fs.fused_bin_scan(*args, q_scale=q_scale)
     want = fs.fused_bin_scan_plain(*args, q_scale=q_scale)
     _assert_bitwise(got, want)
-    assert fs.fused_bin_scan_cuda.launches == {**counts[0], key: counts[0][key] + 1}
-    assert (fs.fused_bin_scan_cuda.dense_launches
-            + fs.fused_bin_scan_cuda.compact_launches) == counts[1] + 1
+    assert fs.fused_bin_scan_cuda.launches == {**counts, key: counts[key] + 1}
+    assert _k1_launches() == sum(counts.values()) + 1
 
 
 # (row tiles, plane width): the base case; dim 960 padded to 1024 columns;
@@ -514,7 +517,7 @@ def test_8bit_index_on_the_card_matches_the_cpu(cuda, scan_dtype):
     kw = dict(seed=3, use_faster_config=True, scan_dtype=scan_dtype)
     gpu = IvfRabitqIndex.train_with_clusters(data, cents, assign, 8, device=cuda, **kw)
     cpu = IvfRabitqIndex.train_with_clusters(data, cents, assign, 8, device="cpu", **kw)
-    assert not gpu._fused_exact_ok()
+    assert not gpu._plan.fused_exact(gpu.scan_dtype)
     counters = fs.fused_bin_scan_packed_cuda.launches
     before = sum(counters.values()) + ps.packed_lb_plane_cuda.launches
     for nprobe in (2, 40):
@@ -530,7 +533,7 @@ def test_8bit_index_on_the_card_matches_the_cpu(cuda, scan_dtype):
         gpu.scan_dtype = "packed"  # re-laid on the card from the sorted layout
         g_ids, _ = gpu.batch_search_arrays(data[:64], SearchParams(top_k=10, nprobe=40))
         assert np.all(g_ids[:, 0] == np.arange(64))
-        assert gpu.layout.packed is None and gpu._packed is not None
+        assert gpu.layout.packed is None and gpu._plan.packed is not None
 
 
 @pytest.mark.parametrize("n", [4096 + 128, 65536 + 384])
@@ -586,7 +589,8 @@ def test_gather_scan_on_the_card_matches_the_cpu(cuda, monkeypatch):
     real = scan._gather_scan
     monkeypatch.setattr(scan, "_gather_scan", lambda *a, **k: calls.append(1) or real(*a, **k))
     params = SearchParams(top_k=10, nprobe=4)
-    assert card._gather_budget(4) == cpu._gather_budget(4) is not None
+    assert card._plan.gather_rows(card.scan_dtype, 4) == cpu._plan.gather_rows(
+        cpu.scan_dtype, 4) is not None
     g_ids, g_d = card.batch_search_arrays(data[:64], params)
     c_ids, c_d = cpu.batch_search_arrays(data[:64], params)
     # the CPU's search, and on the card the warm-up and the capture of the
@@ -657,8 +661,7 @@ def test_mstg_built_on_the_card_matches_the_cpu(cuda, scan_dtype, refine, tmp_pa
                                       "list_offsets", "centroids", "f_error", "residual_norm")},
     )
     counters = {
-        "fused8": lambda: fs.fused_bin_scan_cuda.dense_launches
-        + fs.fused_bin_scan_cuda.compact_launches,
+        "fused8": _k1_launches,
         "fused": lambda: sum(fs.fused_bin_scan_packed_cuda.launches.values()),
         "packed": lambda: ps.packed_lb_plane_cuda.launches,
     }[scan_dtype]
@@ -668,7 +671,8 @@ def test_mstg_built_on_the_card_matches_the_cpu(cuda, scan_dtype, refine, tmp_pa
     g_ids, _ = card.batch_search_arrays_pipelined(queries, params, batch_size=32)
     c_ids, _ = cpu.batch_search_arrays_pipelined(queries, params, batch_size=32)
     assert counters() > before and fht_kernel.launches > fht_before
-    assert card.scan_dtype == scan_dtype and card._fused_exact_ok() == (scan_dtype == "fused8")
+    assert card.scan_dtype == scan_dtype
+    assert card._plan.fused_exact(scan_dtype) == (scan_dtype == "fused8")
     assert np.mean([len(set(g_ids[i]) & set(c_ids[i])) / 10 for i in range(64)]) >= 0.98
     for row in g_ids:
         assert len(set(row.tolist())) == 10
@@ -756,7 +760,7 @@ def test_streamed_slab_freed_during_its_scan_is_not_reused(cuda):
     tier = StreamedIvfIndex(card, chunk_rows=1024)
     params = SearchParams(top_k=10, nprobe=8)
     b, q_rot = tier._rotate(data[:256])
-    kw = dict(allowed=None, max_tiles=tier._fused_max_tiles(8, q_rot.shape[0]), probe_k=None)
+    kw = dict(allowed=None, max_tiles=tier._plan.max_tiles(tier._scan_dtype, 8), probe_k=None)
     plain = {k: v.to(cuda) for k, v in tier._chunks[0].items()}
     want = [t.cpu() for t in tier._scan_chunk(plain, q_rot, params, **kw)]
     uploads = tier._uploads()
@@ -791,8 +795,8 @@ def test_four_shards_on_the_card_match_the_cpu(cuda, total_bits, scan_dtype):
     counters = fs.fused_bin_scan_packed_cuda.launches
 
     def launches():
-        return (fs.fused_bin_scan_cuda.dense_launches + fs.fused_bin_scan_cuda.compact_launches
-                + sum(counters.values()) + ps.packed_lb_plane_cuda.launches, fht_kernel.launches)
+        return (_k1_launches() + sum(counters.values()) + ps.packed_lb_plane_cuda.launches,
+                fht_kernel.launches)
 
     before = launches()
     for nprobe in (2, 80):
@@ -979,7 +983,8 @@ def test_graphs_equal_the_eager_body(cuda, case, monkeypatch):
         np.testing.assert_array_equal(g, w)
         np.testing.assert_array_equal(f, w)
     if case == "ivf7_compacted":
-        assert fs.fused_bin_scan_cuda.compact_launches > 0
+        k1 = fs.fused_bin_scan_cuda.launches
+        assert k1["f32_compact"] + k1["s8_compact"] > 0
 
 
 def test_graph_outputs_survive_later_replays(cuda):
@@ -1043,7 +1048,9 @@ def test_launch_counters_count_replays(cuda):
     card.batch_search_arrays_pipelined(queries[:32], params, batch_size=32)  # warm-up + capture
     (graph,) = card._fused_scan._graphs.values()
     per_replay = graph.launches
-    assert per_replay[0] > 0 and per_replay[1] + per_replay[2] == 1  # FHT; one bin scan
+    k1 = [n for (d, _), n in zip(scan._launch_counters(), per_replay)
+          if d is fs.fused_bin_scan_cuda.launches]
+    assert per_replay[0] > 0 and sum(k1) == 1  # FHT; one bin scan
     after_first = scan._read_launches()
     # the warm-up launched once, the capture recorded once and ran once at its replay
     assert [a - s for a, s in zip(after_first, start)] == [2 * n for n in per_replay]
@@ -1062,8 +1069,7 @@ def test_jax_shaped_index_on_the_card_matches_the_cpu(cuda):
     made = IvfRabitqIndex(cpu.dim, cpu.padded_dim, cpu.metric, cpu.rotator, cpu.ex_bits,
                           cpu.host, "fused8", device=cuda)
     assert made._layout is None and made.device.type == "cuda"
-    before = (fht_kernel.launches,
-              fs.fused_bin_scan_cuda.dense_launches + fs.fused_bin_scan_cuda.compact_launches)
+    before = (fht_kernel.launches, _k1_launches())
     for nprobe in (2, 40):
         params = SearchParams(top_k=10, nprobe=nprobe)
         m_ids, m_d = made.batch_search_arrays_pipelined(data[:64], params, batch_size=32)
@@ -1072,8 +1078,7 @@ def test_jax_shaped_index_on_the_card_matches_the_cpu(cuda):
         np.testing.assert_array_equal(m_ids, k_ids)
         np.testing.assert_array_equal(m_d, k_d)
         assert np.mean([len(set(m_ids[i]) & set(c_ids[i])) / 10 for i in range(64)]) >= 0.98
-    after = (fht_kernel.launches,
-             fs.fused_bin_scan_cuda.dense_launches + fs.fused_bin_scan_cuda.compact_launches)
+    after = (fht_kernel.launches, _k1_launches())
     assert after[0] > before[0] and after[1] > before[1]
 
 

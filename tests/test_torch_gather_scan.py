@@ -102,7 +102,7 @@ def test_budget_helpers_match_jax():
 def test_gather_matches_jax(pair, monkeypatch):
     data, jidx, tidx = pair
     monkeypatch.setenv("RABITQ_GATHER", "1")
-    assert tidx._gather_budget(4) == jidx._gather_budget(4) == 512
+    assert tidx._plan.gather_rows(tidx.scan_dtype, 4) == jidx._gather_budget(4) == 512
     _assert_same(*_search(jidx, tidx, data[:32] + 0.01, 10, 4))
     # the gather scan, not the bin scan, served the port's search
     calls = []
@@ -126,7 +126,8 @@ def test_gather_gate_declines_where_jax_declines(l2_pair, monkeypatch):
 
     def decisions():
         jidx._gather_cache = {}
-        return [(tidx._gather_budget(p), jidx._gather_budget(p)) for p in (1, 4, 16, 40)]
+        return [(tidx._plan.gather_rows(tidx.scan_dtype, p), jidx._gather_budget(p))
+                for p in (1, 4, 16, 40)]
 
     assert all(t is None and j is None for t, j in decisions())  # opt-in
     monkeypatch.setenv("RABITQ_GATHER", "1")
@@ -144,7 +145,7 @@ def test_gather_gate_declines_where_jax_declines(l2_pair, monkeypatch):
         tidx.scan_dtype = jidx.scan_dtype = "fused8"
     wide = tr.IvfRabitqIndex.train(data[:1500], nlist=16, total_bits=8, seed=3,
                                    scan_dtype="fused8", device="cpu")
-    assert wide._gather_budget(4) is None  # raw ex codes: no TOTAL plane (ivf.py:807)
+    assert wide._plan.gather_rows(wide.scan_dtype, 4) is None  # raw ex codes: no TOTAL plane
 
 
 def test_gather_single_query_and_batch_agree(l2_pair, monkeypatch):
@@ -175,10 +176,12 @@ def test_switches_take_the_jax_path(l2_pair, monkeypatch, env):
     jidx._max_tiles_cache = {}
     jidx._gather_cache = {}
     nprobe = 4
-    assert tidx._fused_exact_ok() == jidx._fused_exact_ok()
-    assert tidx._gather_budget(nprobe) == jidx._gather_budget(nprobe)
+    plan = tidx._plan
+    assert plan.fused_exact(tidx.scan_dtype) == jidx._fused_exact_ok()
+    assert plan.gather_rows(tidx.scan_dtype, nprobe) == jidx._gather_budget(nprobe)
     for batch in (1, 16):
-        t_tiles, j_tiles = tidx._fused_max_tiles(nprobe, batch), jidx._fused_max_tiles(nprobe, batch)
+        t_tiles = plan.max_tiles(tidx.scan_dtype, nprobe)
+        j_tiles = jidx._fused_max_tiles(nprobe, batch)
         assert (t_tiles is None) == (j_tiles is None)
         if env.get("RABITQ_FUSED_COMPACT") == "force":
             assert t_tiles == j_tiles == 8  # every 512-row tile of 4000 rows

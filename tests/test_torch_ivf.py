@@ -79,12 +79,11 @@ def test_carried_index_state(pair):
     jdev, tdev = jidx.device, tidx.layout
     np.testing.assert_array_equal(tdev.ex.numpy(), np.asarray(jdev.ex))
     np.testing.assert_array_equal(tdev.ids.numpy(), np.asarray(jdev.ids))
-    np.testing.assert_array_equal(tidx._c_blk.numpy(), np.asarray(jidx._fused_cblk))
+    np.testing.assert_array_equal(tidx._plan.c_blk.numpy(), np.asarray(jidx._fused_cblk))
     for nprobe in (1, 4, 6, 48):
-        for batch in (1, 16, 256):
-            # the port sizes its lists per 32-query block: same rule, own block
-            bt = min(32, ((batch + 31) // 32) * 32)
-            assert tidx._fused_max_tiles(nprobe, batch) == _jax_max_tiles(jidx, nprobe, bt)
+        # the port sizes its lists per 32-query block, whatever the batch:
+        # the JAX rule at that block
+        assert tidx._plan.max_tiles(tidx.scan_dtype, nprobe) == _jax_max_tiles(jidx, nprobe, 32)
 
 
 def _jax_max_tiles(jidx, nprobe, bt):
@@ -248,7 +247,7 @@ def test_unported_paths_raise():
     wide_bits = tr.IvfRabitqIndex.train(
         data, nlist=8, total_bits=8, scan_dtype="fused8", device="cpu"
     )
-    assert not wide_bits._fused_exact_ok()  # raw ex plane: the two-stage scan
+    assert not wide_bits._plan.fused_exact(wide_bits.scan_dtype)  # raw ex plane: two-stage
     assert wide_bits.search(data[0], params)[0].id == 0
     # 300 clusters over 600 rows: a 512-row tile spans > 128 clusters
     tiny = tr.IvfRabitqIndex.train_with_clusters(
@@ -260,7 +259,7 @@ def test_unported_paths_raise():
     idx = tr.IvfRabitqIndex.train_with_clusters(
         wide, wide[:2].copy(), np.arange(600) % 2, 7, scan_dtype="fused8", device="cpu"
     )
-    assert idx.scan_dtype == "fused8" and not idx._fused_exact_ok()  # 2752 > 2560
+    assert idx.scan_dtype == "fused8" and not idx._plan.fused_exact("fused8")  # 2752 > 2560
     assert idx.search(wide[0], tr.SearchParams(top_k=5, nprobe=2))[0].id == 0
 
 
@@ -283,7 +282,7 @@ def test_clamp_l2_clamps_after_ranking(pair):
     q_rot = tidx.rotator.rotate(torch.from_numpy(data[:8]))
     args = (q_rot, lay.centroids, lay.binary, lay.ex, lay.f_add, lay.f_rescale, lay.f_error,
             lay.f_add_ex, lay.f_rescale_ex, lay.cluster_of, lay.valid, lay.ids)
-    kw = dict(nprobe=6, fused_cblk=tidx._c_blk, top_k=10, rerank=400, metric=tidx.metric,
+    kw = dict(nprobe=6, fused_cblk=tidx._plan.c_blk, top_k=10, rerank=400, metric=tidx.metric,
               ex_bits=tidx.ex_bits, scan_dtype="fused8", fused_exact=True)
     ids, d = scan_kernel(*args, **kw)
     c_ids, c_d = scan_kernel(*args, clamp_l2=True, **kw)

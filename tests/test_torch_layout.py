@@ -101,6 +101,32 @@ def test_fused_geometry_matches_jax(c):
     assert tfs.n_bins() == jfs.n_bins() and tfs.BIG == jfs.BIG
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_plan_budget_is_the_jax_inline_formula(seed):
+    """One formula serves every owner of a scan plan: over a whole index
+    (one slice) the plan's budget, ``sliced_max_tiles``, equals the JAX
+    IVF index's inline formula at the port's 32-query block, on random list
+    sizes with empty lists."""
+    from rabitq_tpu_torch.index.scan_plan import ScanPlan
+
+    rng = np.random.default_rng(seed)
+    for _ in range(60):
+        c = int(rng.integers(1, 3001))
+        sizes = rng.multinomial(int(rng.integers(1, 400)) * c, rng.dirichlet(np.ones(c) * 0.7))
+        sizes[rng.random(c) < 0.1] = 0
+        if not sizes.any():
+            sizes[0] = 1
+        offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+        plan = ScanPlan(128, 6, offsets=offsets)
+        n_tiles = jl.pad_rows(int(sizes.sum()), jfs.TN) // jfs.TN
+        for nprobe in map(int, rng.integers(1, 65, 4)):
+            want = None
+            if jfs.expected_tile_cost(sizes, nprobe, batch_tile=32) < 0.6 * n_tiles:
+                bound = jfs.probed_tile_bound(sizes, nprobe, batch_tile=32)
+                want = min(1 << (bound - 1).bit_length(), n_tiles)
+            assert plan.max_tiles("fused8", nprobe) == want, (c, nprobe)
+
+
 def test_degenerate_geometry_and_exact_width():
     tiny = np.full(400, 2)  # 2-row clusters: a 512-row tile spans 256
     assert not tfs.fused_geometry_ok(tiny) and not jfs.fused_geometry_ok(tiny)

@@ -153,7 +153,7 @@ def test_carried_index_matches_jax(built, metric, rotator, scan_dtype, refine):
     t_ids, t_d = tidx.batch_search_arrays_pipelined(
         queries, tr.MstgSearchParams(**params), batch_size=16)
     assert tidx.scan_dtype == jidx.scan_dtype == scan_dtype  # no downgrade
-    assert tidx._fused_exact_ok() == jidx._fused_exact_ok()
+    assert tidx._plan.fused_exact(tidx.scan_dtype) == jidx._fused_exact_ok()
     assert t_ids.shape == (32, TOP_K) and t_ids.dtype == np.int32 and t_d.dtype == np.float32
     assert np.all(np.diff(t_d, axis=1) >= 0)
     _agree(np.asarray(j_ids), np.asarray(j_d), t_ids, t_d, exact=scan_dtype == "f32")

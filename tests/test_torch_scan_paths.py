@@ -107,7 +107,7 @@ def test_scan_path_matches_jax(jax_indexes, scan_dtype, total_bits, metric):
     j_ids, j_d = jidx.batch_search_arrays(queries, jr.SearchParams(TOP_K, NPROBE))
     t_ids, t_d = tidx.batch_search_arrays(queries, tr.SearchParams(TOP_K, NPROBE))
     assert tidx.scan_dtype == jidx.scan_dtype == scan_dtype
-    assert tidx._fused_exact_ok() == jidx._fused_exact_ok()
+    assert tidx._plan.fused_exact(tidx.scan_dtype) == jidx._fused_exact_ok()
     assert t_ids.shape == (16, TOP_K) and t_ids.dtype == np.int32 and t_d.dtype == np.float32
     assert np.all(np.diff(t_d, axis=1) >= 0)
     _agree(j_ids, j_d, t_ids, t_d, exact=scan_dtype == "f32")
@@ -234,7 +234,7 @@ def test_scan_kernel_options_match_jax(jax_indexes, case):
     t_out = t_scan(
         q_rot, lay.centroids, lay.binary, lay.ex, lay.f_add, lay.f_rescale, lay.f_error,
         lay.f_add_ex, lay.f_rescale_ex, lay.cluster_of, t_allowed, lay.ids,
-        NPROBE, eps, tidx._packed, tidx._c_blk, metric=tidx.metric, **common,
+        NPROBE, eps, tidx._plan.packed, tidx._plan.c_blk, metric=tidx.metric, **common,
     )
     j_ids, j_d = (np.asarray(a) for a in j_out)
     t_ids, t_d = (a.numpy() for a in t_out)
@@ -270,9 +270,9 @@ def test_wide_plane_routes_to_two_stage_fused():
     params = (TOP_K, 4)
     j_ids, j_d = jidx.batch_search_arrays(data[:6], jr.SearchParams(*params))
     t_ids, t_d = tidx.batch_search_arrays(data[:6], tr.SearchParams(*params))
+    assert not jidx._fused_exact_ok() and not tidx._plan.fused_exact(tidx.scan_dtype)
     for idx in (jidx, tidx):
-        assert idx.padded_dim == 3072 and not idx._fused_exact_ok()
-        assert idx.scan_dtype == "fused8"
+        assert idx.padded_dim == 3072 and idx.scan_dtype == "fused8"
     # a self-distance near 0 is what is left of f32 terms ~2 * 3072 that
     # cancel, summed in another order: an absolute floor of 1e-5 of them
     _agree(j_ids, j_d, t_ids, t_d, exact=False, abs_tol=1e-5 * 2 * 3072)
@@ -334,7 +334,7 @@ def test_default_scan_dtype_is_the_dense_bf16_path():
     assert jidx.approx_topk and tidx.approx_topk
     params = (TOP_K, 8)
     tidx.batch_search_arrays(data[:8], tr.SearchParams(*params))
-    assert tidx.layout.packed is None and tidx._c_blk is None  # nothing fused was built
+    assert tidx.layout.packed is None and tidx._plan.c_blk is None  # nothing fused was built
     carried = _carry(jidx, jidx.scan_dtype)
     j_ids, j_d = jidx.batch_search_arrays(data[:8], jr.SearchParams(*params))
     t_ids, t_d = carried.batch_search_arrays(data[:8], tr.SearchParams(*params))

@@ -356,10 +356,10 @@ def test_compacted_walk_equals_dense_walk(monkeypatch, scan_dtype):
                                    use_faster_config=True, scan_dtype=scan_dtype, device="cpu")
     ts = tsh.ShardedIvfIndex(tidx, _mesh(2))
     queries = data[:8] + 0.05
-    assert ts._fused_max_tiles(1, 8) is not None
+    assert ts._plan.max_tiles(scan_dtype, 1) is not None
     compact = ts.batch_search_arrays(queries, tr.SearchParams(TOP_K, 1))
     monkeypatch.setenv("RABITQ_FUSED_COMPACT", "0")
-    assert ts._fused_max_tiles(1, 8) is None  # re-read at each call
+    assert ts._plan.max_tiles(scan_dtype, 1) is None  # re-read at each call
     dense = ts.batch_search_arrays(queries, tr.SearchParams(TOP_K, 1))
     np.testing.assert_array_equal(compact[0], dense[0])
     np.testing.assert_array_equal(compact[1], dense[1])

@@ -242,7 +242,7 @@ def test_wrapped_index_serves_again(jax_index, scan_dtype):
     t_before, t_d_before = tidx.batch_search_arrays(queries, tr.SearchParams(*params))
     JaxStreamed(jidx, chunk_rows=512)
     StreamedIvfIndex(tidx, chunk_rows=512)
-    assert jidx._device is None and tidx._layout is None and tidx._packed is None
+    assert jidx._device is None and tidx._layout is None and tidx._plan.packed is None
     j_after, _ = jidx.batch_search_arrays(queries, jr.SearchParams(*params))
     t_after, t_d_after = tidx.batch_search_arrays(queries, tr.SearchParams(*params))
     assert tidx._layout is not None

@@ -66,12 +66,12 @@ def main(argv=None) -> int:
     torch.cuda.synchronize(dev)
     gt, _ = exact_knn.top_k(rows, queries, s["top_k"])
     recall = chip_smoke.recall_at(ids, gt.cpu().numpy(), s["top_k"])
-    tiles = index._fused_max_tiles(ef, batch=s["batch_size"])
+    tiles = index._plan.max_tiles(index.scan_dtype, ef)
     n_tiles = pad_rows(index.total_rows, TN) // TN
     walk = "dense" if tiles is None else "compacted"
     chip_smoke.log(
         f"serve ef {ef} eps {s['pruning_epsilon']}: recall@10 {recall:.4f}; scan_dtype "
-        f"{index.scan_dtype}, EXACT {index._fused_exact_ok()}, {walk} walk "
+        f"{index.scan_dtype}, EXACT {index._plan.fused_exact(index.scan_dtype)}, {walk} walk "
         f"({tiles if tiles is not None else n_tiles} of {n_tiles} tiles); dedup "
         f"{index._has_replicas()}; device memory peak {torch.cuda.max_memory_allocated(dev)} B")
     params = MstgSearchParams(top_k=s["top_k"], ef_search=ef, pruning_epsilon=s["pruning_epsilon"])
