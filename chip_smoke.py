@@ -15,7 +15,14 @@ Phases, one line each:
      Sylvester matrix, torch.mm); then K1's int8-query mode (DENSE_S8)
      bitwise against its plain version on synthetic inputs at the MSTG
      cell's shape and at 2,560 columns, both walks, timed beside the
-     three-plane mode on the same query as f32;
+     three-plane mode on the same query as f32; then the gather-dot kernel
+     (``csrc/gather_dot.cu``, stage 2's re-rank and the gather scan) on
+     synthetic blocks over 1,000,064-row planes: gist1m-ivf8.batch's block
+     (256 queries x 400 survivors, the binary and raw ex planes, 1,024
+     columns), the TOTAL plane at 7 bits (960 of 1,024 columns), int32 raw ex
+     codes, one query and the gather scan's block (256 x 8,192): one launch a
+     call, every dot within the f32 summation tolerance of its plain version
+     (``ops/gather_dot.sum_tolerance``), kernel and plain times and the bound;
   4. main path at full size: a seeded 1M x 960 dataset (the recipe of
      bench.py's make_workload, drawn on the card), IvfRabitqIndex.train
      (nlist 4096, 7 bits, FhtKac, faster config, fused8), then 2048 queries
@@ -43,8 +50,9 @@ Phases, one line each:
      contract on a g_comb built from the same inputs, with a bf16 torch.mm
      of the unpacked planes beside it as the library time of the dot alone;
      the packed bin kernel with an int8 query and with a bf16 query, both
-     walks), and a profile of a packed run at nprobe 256, a fused8 run at
-     nprobe 16 and a fused run at nprobe 256.
+     walks; the gather-dot kernel on one fused8 block's survivors at nprobe
+     16, checked and timed as in phase 3), and a profile of a packed run at
+     nprobe 256, a fused8 run at nprobe 16 and a fused run at nprobe 256.
 Between 6 and 7, on the 7-bit index and the same data:
   persistence: save to RBQ1 (twice; the two files byte-identical), load_index
      with scan_dtype fused8, serve nprobe 64 with ids and distances equal to
@@ -505,6 +513,133 @@ def check_encode(rows):
     encode_rows_kernel.launches = counted
     return {**out[("int8", 1000)], "int4_ms": out[("int4", 1000)]["ms"],
             "one_row_ms": out[("int8", 1)]["ms"]}
+
+
+# the synthetic blocks of the gather-dot phase: name -> (queries, slots, D, plane width, planes)
+GATHER_DOT_SHAPES = {
+    "cell": (256, 400, 1024, 1024, "binary+raw7"),  # gist1m-ivf8.batch's re-rank block
+    "total7": (256, 400, 960, 1024, "total"),  # the TOTAL plane at 7 bits, width-padded
+    "int32_9bit": (256, 400, 1024, 1024, "binary+int32"),  # raw ex codes past 7 bits
+    "one_query": (1, 400, 1024, 1024, "binary+raw7"),
+    "gather": (256, 8192, 1024, 1024, "total"),  # the gather scan's block at nprobe 16
+}
+GATHER_DOT_ROWS = 1_000_064  # rows of the synthetic planes (the 1M-row layout's)
+
+
+def gather_dot_inputs(b, r, d, width, planes, seed, n_sets=4):
+    """Synthetic gather-dot inputs on the card: ``n_sets`` sets of [b, r]
+    random row indices into planes of GATHER_DOT_ROWS rows (each set's rows
+    are other rows, so a timed run of the sets in turn reads them from device
+    memory), and the (plane, query) pairs: the {0,1} binary plane with the
+    bf16-rounded query beside raw ex codes (0..127 int8, or 0..511 int32)
+    with the f32 query, or TOTAL codes (0..127) with the bf16-rounded one."""
+    import torch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def codes(hi, dtype):
+        return torch.randint(0, hi, (GATHER_DOT_ROWS, width), generator=g, device=dev,
+                             dtype=dtype)
+
+    rows = [torch.randint(0, GATHER_DOT_ROWS, (b, r), generator=g, device=dev)
+            for _ in range(n_sets)]
+    q_rot = torch.randn((b, d), generator=g, device=dev)
+    q_op = q_rot.to(torch.bfloat16).to(torch.float32)
+    if planes == "total":
+        return rows, ((codes(128, torch.int8), q_op),)
+    ex = codes(128, torch.int8) if planes == "binary+raw7" else codes(512, torch.int32)
+    return rows, ((codes(2, torch.int8), q_op), (ex, q_rot))
+
+
+def check_gather_dot_block(label, rows_sets, pairs):
+    """The gather-dot kernel on one block: one launch a call; every dot
+    finite and within ``sum_tolerance`` of the plain version (gather, f32
+    copy, cuBLAS batched GEMV in full f32; sub-blocks of 1 GiB of f32 codes);
+    the kernel's time over the row sets in turn (40 calls queued behind a
+    long product, so that the wrapper's host time does not pace a one-query
+    block), the plain version's (5), and the bound: the gathered rows' bytes
+    up to D, once a slot, the queries, the indices and the dots once, at
+    3.35 TB/s. Launches made here are not counted. Returns the kernel
+    table's numbers, with the worst ratio of a difference to its tolerance
+    (``tol_ratio``)."""
+    import torch
+    from rabitq_tpu_torch.ops import gather_dot as gd
+
+    counted = dict(gd.gather_dot_kernel.launches)
+    rows = rows_sets[0]
+    key = "two_planes" if len(pairs) == 2 else "one_plane"
+    got = gd.gather_dot_kernel(rows, *pairs)
+    if gd.gather_dot_kernel.launches[key] != counted[key] + 1:
+        raise AssertionError(f"{label}: not one launch a call")
+    allow_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want = gd.gather_dot_plain(rows, *pairs, max_bytes=1 << 30)
+        plain_ms = cuda_ms(lambda: gd.gather_dot_plain(rows, *pairs, max_bytes=1 << 30), 5)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+    err = ratio = 0.0
+    for (plane, q), g_, w in zip(pairs, got, want):
+        diff = (g_ - w).abs()
+        tol = gd.sum_tolerance(rows, plane, q)
+        if not bool(torch.isfinite(g_).all()) or bool((diff > tol).any()):
+            raise AssertionError(f"{label}: a dot beyond the f32 summation tolerance of the plain "
+                                 f"version (max {float(diff.max())})")
+        err = max(err, float(diff.max()))
+        ratio = max(ratio, float((diff / tol.clamp_min(1e-30)).max()))
+    turn = itertools.count()
+    ms = queued_us(lambda: gd.gather_dot_kernel(rows_sets[next(turn) % len(rows_sets)], *pairs),
+                   40) / 1e3
+    b, r = rows.shape
+    d = pairs[0][1].shape[1]
+    n_bytes = rows.numel() * 8 + sum(b * r * (d * plane.element_size() + 4) + q.numel() * 4
+                                     for plane, q in pairs)
+    bound = n_bytes / HBM_BYTES_PER_S * 1e3
+    gd.gather_dot_kernel.launches.update(counted)
+    log(f"{label} [{b} x {r}, D {d}, {' + '.join(str(p.dtype) for p, _ in pairs)}]: one launch, "
+        f"every dot within the f32 summation tolerance of the plain version (max abs diff "
+        f"{err:.3g}, worst {ratio:.3f} of its tolerance); kernel {ms:.4f} ms, plain {plain_ms:.3f} "
+        f"ms, bound {bound:.4f} ms ({n_bytes} bytes; kernel at {ms / bound:.2f}x)")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="bytes", err=err,
+                tol_ratio=ratio, library_ms=None)
+
+
+def check_gather_dot():
+    """The gather-dot kernel (``csrc/gather_dot.cu``) on the synthetic
+    blocks of GATHER_DOT_SHAPES (:func:`check_gather_dot_block`). Returns
+    {shape: numbers}."""
+    import torch
+
+    out = {}
+    for name, (b, r, d, width, planes) in GATHER_DOT_SHAPES.items():
+        rows_sets, pairs = gather_dot_inputs(b, r, d, width, planes, seed=23)
+        out[name] = check_gather_dot_block(f"gather-dot {name}", rows_sets, pairs)
+        del rows_sets, pairs
+        torch.cuda.empty_cache()
+    return out
+
+
+def recorded_gather_dot(run):
+    """(rows, pairs) of the first gather-dot call ``run()`` makes (copies of
+    the rows and queries; the planes as they are); the call runs as it
+    would."""
+    from rabitq_tpu_torch.index import scan
+
+    seen = []
+    real = scan.gather_dot
+
+    def spy(rows, *pairs, **kw):
+        if not seen:
+            seen.append((rows.clone(), tuple((p, q.clone()) for p, q in pairs)))
+        return real(rows, *pairs, **kw)
+
+    scan.gather_dot = spy
+    try:
+        run()
+    finally:
+        scan.gather_dot = real
+    return seen[0]
 
 
 def bin_scan_bound(args, kw):
@@ -1212,11 +1347,14 @@ def zero_launches():
     from rabitq_tpu_torch.ops.encode import encode_rows_kernel
     from rabitq_tpu_torch.ops.fht import fht_kernel
     from rabitq_tpu_torch.ops.fused_scan import fused_bin_scan_cuda, fused_bin_scan_packed_cuda
+    from rabitq_tpu_torch.ops.gather_dot import gather_dot_kernel
     from rabitq_tpu_torch.ops.kmeans import running_sum_kernel, segment_sum_kernel
     from rabitq_tpu_torch.ops.packed_scan import packed_lb_plane_cuda, packed_lb_scan_cuda
     from rabitq_tpu_torch.ops.select import top_k_cuda
 
     encode_rows_kernel.launches = 0
+    for key in gather_dot_kernel.launches:
+        gather_dot_kernel.launches[key] = 0
     fht_kernel.launches = 0
     for key in fused_bin_scan_cuda.launches:
         fused_bin_scan_cuda.launches[key] = 0
@@ -1257,6 +1395,7 @@ def read_launches(path, needed):
     back beside ``needed``'s, for the kernel line."""
     from rabitq_tpu_torch.ops.fht import fht_kernel
     from rabitq_tpu_torch.ops.fused_scan import fused_bin_scan_packed_cuda
+    from rabitq_tpu_torch.ops.gather_dot import gather_dot_kernel
     from rabitq_tpu_torch.ops.kmeans import running_sum_kernel, segment_sum_kernel
     from rabitq_tpu_torch.ops.packed_scan import packed_lb_plane_cuda
 
@@ -1268,6 +1407,7 @@ def read_launches(path, needed):
               "packed_lb_plane": packed_lb_plane_cuda.launches}
     counts.update({f"fused_bin_scan_packed_{k}": v
                    for k, v in fused_bin_scan_packed_cuda.launches.items()})
+    counts.update({f"gather_dot_{k}": v for k, v in gather_dot_kernel.launches.items()})
     sites = select_counts()
     counts.update(sites)
     counts = {k: counts[k] for k in needed}
@@ -1400,7 +1540,7 @@ def check_gather(index, queries_np, gt):
             raise AssertionError("the gather scan's gate declined at nprobe 16")
         zero_launches()
         serve(index, queries_np, nprobe)
-        launches = read_launches("gather", ("fht", "select"))
+        launches = read_launches("gather", ("fht", "select", "gather_dot_one_plane"))
         gather = measure("gather")
     finally:
         del os.environ["RABITQ_GATHER"], os.environ["RABITQ_GATHER_MAX"]
@@ -1884,7 +2024,8 @@ def check_jax_shaped_brute_force(index, queries_np, params, want_ids):
     t0 = time.perf_counter()
     ids = bf_ids(fresh, queries_np, params)
     first_s = time.perf_counter() - t0
-    launches = read_launches("JAX-shaped brute force", ("fht", "packed_lb_plane", "select"))
+    launches = read_launches("JAX-shaped brute force", ("fht", "packed_lb_plane", "select",
+                                                        "gather_dot_one_plane"))
     require_equal("JAX-shaped brute force packed ids", ids, want_ids)
     log(f"JAX-shaped brute force (host assigned to BruteForceRabitqIndex(..., None, "
         f"\"packed\")): {len(fresh)} rows; layout and the first packed run {first_s:.2f} s; "
@@ -2015,7 +2156,8 @@ def check_brute_force(data, queries_np, gt):
         if recall < RECALL_FLOOR:
             raise AssertionError(f"brute force {scan_dtype}: recall@10 {recall:.4f} < "
                                  f"{RECALL_FLOOR}")
-    launches = read_launches("brute-force", ("fht", "packed_lb_plane", "select"))
+    launches = read_launches("brute-force", ("fht", "packed_lb_plane", "select",
+                                             "gather_dot_one_plane"))
     for scan_dtype in ("packed", "bf16"):
         index.scan_dtype = scan_dtype
         check_fused(f"brute force {scan_dtype}", index,
@@ -2572,7 +2714,8 @@ def check_streamed(index, queries_np, gt):
             tier.batch_search_arrays(queries_np, params)
             qps[nprobe].append(len(queries_np) / (time.perf_counter() - t0))
     launches = read_launches("streamed", ("fht", "fused_bin_scan_packed_int8_compact",
-                                          "fused_bin_scan_packed_int8_dense", "select"))
+                                          "fused_bin_scan_packed_int8_dense", "select",
+                                          "gather_dot_one_plane"))
     walks = {16: tier._plan.max_tiles(tier._scan_dtype, 16),
              256: tier._plan.max_tiles(tier._scan_dtype, 256)}
     for nprobe in (16, 256):
@@ -2902,7 +3045,8 @@ def check_sharded_8bit(index8, queries_np, gt):
             lambda: serve_blocks(lambda q: w.batch_search_arrays(q, params), queries_np),
             n, QPS_RUNS_8BIT)
         launches[f"IVF total_bits=8 {scan_dtype}"] = read_launches(
-            f"sharded total_bits=8 {scan_dtype} ({SHARDS} shards)", ("fht", needed, "select"))
+            f"sharded total_bits=8 {scan_dtype} ({SHARDS} shards)",
+            ("fht", needed, "select", "gather_dot_two_planes"))
         recall = check_served(f"sharded total_bits=8 {scan_dtype}", ids, d, n, gt)
         log(f"serve sharded {SHARDS} shards total_bits=8 {scan_dtype} nprobe={nprobe}: recall@10 "
             f"{recall:.4f}; QPS over {QPS_RUNS_8BIT} runs (median [min, max]) {np.median(qps):.0f} "
@@ -3076,6 +3220,7 @@ def main() -> int:
         from rabitq_tpu_torch.ops.encode import encode_rows_kernel
         from rabitq_tpu_torch.ops.fht import fht_kernel
         from rabitq_tpu_torch.ops.fused_scan import fused_bin_scan_packed_cuda
+        from rabitq_tpu_torch.ops.gather_dot import gather_dot_kernel
         from rabitq_tpu_torch.ops.kmeans import running_sum_kernel, segment_sum_kernel
         from rabitq_tpu_torch.ops.packed_scan import packed_lb_plane_cuda, packed_lb_scan_cuda
     except ImportError as e:
@@ -3096,7 +3241,7 @@ def main() -> int:
                "fused_bin_scan": {"direct": (0,), "dense_s8": (1,)},
                "packed_bin_scan": {"bits_bf16": (0,), "bits_s8": (1,)},
                "packed_lb_scan": {"both epilogues": ()},
-               "build_sums": {}, "select": {}, "encode_queries": {}}
+               "build_sums": {}, "select": {}, "encode_queries": {}, "gather_dot": {}}
     for name, text in build_logs.items():
         for k in _cuda.ptxas_report(text):
             log(f"  {name}: {k['kernel']}: {k['registers']} registers, {k['smem']} bytes static "
@@ -3113,6 +3258,9 @@ def main() -> int:
     t0 = time.perf_counter()
     check_s8_shapes()
     log(f"phase seconds: K1 int8 query {time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    gather_dot_synthetic = check_gather_dot()
+    log(f"phase seconds: gather-dot {time.perf_counter() - t0:.1f}")
 
     # ---- main path ----
     dev = torch.device("cuda")
@@ -3304,6 +3452,7 @@ def main() -> int:
     launches8["running_sum"] = running_sum_kernel.launches
     launches8["select"] = select_counts()["select"]
     launches8["encode_queries"] = encode_rows_kernel.launches  # the int8 upload blocks
+    launches8["gather_dot_two_planes"] = gather_dot_kernel.launches["two_planes"]  # stage 2
     # the TPU contract's epilogue is on no path (the sharded "packed" scan
     # takes G_TABLE, as the in-memory one does)
     g_plane_launches = packed_lb_scan_cuda.launches
@@ -3336,6 +3485,12 @@ def main() -> int:
         eagerly(index8, lambda: index8.batch_search_arrays(block, SearchParams(10, 16)))
     p_int8_compact = check_bin_scan(index8, queries_np, 16, "compacted")
     p_int8_dense = check_bin_scan(index8, queries_np, 256, "dense")
+    rows_s2, pairs_s2 = recorded_gather_dot(lambda: eagerly(
+        index8, lambda: index8.batch_search_arrays(block, SearchParams(10, 16))))
+    gather_dot_main = check_gather_dot_block(
+        "gather-dot main path (8 bits fused8 nprobe 16, one 256-query block)", [rows_s2],
+        pairs_s2)
+    del rows_s2, pairs_s2
     profile_serving(index8, queries_np, 16, label="total_bits=8 fused8 ")
     index8.scan_dtype = "fused"
     p_bf16_compact = check_bin_scan(index8, queries_np, 16, "compacted")
@@ -3432,6 +3587,22 @@ def main() -> int:
                  encode),
          "host_ms": encode["host_ms"], "int4_ms": encode["int4_ms"],
          "one_row_ms": encode["one_row_ms"]},
+    ]
+    # not a TPU kernel: it stands where the JAX package gathers survivor rows
+    # and dots them with jnp.take + einsum (stage 2's re-rank, the gather scan)
+    gather_src, stage2_jax = "rabitq_tpu_torch/csrc/gather_dot.cu", "rabitq_tpu/index/scan.py:658"
+    gather_launches = {k: sum(p.get(f"gather_dot_{k}", 0) for p in paths)
+                       for k in ("one_plane", "two_planes")}
+    kernels.append({**entry("gather_dot_two_planes", gather_src, stage2_jax,
+                            gather_launches["two_planes"], gather_dot_main),
+                    "tol_ratio": gather_dot_main["tol_ratio"]})
+    kernels += [
+        {**entry(f"gather_dot_{name}_synthetic", gather_src,
+                 "rabitq_tpu/index/scan.py:576" if name == "gather" else stage2_jax,
+                 gather_launches["two_planes" if "+" in GATHER_DOT_SHAPES[name][4]
+                                 else "one_plane"], r),
+         "tol_ratio": r["tol_ratio"]}
+        for name, r in gather_dot_synthetic.items()
     ]
     kernels += [
         entry(f"fused_bin_scan_mstg_{variant}_ef{ef}", scan_src, scan_tpu,

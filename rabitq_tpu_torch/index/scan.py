@@ -17,8 +17,10 @@ Per query block, :func:`scan_kernel` ranks the centroids, marks the first
   clusters' rows of each query gathered and scored exactly, no bins and no
   survivor cut (:func:`_gather_scan`).
 
-The products, gathers and selections outside the kernels are torch ops, as
-they are XLA ops in the reference. :func:`make_fused_search` is what the
+Stage 2 and the gather scan dot the gathered code rows with the query
+through ``ops/gather_dot`` (one kernel on the card). The other products,
+gathers and selections outside the kernels are torch ops, as they are XLA
+ops in the reference. :func:`make_fused_search` is what the
 indexes call: query decode, rotation and :func:`scan_kernel` as one search,
 one CUDA graph replay a dispatch on the card (the reference's one jitted
 program).
@@ -40,6 +42,7 @@ from ..ops.fused_scan import (
     fused_bin_scan_packed_cuda,
     fused_select,
 )
+from ..ops.gather_dot import gather_dot, gather_dot_kernel
 from ..ops.packed_scan import (
     packed_lb_plane,
     packed_lb_plane_cuda,
@@ -302,7 +305,7 @@ def gather_budget_bucket(cluster_sizes, nprobe) -> int | None:
 
 
 _DOT_ROWS = 1 << 17  # code rows converted per product of _stage1_dots
-_GATHER_BYTES = 1 << 30  # f32 code rows one query sub-block of the gather scan holds
+_GATHER_BYTES = 1 << 30  # f32 code rows one query sub-block of the gather scan holds on the CPU
 
 
 def _stage1_dots(q_rot: torch.Tensor, codes: torch.Tensor, scan_dtype: str) -> torch.Tensor:
@@ -566,12 +569,11 @@ def _gather_scan(
     Each query's probed clusters (``ranked`` best-first, ``within`` the
     probed mask) are flattened into a ``[B, R]`` matrix of rows (R =
     ``gather_rows``; slots past a query's probed rows are masked), their
-    TOTAL codes gathered and dotted with the query, scored with the extended
-    estimator (``ivf.rs:2086-2099``), and the best ``top_k`` kept. The
-    gather runs over sub-blocks of queries so that the f32 codes of one
-    sub-block stay within ``_GATHER_BYTES``; outside the f32 oracle
-    configuration the query is rounded to bf16 (the codes are exact in
-    bf16, the sums f32)."""
+    TOTAL codes dotted with the query (``ops/gather_dot``; on the CPU over
+    sub-blocks of queries whose f32 codes stay within ``_GATHER_BYTES``),
+    scored with the extended estimator (``ivf.rs:2086-2099``), and the best
+    ``top_k`` kept. Outside the f32 oracle configuration the query is
+    rounded to bf16 (the codes are exact in bf16, the sums f32)."""
     b = q_rot.shape[0]
     r_idx = torch.arange(gather_rows, device=q_rot.device)
     seg_len = torch.where(within, cl_sizes[ranked], 0)  # [B, k_sel]
@@ -585,13 +587,7 @@ def _gather_scan(
     row = torch.where(valid, cl_starts[cluster] + (r_idx[None, :] - prev), 0)
 
     q_op = q_rot if scan_dtype == "f32" else q_rot.to(torch.bfloat16).to(torch.float32)
-    if ex_total.shape[1] != q_op.shape[1]:  # width-padded refine plane
-        q_op = torch.nn.functional.pad(q_op, (0, ex_total.shape[1] - q_op.shape[1]))
-    tdot = torch.empty((b, gather_rows), dtype=torch.float32, device=q_rot.device)
-    step = max(1, _GATHER_BYTES // (gather_rows * ex_total.shape[1] * 4))
-    for s in range(0, b, step):
-        codes = ex_total[row[s : s + step]].to(torch.float32)  # [b_s, R, D]
-        tdot[s : s + step] = torch.bmm(codes, q_op[s : s + step, :, None])[:, :, 0]
+    (tdot,) = gather_dot(row, (ex_total, q_op), max_bytes=_GATHER_BYTES)
     dist = f_add_ex[row] + torch.gather(g_add, 1, cluster) + f_rescale_ex[row] * (
         tdot + qc.kbx_sum_q[:, None]
     )
@@ -671,30 +667,26 @@ def _stage2_rerank(
     rows = torch.clamp_min(cand_idx, 0).to(torch.int64)  # [B, R]
     q_op = q_rot if scan_dtype == "f32" else q_rot.to(torch.bfloat16).to(torch.float32)
 
-    def _dot(plane, q):
-        codes = plane[rows].to(torch.float32)  # [B, R, D]
-        if codes.shape[-1] != q.shape[-1]:  # width-padded refine plane
-            q = torch.nn.functional.pad(q, (0, codes.shape[-1] - q.shape[-1]))
-        return torch.bmm(codes, q[:, :, None])[:, :, 0]
-
     g_add_c = torch.gather(g_add, 1, cluster_of[rows].to(torch.int64))
     if ex_bits > 0 and refine_ex and ex_plane_is_total(ex_bits):
         # single gather: <total, q> == binary_scale * bdot + edot exactly
-        total_term = _dot(ex, q_op) + qc.kbx_sum_q[:, None]
-        dist = f_add_ex[rows] + g_add_c + f_rescale_ex[rows] * total_term
+        (tdot,) = gather_dot(rows, (ex, q_op))
+        dist = f_add_ex[rows] + g_add_c + f_rescale_ex[rows] * (tdot + qc.kbx_sum_q[:, None])
     elif ex_bits > 0 and refine_ex:
         if binary is None:
             raise ValueError("the two-gather refine needs the binary plane")
+        # both rows of a survivor in one pass; raw ex codes may exceed 127: f32 query
+        bdot, edot = gather_dot(rows, (binary, q_op), (ex, q_rot))
         dist = est_ops.est_extended(
-            f_add_ex[rows], g_add_c, f_rescale_ex[rows], _dot(binary, q_op),
-            _dot(ex, q_rot),  # raw ex codes may exceed 127: f32 operands
+            f_add_ex[rows], g_add_c, f_rescale_ex[rows], bdot, edot,
             qc.binary_scale, qc.kbx_sum_q[:, None],
         )
     else:
         if binary is None:
             raise ValueError("the 1-bit re-score needs the binary plane")
+        (bdot,) = gather_dot(rows, (binary, q_op))
         dist = est_ops.est_1bit(
-            f_add[rows], g_add_c, f_rescale[rows], _dot(binary, q_op), qc.k1x_sum_q[:, None]
+            f_add[rows], g_add_c, f_rescale[rows], bdot, qc.k1x_sum_q[:, None]
         )
     dist = torch.where(cand_ok & torch.isfinite(dist), dist, float("inf"))
 
@@ -761,7 +753,8 @@ def _launch_counters():
     """(dict, key) of every kernel wrapper's launch counter."""
     slots = [(vars(f), "launches") for f in (fht_kernel, packed_lb_scan_cuda, packed_lb_plane_cuda)]
     return slots + [(d, k) for d in (fused_bin_scan_cuda.launches,
-                                     fused_bin_scan_packed_cuda.launches, top_k_cuda.launches)
+                                     fused_bin_scan_packed_cuda.launches, top_k_cuda.launches,
+                                     gather_dot_kernel.launches)
                     for k in d]
 
 

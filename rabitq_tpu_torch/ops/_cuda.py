@@ -27,7 +27,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = (
     "fht", "fused_bin_scan", "packed_bin_scan", "packed_lb_scan", "build_sums", "select",
-    "encode_queries",
+    "encode_queries", "gather_dot",
 )
 
 _P = ctypes.c_void_p
@@ -57,6 +57,7 @@ _SIGNATURES = {
     "top_k_spilled": ("select", "rabitq_top_k_spilled", (_ULP, _I)),
     "top_k_short": ("select", "rabitq_top_k_short", (_P,) * 3 + (_L, _L, _I, _I, _I, _P)),
     "encode_queries": ("encode_queries", "rabitq_encode_queries", (_P,) * 3 + (_L, _L, _I, _I, _P)),
+    "gather_dot": ("gather_dot", "rabitq_gather_dot", (_P,) * 7 + (_L,) * 4 + (_I,) * 7 + (_P,)),
 }
 
 _entries: dict = {}  # kernel name -> (library, entry point)

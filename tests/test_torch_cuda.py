@@ -1636,3 +1636,181 @@ def test_staging_block_is_reused_safely(cuda, monkeypatch):
         h_ids, h_d = _host_encoded(card, q, params, 256, 256)
         np.testing.assert_array_equal(ids, h_ids)
         np.testing.assert_array_equal(d, h_d)
+
+
+# ----------------------------------------------------------------------
+# stage 2's gather-dot (csrc/gather_dot.cu)
+# ----------------------------------------------------------------------
+# Tolerance: the kernel and its plain version (the torch chain: gather, f32
+# copy, cuBLAS batched GEMV in full f32) multiply and add in f32 and differ
+# only in the order of the additions inside a dot, so each dot lies within
+# ops.gather_dot.sum_tolerance: 2 * D * 2**-24 * sum_d |code_d * q_d|.
+
+
+def _gather_dot_case(cuda, case):
+    """(rows, pairs) on the card: the 8-bit cell's block (binary and raw ex
+    planes, 256 x 400 survivors, 1,024 columns), the TOTAL plane at 7 bits
+    (960 columns of a plane padded to 1,024), int32 raw ex codes at 9 bits,
+    one query, a ragged slot count, the gather scan's block, and planes
+    whose rows are not 16-byte aligned (width 100, int8 and int32)."""
+    n = 1 << 17
+    b, r, dim, width = {"cell": (256, 400, 1024, 1024), "total7": (256, 400, 960, 1024),
+                        "int32_9bit": (64, 400, 1024, 1024), "one_query": (1, 400, 1024, 1024),
+                        "ragged": (37, 67, 1024, 1024), "gather": (128, 4096, 960, 1024),
+                        "unaligned": (19, 33, 100, 100), "unaligned_int32": (19, 33, 99, 99)}[case]
+    g = torch.Generator(device=cuda).manual_seed(len(case))
+
+    def codes(lo, hi, w, dtype):
+        return torch.randint(lo, hi, (n, w), generator=g, device=cuda).to(dtype)
+
+    rows = torch.randint(0, n, (b, r), generator=g, device=cuda)
+    rows[0, 0], rows[-1, -1] = 0, n - 1
+    q_rot = torch.randn((b, dim), generator=g, device=cuda)
+    q_op = q_rot.to(torch.bfloat16).to(torch.float32)
+    binary = codes(0, 2, width, torch.int8)
+    if case in ("cell", "one_query", "ragged"):
+        return rows, ((binary, q_op), (codes(0, 128, width, torch.int8), q_rot))
+    if case == "int32_9bit":
+        return rows, ((binary, q_op), (codes(0, 512, width, torch.int32), q_rot))
+    if case == "unaligned":
+        return rows, ((codes(-128, 128, width, torch.int8), q_rot),)
+    if case == "unaligned_int32":
+        return rows, ((binary, q_op), (codes(-1 << 20, 1 << 20, width, torch.int32), q_rot))
+    return rows, ((codes(0, 128, width, torch.int8), q_op),)  # TOTAL codes
+
+
+@pytest.mark.parametrize("case", ["cell", "total7", "int32_9bit", "one_query", "ragged",
+                                  "gather", "unaligned", "unaligned_int32"])
+def test_gather_dot_kernel_matches_plain(cuda, case, monkeypatch):
+    from rabitq_tpu_torch.ops import gather_dot as gd
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    rows, pairs = _gather_dot_case(cuda, case)
+    key = "two_planes" if len(pairs) == 2 else "one_plane"
+    before = gd.gather_dot_kernel.launches[key]
+    got = gd.gather_dot(rows, *pairs)
+    assert gd.gather_dot_kernel.launches[key] == before + 1
+    again = gd.gather_dot_kernel(rows, *pairs)
+    want = gd.gather_dot_plain(rows, *pairs, max_bytes=1 << 30)
+    torch.cuda.synchronize()
+    for (plane, q), g_, a, w in zip(pairs, got, again, want):
+        assert g_.shape == w.shape and torch.isfinite(g_).all()
+        assert torch.equal(g_, a)  # one fixed order of additions
+        assert (g_ - w).abs().le(gd.sum_tolerance(rows, plane, q)).all()
+
+
+def test_gather_dot_kernel_in_a_graph_and_past_the_plane(cuda):
+    """A captured launch replays to the eager bits; a row index past the
+    plane gives NaN in that slot only."""
+    from rabitq_tpu_torch.ops import gather_dot as gd
+
+    rows, pairs = _gather_dot_case(cuda, "ragged")
+    eager = gd.gather_dot_kernel(rows, *pairs)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream), torch.cuda.graph(graph, stream=stream):
+        out = gd.gather_dot_kernel(rows, *pairs)
+    graph.replay()
+    torch.cuda.synchronize()
+    for o, e in zip(out, eager):
+        assert torch.equal(o, e)
+    rows = rows.clone()
+    rows[3, 5] = pairs[0][0].shape[0]
+    past = gd.gather_dot_kernel(rows, *pairs)
+    for p, e in zip(past, eager):
+        assert torch.isnan(p[3, 5]) and int(torch.isnan(p).sum()) == 1
+        assert torch.equal(p[:3], e[:3]) and torch.equal(p[4:], e[4:])
+
+
+def test_gather_dot_kernel_refuses_what_it_does_not_take(cuda):
+    from rabitq_tpu_torch.ops import gather_dot as gd
+
+    plane = torch.zeros((10, 64), dtype=torch.int8, device=cuda)
+    rows = torch.zeros((3, 5), dtype=torch.int64, device=cuda)
+    q = torch.zeros((3, 64), device=cuda)
+    for bad in ((plane.float(), q), (plane, torch.zeros((3, 65), device=cuda)),
+                (plane, torch.zeros((4, 64), device=cuda)), (plane.t(), q[:, :10]),
+                (plane.cpu(), q)):
+        with pytest.raises(ValueError):
+            gd.gather_dot_kernel(rows, bad)
+    with pytest.raises(ValueError):  # the two queries differ in shape
+        gd.gather_dot_kernel(rows, (plane, q), (plane, q[:, :32].contiguous()))
+
+
+def _stage2_case(cuda, case, monkeypatch):
+    """(index, run, the gather-dot key the run must move) for each CUDA path
+    that used to reach stage 2's dot or the gather scan's."""
+    from rabitq_tpu_torch import StreamedIvfIndex
+    from rabitq_tpu_torch.parallel.sharding import ShardedIvfIndex
+
+    params = SearchParams(top_k=10, nprobe=8)
+    if case.startswith("ivf8_"):
+        data, _, card = _cpu_and_card_indexes(cuda, 8, case[5:])
+        return lambda: card.batch_search_arrays(data[:64], params), "two_planes"
+    if case == "brute_force_packed":
+        index, run = _bf_case(cuda)
+        return run, "one_plane"
+    if case == "ivf7_two_stage":
+        monkeypatch.setenv("RABITQ_FUSED_EXACT", "0")
+    if case == "ivf7_gather":
+        monkeypatch.setenv("RABITQ_GATHER", "1")
+    data, _, card = _cpu_and_card_indexes(cuda, 8 if case == "sharded8" else 7)
+    if case == "streamed7":
+        tier = StreamedIvfIndex(card, chunk_rows=1024)
+        return lambda: tier.batch_search_arrays(data[:64], params), "one_plane"
+    if case == "sharded8":
+        sh = ShardedIvfIndex(card, devices=[cuda] * 4)
+        return lambda: sh.batch_search_arrays(data[:64], params), "two_planes"
+    return lambda: card.batch_search_arrays(data[:64], params), "one_plane"
+
+
+@pytest.mark.parametrize("case", ["ivf8_fused8", "ivf8_fused", "ivf8_packed", "ivf8_bf16",
+                                  "ivf8_int8", "ivf8_f32", "ivf7_two_stage", "ivf7_gather",
+                                  "brute_force_packed", "streamed7", "sharded8"])
+def test_gather_dot_runs_on_every_stage2_path(cuda, case, monkeypatch):
+    """Every card path that re-ranks survivors, or gathers probed rows,
+    launches the gather-dot kernel (inside the fused search's graphs, the
+    counts a replay adds), with two planes where the re-rank reads raw ex
+    codes and one for the TOTAL plane."""
+    from rabitq_tpu_torch.ops import gather_dot as gd
+
+    run, key = _stage2_case(cuda, case, monkeypatch)
+    before = dict(gd.gather_dot_kernel.launches)
+    ids, _ = run()
+    torch.cuda.synchronize()
+    assert gd.gather_dot_kernel.launches[key] > before[key]
+    assert (np.asarray(ids)[:, 0] >= 0).all()
+
+
+def test_8bit_graphs_against_the_eager_plain_chain(cuda, monkeypatch):
+    """The 8-bit fused8 search captured in its graphs (the kernel) against
+    the eager body with the plain torch chain in the kernel's place, on the
+    same queries, 11 results a query: distances of common ids within the f32
+    summation tolerance carried to distances (rtol 1e-4, or 1e-2 absolute
+    near 0, as the card-against-CPU tests), and the first 10 ids equal except
+    where the 10th and 11th distances lie within it."""
+    from rabitq_tpu_torch.index import scan
+    from rabitq_tpu_torch.ops import gather_dot as gd
+
+    data, _, card = _cpu_and_card_indexes(cuda, 8, "fused8")
+    card.upload_dtype = "int8"
+    params = SearchParams(top_k=11, nprobe=8)
+    queries = data[:256] + 0.01
+    run = lambda: card.batch_search_arrays_pipelined(  # noqa: E731
+        queries, params, batch_size=64, upload_block=128)
+    run()  # captures
+    before = gd.gather_dot_kernel.launches["two_planes"]
+    ids, d = run()
+    assert gd.gather_dot_kernel.launches["two_planes"] == before + 4
+    monkeypatch.setattr(scan, "gather_dot", lambda rows, *pairs, max_bytes=None:
+                        gd.gather_dot_plain(rows, *pairs))
+    w_ids, w_d = _eagerly(card, run)
+    tol = lambda x: np.maximum(1e-4 * np.abs(x), 1e-2)  # noqa: E731
+    for i in range(len(queries)):
+        if abs(w_d[i, 10] - w_d[i, 9]) > tol(w_d[i, 9]):
+            assert list(ids[i, :10]) == list(w_ids[i, :10])
+        want = dict(zip(w_ids[i].tolist(), w_d[i].tolist()))
+        for rid, dist in zip(ids[i].tolist(), d[i].tolist()):
+            if rid in want:
+                assert abs(dist - want[rid]) <= tol(want[rid])

@@ -194,10 +194,12 @@ def test_launch_counts_add_and_take_back():
     takes the capture's own counts back: one slot per wrapper counter."""
     from rabitq_tpu_torch.ops.fht import fht_kernel
     from rabitq_tpu_torch.ops.fused_scan import fused_bin_scan_cuda, fused_bin_scan_packed_cuda
+    from rabitq_tpu_torch.ops.gather_dot import gather_dot_kernel
     from rabitq_tpu_torch.ops.select import top_k_cuda
 
     before = tscan._read_launches()
-    assert len(before) == 11 + len(top_k_cuda.launches)  # the selection: a slot a site and type
+    n_sel = len(top_k_cuda.launches)  # the selection: a slot a site and type
+    assert len(before) == 11 + n_sel + 2  # the gather-dot: one plane, two planes
     delta = list(range(1, len(before) + 1))
     tscan._add_launches(delta)
     after = tscan._read_launches()
@@ -207,7 +209,10 @@ def test_launch_counts_add_and_take_back():
         b + d for b, d in zip(before[3:7], delta[3:7])]
     assert list(fused_bin_scan_packed_cuda.launches.values()) == [
         b + d for b, d in zip(before[7:11], delta[7:11])]
-    assert list(top_k_cuda.launches.values()) == [b + d for b, d in zip(before[11:], delta[11:])]
+    assert list(top_k_cuda.launches.values()) == [
+        b + d for b, d in zip(before[11 : 11 + n_sel], delta[11 : 11 + n_sel])]
+    assert list(gather_dot_kernel.launches.values()) == [
+        b + d for b, d in zip(before[11 + n_sel :], delta[11 + n_sel :])]
     tscan._add_launches(delta, -1)
     assert tscan._read_launches() == before
 
