@@ -620,19 +620,21 @@ class IvfRabitqIndex:
         The scan is the plan's choice (``ScanPlan.scan_kw``); ``diagnostics``
         takes the two-stage scan with its counters. The span
         ``search.dispatch`` covers it, down to the graph's input copies and
-        output clones, and counts ``k1_int8`` (1 where the bin scan takes the
-        query as int8 codes: never, since the rotation makes it f32)."""
+        output clones, with the plan's counts: ``k1_int8`` (never 1, since
+        the rotation makes the query f32) and on the dense scans
+        ``lb_pairs`` and ``survivors``."""
         with span("search.dispatch") as sp:
             lay = self.layout
-            kw, k1_int8 = self._plan.scan_kw(
-                self.scan_dtype, params.nprobe, q, qscale,
+            rerank = params.resolved_rerank()
+            kw, counts = self._plan.scan_kw(
+                self.scan_dtype, params.nprobe, q, qscale, rerank=rerank, block=sub_block,
                 exact=not diagnostics, gather=not diagnostics)
-            sp.add(k1_int8=k1_int8)
+            sp.add(**counts)
             return self._fused_scan(
                 q, lay.centroids, lay.binary, lay.ex, lay.f_add, lay.f_rescale,
                 lay.f_error, lay.f_add_ex, lay.f_rescale_ex, lay.cluster_of, row_allowed,
                 lay.ids, qscale=qscale, offset=offset, sub_block=sub_block,
-                nprobe=params.nprobe, top_k=params.top_k, rerank=params.resolved_rerank(),
+                nprobe=params.nprobe, top_k=params.top_k, rerank=rerank,
                 metric=self.metric, ex_bits=self.ex_bits, scan_dtype=self.scan_dtype,
                 approx_topk=self.approx_topk, with_diagnostics=diagnostics,
                 probe_k=probe_k_bucket(params.nprobe, self.cluster_count(), self.scan_dtype),

@@ -491,22 +491,23 @@ class MstgIndex:
         ``search.dispatch`` covers it, with the tiles the bin scan walks
         (``tiles`` of the plane's ``plane_tiles``; ``dense`` where it walks
         them all, 0 for both on the gather scan), ``rerank``, ``dedup`` and
-        ``k1_int8`` (1 where the bin scan takes the query as int8 codes: an
-        un-rotated ``scan.integer_grid`` on the EXACT bin scan)."""
+        the plan's counts (``ScanPlan.scan_kw``: ``k1_int8``, and on the
+        dense scans ``lb_pairs`` and ``survivors``)."""
         with span("search.dispatch") as sp:
-            kw, k1_int8 = self._plan.scan_kw(self.scan_dtype, params.ef_search, q, qscale)
+            rerank = max(
+                params.resolved_rerank(),
+                int(np.ceil(params.top_k * self.replication_factor())) + 16,
+            )
+            kw, counts = self._plan.scan_kw(self.scan_dtype, params.ef_search, q, qscale,
+                                            rerank=rerank, block=sub_block)
             plane_tiles = self._plan.plane_tiles
             gathered = kw["gather_rows"] is not None
             max_tiles = kw.get("max_tiles")
             tiles = 0 if gathered else plane_tiles if max_tiles is None else max_tiles
             dedup = self._has_replicas()
-            rerank = max(
-                params.resolved_rerank(),
-                int(np.ceil(params.top_k * self.replication_factor())) + 16,
-            )
             sp.add(tiles=tiles, plane_tiles=plane_tiles,
                    dense=int(not gathered and max_tiles is None), rerank=rerank,
-                   dedup=int(dedup), k1_int8=k1_int8)
+                   dedup=int(dedup), **counts)
             ids, dists = self._scan(
                 q, qscale, params, offset=offset, sub_block=sub_block,
                 top_k=rerank if dedup else params.top_k, rerank=rerank,
@@ -699,10 +700,11 @@ class MstgIndex:
         (``mstg/index.rs:349-362``)."""
         self._scan_planes()
         q = torch.from_numpy(np.asarray(query, np.float32).reshape(1, self.dim)).to(self.device)
-        kw, _ = self._plan.scan_kw(self.scan_dtype, params.ef_search, q, None,
+        rerank = params.resolved_rerank()
+        kw, _ = self._plan.scan_kw(self.scan_dtype, params.ef_search, q, None, rerank=rerank,
                                    exact=False, gather=False)
         ids, dists, diag = self._scan(
-            q, None, params, top_k=params.top_k, rerank=params.resolved_rerank(),
+            q, None, params, top_k=params.top_k, rerank=rerank,
             with_diagnostics=True, **kw,
         )
         sign = 1.0 if self.config.metric is Metric.L2 else -1.0

@@ -98,6 +98,7 @@ class ScanPlan:
             self.plane_tiles = -(-max(self.rows, 1) // TN)
             self._geometry_ok: bool | None = None
             self._max_tiles: dict = {}
+        self.plane_rows: int | None = None  # the layout's padded rows (prepare)
         self.packed: torch.Tensor | None = None  # bit planes ("packed" and fused)
         self.c_blk: torch.Tensor | None = None  # the tiles' cluster windows (fused)
         self._cl_ranges: tuple[torch.Tensor, torch.Tensor] | None = None
@@ -165,6 +166,7 @@ class ScanPlan:
     def prepare(self, lay, scan_dtype: str) -> None:
         """Bring the packed plane and the tiles' cluster windows of layout
         ``lay`` up to date for ``scan_dtype``."""
+        self.plane_rows = int(lay.ids.shape[0])
         fused = is_fused(scan_dtype)
         if (fused or scan_dtype == "packed") and self.packed is None:
             self.packed = lay.packed if lay.packed is not None else pack_bitplanes(
@@ -175,12 +177,19 @@ class ScanPlan:
                 cluster_of_rows(self.sizes, n_pad), np.arange(n_pad) < self.rows)
             self.c_blk = torch.from_numpy(c_blk).to(self.device)
 
-    def scan_kw(self, scan_dtype: str, nprobe, q, qscale, *, exact=True, gather=True):
+    def scan_kw(self, scan_dtype: str, nprobe, q, qscale, *, rerank: int, block=None,
+                exact=True, gather=True):
         """The fused search's keywords for one query block (``q`` with its
-        ``qscale``, as uploaded) and whether its bin scan takes the query as
-        int8 codes (``k1_int8``: an un-rotated ``scan.integer_grid`` on the
-        EXACT bin scan). ``exact`` / ``gather`` False keep the block off the
-        EXACT and gather scans (diagnostics measure the two-stage scan)."""
+        ``qscale``, as uploaded; ``block`` its padded rows where the scan
+        covers a window of ``q``) and the counts of its ``search.dispatch``
+        span: ``k1_int8``, whether its bin scan takes the query as int8
+        codes (an un-rotated ``scan.integer_grid`` on the EXACT bin scan);
+        on the dense scans also ``lb_pairs``, the padded queries times the
+        plane rows stage 1 scores, and ``survivors``, the padded queries
+        times the ``rerank`` rows the survivor cut keeps. The counts come
+        from shapes the host holds. ``exact`` / ``gather`` False keep the
+        block off the EXACT and gather scans (diagnostics measure the
+        two-stage scan)."""
         sw = switches()
         fused = is_fused(scan_dtype)
         fused_exact = exact and self.fused_exact(scan_dtype, sw)
@@ -199,4 +208,9 @@ class ScanPlan:
             kw["cl_starts"], kw["cl_sizes"] = self._cl_ranges
         k1_int8 = (gather_rows is None and fused_exact and not self.rotated
                    and integer_grid(q, qscale))
-        return kw, int(k1_int8)
+        counts = {"k1_int8": int(k1_int8)}
+        if not fused:
+            b = int(q.shape[0] if block is None else block)
+            counts["lb_pairs"] = b * self.plane_rows
+            counts["survivors"] = b * min(rerank, self.plane_rows)
+        return kw, counts

@@ -228,6 +228,32 @@ def test_the_serving_spans_of_a_pipelined_batch(index):
     assert second[-2:] == ["serve.results", "ivf.batch"]
 
 
+@pytest.mark.parametrize("scan_dtype", ["packed", "bf16", "fused8"])
+def test_the_dispatch_counts_a_dense_scans_pairs_and_survivors(index, scan_dtype):
+    """A dense scan's ``search.dispatch`` counts ``lb_pairs``, the block's
+    padded queries times the plane's rows that stage 1 scores, and
+    ``survivors``, the padded queries times ``rerank``; the fused scans
+    count neither."""
+    _, data = index
+    ix = tr.IvfRabitqIndex.train(data, nlist=NLIST, total_bits=8, seed=3, scan_dtype=scan_dtype,
+                                 use_faster_config=True, device="cpu")
+    ix.upload_dtype = "int8"
+    with recording():
+        ix.batch_search_arrays_pipelined(data[:70], PARAMS, batch_size=16, upload_block=32)
+        ix.batch_search(data[:3], PARAMS)
+    found = [s for s in profiling.spans() if s.name == "search.dispatch"]
+    assert [s.counts["k1_int8"] for s in found] == [0] * 6
+    if scan_dtype == "fused8":
+        assert not any("lb_pairs" in s.counts or "survivors" in s.counts for s in found)
+        return
+    n_pad = int(ix.layout.ids.shape[0])
+    rerank = PARAMS.resolved_rerank()
+    assert n_pad >= N and rerank == 400
+    blocks = [16] * 5 + [4]  # five 16-row windows, then 3 queries padded to 4
+    assert [s.counts["lb_pairs"] for s in found] == [b * n_pad for b in blocks]
+    assert [s.counts["survivors"] for s in found] == [b * rerank for b in blocks]
+
+
 def test_device_trace_adds_the_spans_as_a_track(tmp_path):
     x = torch.ones(256, 256)
     with profiling.device_trace(str(tmp_path)):
